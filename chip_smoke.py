@@ -1,0 +1,306 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Run from the root of a checkout: `python3 chip_smoke.py`. It builds the
+port's CUDA kernels from `similaritysearchbyrdf_tpu_torch/csrc/` (first use,
+cached in `build/kernels/`), then runs three phases and fails loudly — a
+non-zero exit and no result line — on any error, mismatch, or when no CUDA
+device is present:
+
+  1. kernels: each kernel against its plain PyTorch version on the card, at
+     the bench config's shapes (K1 hash at B 1024, K2 coarse scores at
+     B 1024 x 512 blocks of 8 rows of a real fit's tier), with timings;
+  2. bench_20k: the bench config (`bench.py`) on the bench corpus: fit, warm
+     fit, query, recall@10 against exact ground truth, the kernels' launch
+     counts over that main path, and agreement with the port's CPU path;
+  3. deploy_1m: 1,000,000 x 100 GloVe-shaped clustered vectors with the
+     same index config: fit, 1,000 queries, recall, peak device memory.
+
+Each phase prints one JSON line. Then come the kernel summary line
+`{"kernels": [...]}` and, last, `{"ok": true, "device": {...}}`.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# recall@10 of the JAX package at this exact config (bench.py's, plus
+# use_pallas_hash=True), 1000 self-excluded queries on make_data(seed=42),
+# exact f32 ground truth: measured on the CPU with jax 0.9.0
+# (`RDFForest.query(..., probe_mode="margin", probe_budget=16)`). The TPU
+# v5e run of bench.py (BENCH_r05.json, without use_pallas_hash) read 0.9813.
+JAX_CPU_RECALL = 0.9882
+RECALL_TOL = 0.005
+N_QUERY = 1000
+U32 = 2.0 ** -24            # unit roundoff of f32
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def bench_conf(RDFConfig, TableConfig):
+    return RDFConfig(
+        vector_dim=100, table_num=10, permutation_num=3, family_size=100,
+        partition_bits=3, lsh_table=TableConfig(chain_length=32, bucket_overflow=500),
+        query_batch_size=1024, max_candidates=4096, top_k=10, seed=31258,
+        coarse_dim=32, coarse_dtype="int8", coarse_refine=384, use_pallas_hash=True,
+    )
+
+
+QUERY_KW = dict(steps=0, probe_mode="margin", probe_budget=16)
+
+
+def clustered(n, d, n_clusters, noise, seed=7):
+    """GloVe-1.2M-shaped clustered corpus (scripts/bench_large.py:19-25)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clusters, d))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    x = centers[rng.integers(0, n_clusters, n)] + noise * rng.normal(size=(n, d))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    return x.astype(np.float32)
+
+
+def recall_at(gt: np.ndarray, got: np.ndarray) -> float:
+    hits = sum(len(set(gt[i].tolist()) & set(int(v) for v in got[i] if v >= 0))
+               for i in range(len(gt)))
+    return hits / gt.size
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
+        return 2
+    from bench import make_data
+    from similaritysearchbyrdf_tpu_torch import DenseBatch, RDFConfig, RDFForest, TableConfig
+    from similaritysearchbyrdf_tpu_torch.index import forest as F
+    from similaritysearchbyrdf_tpu_torch.ops.bitops import pack_bits_msb_first, popcount
+    from similaritysearchbyrdf_tpu_torch.ops.exact import exact_search
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import build
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import hash_kernel as K1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    emit({"allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                         "cudnn": torch.backends.cudnn.allow_tf32}})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    dev = torch.device("cuda", 0)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def median_ms(fn, reps=20, warm=3):
+        for _ in range(warm):
+            fn()
+        sync()
+        times = []
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    conf = bench_conf(RDFConfig, TableConfig)
+    x = make_data(seed=42)
+    n = x.shape[0]
+    ids = np.arange(n, dtype=np.int32)
+    xd = torch.as_tensor(x, device=dev)
+    qd = xd[:N_QUERY]
+    qids = ids[:N_QUERY]
+
+    # ---- phase 1: kernels against their plain versions --------------------
+    t0 = time.perf_counter()
+    build.library()
+    build_s = time.perf_counter() - t0
+    if build.last_build_log:
+        print(build.last_build_log, file=sys.stderr, flush=True)
+
+    forest = RDFForest(conf, device=dev).fit(DenseBatch(ids, xd))
+    state, layout = forest.state, forest.layout
+    model = state.model
+    xb = xd[:1024].contiguous()
+    hk, mk = K1.hash_dense_kernel(xb, model.proj, model.perm, emit_margins=True)
+    hp, mp = K1.hash_dense_plain(xb, model.proj, model.perm, emit_margins=True)
+    sync()
+    # hash bits may differ only where the dot is within float noise of 0
+    dots = torch.einsum("bd,tcd->btc", xb.double(), model.proj.double())
+    near_fn = (dots.abs() <= 1e-5)                                      # [B, T, C]
+    idx = model.perm.long()[None].expand(xb.shape[0], -1, -1, -1)
+    near_bits = torch.gather(near_fn[:, :, None, :].expand(-1, -1, idx.shape[2], -1), 3, idx)
+    near_mask = pack_bits_msb_first(near_bits).reshape(xb.shape[0], -1)
+    diff = hk ^ hp
+    far_mismatch = int((diff & ~near_mask).ne(0).sum())
+    near_flips = int(popcount(diff & near_mask).sum())
+    check(far_mismatch == 0, f"K1 hashes differ from the plain version in "
+                             f"{far_mismatch} words away from near-zero dots")
+    check(bool(torch.equal(torch.isinf(mk), torch.isinf(mp))), "K1 margin inf layout differs")
+    fin = torch.isfinite(mp)
+    m_err = (mk - mp).abs()[fin]
+    # each side's f32 sum is within D*u*sum|x_d p_d| of the exact dot, so
+    # the two are within twice that, whatever their summation orders
+    _, m_abs = K1.hash_dense_plain(xb.abs(), model.proj.abs(), model.perm, emit_margins=True)
+    m_bound = 2 * xb.shape[1] * U32 * m_abs[fin]
+    check(bool((m_err <= m_bound).all()), f"K1 margins exceed the f32 bound: "
+                                          f"max err {float(m_err.max())}")
+    k1_ms = median_ms(lambda: K1.hash_dense_kernel(xb, model.proj, model.perm, True))
+    k1_plain_ms = median_ms(lambda: K1.hash_dense_plain(xb, model.proj, model.perm, True))
+    xf = xd[:8192].contiguous()
+    k1_fit_ms = median_ms(lambda: K1.hash_dense_kernel(xf, model.proj, model.perm))
+    k1_fit_plain_ms = median_ms(lambda: K1.hash_dense_plain(xf, model.proj, model.perm))
+
+    # K2 on the real query path's blocks (B 1024, MB 512, bs 8) and tier
+    h, margins = F.hash_dense_with_margins(model, xb)
+    probes, pvalid = F._probe_hashes_margin(h, margins, layout, QUERY_KW["probe_budget"])
+    home = F.partition_of_hash(h, state.part_proj)
+    base_b, table_b, end_b, _, bs = F.gather_blocks(
+        state.tables, h, home, layout, 0, conf.max_candidates, True, probes, pvalid)
+    mb = base_b.shape[1]
+    tier = state.coarse_tier
+    blk_start = (base_b + torch.arange(mb, device=dev) * bs).to(torch.int32).contiguous()
+    table_i = table_b.to(torch.int32).contiguous()
+    q_low = (xb @ state.coarse_proj).to(torch.bfloat16).contiguous()
+    sk = K2.coarse_block_scores_kernel(tier, q_low, table_i, blk_start, bs)
+    sp = K2.coarse_block_scores_plain(tier, q_low, table_i, blk_start, bs)
+    sync()
+    s_abs = K2.coarse_block_scores_plain(tier.abs(), q_low.abs(), table_i, blk_start, bs)
+    s_err = (sk - sp).abs()
+    s_bound = 2 * tier.shape[2] * U32 * s_abs
+    check(bool((s_err <= s_bound).all()), f"K2 scores exceed the f32 bound: max err "
+                                          f"{float(s_err.max())}")
+    k2_ms = median_ms(lambda: K2.coarse_block_scores_kernel(tier, q_low, table_i, blk_start, bs))
+    k2_plain_ms = median_ms(lambda: K2.coarse_block_scores_plain(tier, q_low, table_i,
+                                                                 blk_start, bs))
+    emit({"phase": "kernels", "build_s": build_s,
+          "K1": {"shape": {"B": 1024, "D": 100, "T": 10, "P": 3, "C": 32},
+                 "far_mismatch_words": far_mismatch, "near_zero_bit_flips": near_flips,
+                 "max_margin_err": float(m_err.max()), "ms": k1_ms, "plain_ms": k1_plain_ms,
+                 "fit_shape_B": 8192, "fit_ms": k1_fit_ms, "fit_plain_ms": k1_fit_plain_ms},
+          "K2": {"shape": {"B": 1024, "MB": mb, "bs": bs, "L": tier.shape[0],
+                           "caprows": tier.shape[1], "cs": tier.shape[2]},
+                 "max_abs_err": float(s_err.max()),
+                 "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score",
+                 "ms": k2_ms, "plain_ms": k2_plain_ms}})
+
+    # ---- phase 2: the bench config, end to end ------------------------------
+    gt, _ = exact_search(x, x[:N_QUERY], 10, exclude_self=True, device=dev)
+    K1.LAUNCHES = K2.LAUNCHES = 0
+    forest = RDFForest(conf, device=dev).fit(DenseBatch(ids, xd))
+    got, scores = forest.query_device(qd, query_ids=qids, **QUERY_KW)
+    sync()
+    launches = {"hash_dense_kernel": K1.LAUNCHES, "coarse_block_scores_kernel": K2.LAUNCHES}
+    check(all(v > 0 for v in launches.values()), f"a kernel was not launched: {launches}")
+    got_np = got.cpu().numpy()
+    check(got_np.shape == (N_QUERY, 10) and bool(torch.isfinite(scores).all()),
+          "query output has the wrong shape or non-finite scores")
+    recall = recall_at(gt, got_np)
+    check(abs(recall - JAX_CPU_RECALL) <= RECALL_TOL,
+          f"recall@10 {recall} is not within {RECALL_TOL} of the JAX package's "
+          f"{JAX_CPU_RECALL}")
+    # the port's CPU path (the kernels' plain versions) on the same inputs
+    cpu_forest = RDFForest(conf, device="cpu").fit(DenseBatch(ids, x))
+    cpu_ids, _ = cpu_forest.query(x[:128], query_ids=qids[:128], **QUERY_KW)
+    cpu_agree = float((cpu_ids == got_np[:128]).all(axis=1).mean())
+    check(cpu_agree >= 0.99, f"GPU and CPU paths agree on only {cpu_agree} of queries")
+
+    nb_pad = forest.state.tables.bucket_keys.shape[1]
+    fit_s = float("inf")
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        st = F.fit_dense(conf, DenseBatch(ids, xd), model=forest.model,
+                         part_proj=forest.part_proj, nb_pad=nb_pad)
+        sync()
+        fit_s = min(fit_s, time.perf_counter() - t0)
+    del st
+    q_times = []
+    for _ in range(6):
+        sync()
+        t0 = time.perf_counter()
+        forest.query_device(qd, query_ids=qids, **QUERY_KW)
+        sync()
+        q_times.append(time.perf_counter() - t0)
+    q_s = float(np.median(q_times[1:]))
+    tier = forest.state.coarse_tier
+    emit({"phase": "bench_20k", "n": n, "queries": N_QUERY, "recall_at_10": recall,
+          "jax_cpu_recall_at_10": JAX_CPU_RECALL, "cpu_path_agreement": cpu_agree,
+          "launches": launches, "qps": N_QUERY / q_s, "query_s": q_s,
+          "build_vectors_per_sec": n / fit_s, "build_s": fit_s,
+          "index_bytes_per_vector": forest.index_bytes_per_vector(),
+          "coarse_tier_bytes_per_vector": tier.numel() * tier.element_size() / n})
+
+    # ---- phase 3: a deployment-size corpus ----------------------------------
+    del forest, cpu_forest
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_big = 1_000_000
+    t0 = time.perf_counter()
+    xl = clustered(n_big, 100, 20_000, 0.05)
+    gen_s = time.perf_counter() - t0
+    ids_l = np.arange(n_big, dtype=np.int32)
+    xl_d = torch.as_tensor(xl, device=dev)
+    gt_l, _ = exact_search(xl_d, xl[:N_QUERY], 10, exclude_self=True, device=dev)
+    big = RDFForest(conf, device=dev).fit(DenseBatch(ids_l, xl_d))
+    sync()
+    t0 = time.perf_counter()
+    big.fit(DenseBatch(ids_l, xl_d))
+    sync()
+    fit_l = time.perf_counter() - t0
+    ql = xl_d[:N_QUERY]
+    big.query_device(ql, query_ids=ids_l[:N_QUERY], **QUERY_KW)
+    sync()
+    t0 = time.perf_counter()
+    got_l, sc_l = big.query_device(ql, query_ids=ids_l[:N_QUERY], **QUERY_KW)
+    sync()
+    q_l = time.perf_counter() - t0
+    got_l = got_l.cpu().numpy()
+    check(got_l.shape == (N_QUERY, 10) and bool(torch.isfinite(sc_l).all()),
+          "1M query output has the wrong shape or non-finite scores")
+    st = big.state
+    emit({"phase": "deploy_1m", "n": n_big, "dim": 100, "queries": N_QUERY,
+          "corpus_gen_s": gen_s, "recall_at_10": recall_at(gt_l, got_l),
+          "qps": N_QUERY / q_l, "build_vectors_per_sec": n_big / fit_l, "build_s": fit_l,
+          "index_bytes_per_vector": big.index_bytes_per_vector(),
+          "corpus_bytes": st.corpus.numel() * 4,
+          "coarse_tier_bytes": st.coarse_tier.numel(),
+          "table_bytes": st.tables.index_bytes(),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(dev)})
+
+    emit({"kernels": [
+        {"name": "hash_dense_kernel", "route": "cuda",
+         "source": "similaritysearchbyrdf_tpu_torch/csrc/hash_kernel.cu",
+         "replaces": "similaritysearchbyrdf_tpu/ops/pallas/hash_kernel.py:103",
+         "launches": launches["hash_dense_kernel"], "max_abs_err": float(m_err.max()),
+         "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "coarse_block_scores_kernel", "route": "cuda",
+         "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
+         "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py:107",
+         "launches": launches["coarse_block_scores_kernel"],
+         "max_abs_err": float(s_err.max()), "ms": k2_ms, "plain_ms": k2_plain_ms},
+    ]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,142 @@
+"""Hash-family models: parameter generation with the JAX package's numpy draws.
+
+Counterpart of `similaritysearchbyrdf_tpu/models/families.py`. The
+parameters come from the same `np.random.default_rng` sequence, so a seed
+gives bit-equal arrays in both packages:
+
+  proj[T, C, D]  projection rows of tableNum base chains of chainLength
+  perm[T, P, C]  per-(table, permutation) function order
+                 (`AngleHashFamily.scala:143-146`)
+  b[T, C], w     p-stable offsets and width (`PStableHashFamily.scala:122-143`)
+
+The JAX package attaches hi/lo pack-weight matrices to the model when
+`use_pallas_hash` is set; they exist only to do the TPU kernel's bit-pack as
+f32 matmuls. The CUDA hash kernel packs with integer shifts from `perm`, so
+the port's model carries `perm` alone, whatever that flag says.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from ..config import RDFConfig
+from . import transforms
+
+Device = Union[str, torch.device, None]
+
+
+@dataclasses.dataclass
+class HashModel:
+    proj: torch.Tensor           # f32[T, C, D]
+    perm: torch.Tensor           # i32[T, P, C]
+    b: torch.Tensor              # f32[T, C] (zeros for angle)
+    sampling_perm: torch.Tensor  # i32[32]
+    family: str = "angle"
+    w: int = 4
+    type_of_index: str = "original"
+
+    @property
+    def table_num(self) -> int:
+        return self.proj.shape[0]
+
+    @property
+    def chain_length(self) -> int:
+        return self.proj.shape[1]
+
+    @property
+    def dim(self) -> int:
+        return self.proj.shape[2]
+
+    @property
+    def permutation_num(self) -> int:
+        return self.perm.shape[1]
+
+    @property
+    def total_tables(self) -> int:
+        return self.table_num * self.permutation_num
+
+    def to(self, device: Device) -> "HashModel":
+        return dataclasses.replace(
+            self, proj=self.proj.to(device), perm=self.perm.to(device),
+            b=self.b.to(device), sampling_perm=self.sampling_perm.to(device),
+        )
+
+
+def _model(proj, perm, b, conf: RDFConfig, family: str, w: int,
+           device: Device) -> HashModel:
+    return HashModel(
+        proj=torch.as_tensor(np.ascontiguousarray(proj), dtype=torch.float32, device=device),
+        perm=torch.as_tensor(np.ascontiguousarray(perm), dtype=torch.int32, device=device),
+        b=torch.as_tensor(np.ascontiguousarray(b), dtype=torch.float32, device=device),
+        sampling_perm=torch.as_tensor(
+            transforms.sampling_permutation(conf.sampling_seed), device=device),
+        family=family, w=w, type_of_index=conf.type_of_index,
+    )
+
+
+def _unit_rows(rng: np.random.Generator, n: int, dim: int) -> np.ndarray:
+    """Random unit vectors (`AngleHashFamily.getNewUnitVector`)."""
+    vals = rng.random((n, dim)) * np.where(rng.integers(0, 2, (n, dim)) > 0, 1.0, -1.0)
+    return (vals / np.linalg.norm(vals, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _orthogonal_rows(rng: np.random.Generator, n: int, dim: int) -> np.ndarray:
+    """QR-orthogonalized family rows in blocks of `dim`
+    (`initOrthogonalUnitVectorHashFamily`)."""
+    blocks = []
+    remaining = n
+    while remaining > 0:
+        k = min(remaining, dim)
+        blocks.append(np.linalg.qr(rng.random((dim, dim)))[0][:k])
+        remaining -= k
+    return np.concatenate(blocks, axis=0).astype(np.float32)
+
+
+def generate_angle_model(conf: RDFConfig, seed: Optional[int] = None,
+                         device: Device = None) -> HashModel:
+    """Angle (sign-random-projection) family (`AngleHashFamily.pick`)."""
+    rng = np.random.default_rng(conf.seed if seed is None else seed)
+    t, c, d, p = (conf.table_num, conf.lsh_table.chain_length,
+                  conf.vector_dim, conf.permutation_num)
+    if conf.generate_by_pulling:
+        family = (_orthogonal_rows(rng, conf.family_size, d) if conf.is_orthogonal
+                  else _unit_rows(rng, conf.family_size, d))
+        proj = family[rng.integers(0, conf.family_size, size=(t, c))]
+    else:
+        proj = _unit_rows(rng, t * c, d).reshape(t, c, d)
+    perm = np.stack(
+        [np.stack([rng.permutation(c) for _ in range(p)]) for _ in range(t)]
+    )
+    return _model(proj, perm, np.zeros((t, c), np.float32), conf, "angle",
+                  conf.pstable.w, device)
+
+
+def generate_pstable_model(conf: RDFConfig, seed: Optional[int] = None,
+                           device: Device = None) -> HashModel:
+    """p-stable (E2LSH) family (`PStableHashFamily.pick`); chains are
+    tableNum only, so permutations are identity."""
+    rng = np.random.default_rng(conf.seed if seed is None else seed)
+    t, c, d = conf.table_num, conf.lsh_table.chain_length, conf.vector_dim
+    ps = conf.pstable
+    a = rng.normal(ps.mu, ps.sigma, size=(conf.family_size, d)).astype(np.float32)
+    b_family = (rng.random(conf.family_size) * ps.w).astype(np.float32)
+    draw = rng.integers(0, conf.family_size, size=(t, c))
+    perm = np.broadcast_to(np.arange(c, dtype=np.int32), (t, 1, c))
+    return _model(a[draw], perm, b_family[draw], conf, "pStable", ps.w, device)
+
+
+def generate_model(conf: RDFConfig, seed: Optional[int] = None,
+                   device: Device = None) -> HashModel:
+    """Family dispatch (`LSH.initHashChains`). Loading hash families from
+    files (`generate_method="fromfile"`) is not ported yet."""
+    if conf.generate_method == "fromfile":
+        raise NotImplementedError("generate_method='fromfile' is not ported yet")
+    if conf.family_name == "angle":
+        return generate_angle_model(conf, seed, device)
+    if conf.family_name == "pStable":
+        return generate_pstable_model(conf, seed, device)
+    raise ValueError(f"{conf.family_name!r} is not a valid family name")

@@ -1,0 +1,56 @@
+"""Exact (brute-force) inner-product search: the ground truth.
+
+Counterpart of `similaritysearchbyrdf_tpu/ops/exact.py`: the corpus is
+streamed in chunks with a running top-k, so peak memory is chunk x B scores.
+A plain f32 `torch.matmul` (callers keep TF32 off) and `torch.topk`.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from .rerank import top_sorted
+
+
+def exact_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
+               chunk: int = 65536, exclude_diag_offset: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids int64[B, k], scores f32[B, k]). `exclude_diag_offset=j` masks
+    corpus row j+i for query i (queries that are corpus rows from j on)."""
+    n = corpus.shape[0]
+    b = queries.shape[0]
+    dev = corpus.device
+    q = queries.to(corpus.dtype)
+    best_s = torch.full((b, k), float("-inf"), dtype=torch.float32, device=dev)
+    best_i = torch.full((b, k), -1, dtype=torch.int64, device=dev)
+    qidx = torch.arange(b, device=dev)[:, None]
+    for c0 in range(0, n, chunk):
+        rows = corpus[c0:c0 + chunk]
+        scores = (q @ rows.T).to(torch.float32)                   # [B, chunk]
+        ids = torch.arange(c0, c0 + rows.shape[0], device=dev)[None, :]
+        if exclude_diag_offset is not None:
+            scores = torch.where(ids == qidx + exclude_diag_offset, float("-inf"), scores)
+        cat_s = torch.cat([best_s, scores], dim=1)
+        cat_i = torch.cat([best_i, ids.expand(b, -1)], dim=1)
+        best_s, ti = top_sorted(cat_s, k)
+        best_i = torch.gather(cat_i, 1, ti)
+    return best_i, best_s
+
+
+def exact_search(corpus, queries, k: int, batch: int = 1024,
+                 exclude_self: bool = False, device=None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Host-facing exact search over query batches; corpus and queries are
+    numpy arrays or tensors, searched on `device`."""
+    corpus_d = torch.as_tensor(corpus, dtype=torch.float32, device=device)
+    q = torch.as_tensor(queries, dtype=torch.float32, device=device)
+    out_i, out_s = [], []
+    for s0 in range(0, len(q), batch):
+        ids, scores = exact_topk(corpus_d, q[s0:s0 + batch], k,
+                                 exclude_diag_offset=s0 if exclude_self else None)
+        out_i.append(ids.cpu().numpy())
+        out_s.append(scores.cpu().numpy())
+    return np.concatenate(out_i), np.concatenate(out_s)

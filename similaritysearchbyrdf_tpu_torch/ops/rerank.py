@@ -1,0 +1,71 @@
+"""Exact top-k re-ranking of candidate sets.
+
+Counterpart of `similaritysearchbyrdf_tpu/ops/rerank.py` (the reference's
+`argsort(dataMatrix * queryVec)` re-rank, `DensevectorRDFInit.scala:487-490`):
+gather, dot, select, narrow dedup, top-k, with inner-product scores. Every
+selection is a stable sort, so ties fall as on the reference's CPU sorts
+(input order first). Scores are full f32: callers keep TF32 off.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+NEG_INF = float("-inf")
+_SENTINEL = 2**31 - 1
+
+
+def score_candidates(corpus: torch.Tensor, cand: torch.Tensor,
+                     queries: torch.Tensor) -> torch.Tensor:
+    """Masked inner-product scores f32[B, M] of candidate rows (-1 = -inf),
+    in full f32."""
+    valid = cand >= 0
+    vecs = corpus[cand.clamp(min=0).to(torch.int64)]                      # [B, M, D]
+    scores = torch.bmm(vecs, queries[:, :, None])[..., 0]
+    return torch.where(valid, scores, NEG_INF)
+
+
+def top_sorted(scores: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(top-m scores descending, their indices) with ties in index order —
+    what the reference's top_k and its sorts on the CPU give."""
+    s, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    return s[:, :m], idx[:, :m]
+
+
+def dedup_topk(cand: torch.Tensor, scores: torch.Tensor, k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k of (id, score) pairs with duplicate ids collapsed: copies of
+    one id carry equal scores, so keeping any one is exact."""
+    key = torch.where(cand >= 0, cand, _SENTINEL)
+    ids_s, order = torch.sort(key, dim=1, stable=True)
+    sc_s = torch.gather(scores, 1, order)
+    dup = torch.cat([torch.zeros_like(ids_s[:, :1], dtype=torch.bool),
+                     ids_s[:, 1:] == ids_s[:, :-1]], dim=1)
+    sc_s = torch.where(dup | (ids_s == _SENTINEL), NEG_INF, sc_s)
+    top_scores, ti = top_sorted(sc_s, k)
+    top_ids = torch.gather(ids_s, 1, ti)
+    return torch.where(top_scores > NEG_INF, top_ids, -1), top_scores
+
+
+def _dedup_width(m: int, k: int, dup_bound: int) -> int:
+    """Each id appears at most `dup_bound` times (once per table after
+    bucket-range dedup), so the unique top-k lies within the top
+    (k+1)*dup_bound scored slots."""
+    return min(m, (k + 1) * max(1, dup_bound))
+
+
+def _select_top(scores: torch.Tensor, cand: torch.Tensor, m2: int):
+    """(top-m2 scores, their candidate ids)."""
+    s2, idx = top_sorted(scores, m2)
+    return s2, torch.gather(cand, 1, idx)
+
+
+def rerank_dense(corpus: torch.Tensor, cand: torch.Tensor, queries: torch.Tensor,
+                 k: int, dup_bound: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids i32[B, k] with -1 padding, scores f32[B, k]): the whole buffer is
+    scored once, only the top slice is dedup-sorted."""
+    scores = score_candidates(corpus, cand, queries)
+    s2, c2 = _select_top(scores, cand, _dedup_width(cand.shape[1], k, dup_bound))
+    return dedup_topk(c2, s2, k)

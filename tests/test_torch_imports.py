@@ -1,0 +1,63 @@
+"""The PyTorch port stands alone: no jax, no JAX package, no build at import."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "similaritysearchbyrdf_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "similaritysearchbyrdf_tpu")
+
+
+def _imported_modules(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_jax_import(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'similaritysearchbyrdf_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import similaritysearchbyrdf_tpu_torch as p\n"
+        "import similaritysearchbyrdf_tpu_torch.interop\n"
+        "import similaritysearchbyrdf_tpu_torch.ops.exact\n"
+        "from similaritysearchbyrdf_tpu_torch.ops.kernels import build\n"
+        "assert build._lib is None, 'kernels were built at import'\n"
+        "assert 'triton' not in sys.modules\n"
+        "print(','.join(sorted(p.__all__)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert set(out.stdout.strip().split(",")) == {
+        "RDFConfig", "TableConfig", "DenseBatch", "ForestState", "RDFForest",
+        "fit_dense", "query_dense_many", "from_jax_state"}
+
+
+def test_kernel_sources_are_package_data():
+    import tomllib
+
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    data = conf["tool"]["setuptools"]["package-data"]["similaritysearchbyrdf_tpu_torch"]
+    assert "csrc/*.cu" in data and "csrc/*.cuh" in data
+    assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
+        "coarse_gather.cu", "hash_kernel.cu"]
