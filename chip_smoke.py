@@ -3,7 +3,7 @@
 
 Run from the root of a checkout: `python3 chip_smoke.py`. It builds the
 port's CUDA kernels from `similaritysearchbyrdf_tpu_torch/csrc/` (first use,
-cached in `build/kernels/`), then runs three phases and fails loudly — a
+cached in `build/kernels/`), then runs these phases and fails loudly — a
 non-zero exit and no result line — on any error, mismatch, or when no CUDA
 device is present:
 
@@ -12,9 +12,20 @@ device is present:
      B 1024 x 512 blocks of 8 rows of a real fit's tier), with timings;
   2. bench_20k: the bench config (`bench.py`) on the bench corpus: fit, warm
      fit, query, recall@10 against exact ground truth, the kernels' launch
-     counts over that main path, and agreement with the port's CPU path;
+     counts over that main path, and agreement with the port's CPU path
+     (block mode, and window mode at m_cap 32768);
   3. deploy_1m: 1,000,000 x 100 GloVe-shaped clustered vectors with the
-     same index config: fit, 1,000 queries, recall, peak device memory.
+     same index config (plus a head tier): fit, 1,000 queries, recall,
+     peak device memory;
+  4. kernels_window: K2b (window scores) against its plain version at the
+     window-mode query's shapes on the 1M fit (B 128 x 1024 windows of 64);
+  5. window_1m: the 1M forest in window mode (`scripts/bench_large.py`'s
+     config 2: m_cap 65536, refine 1024, batch 128), without and with
+     window pruning: recall, qps, the kernels' launch counts;
+  6. folded_8m: 8,000,000 x 96 Deep-shaped clustered vectors with the
+     folded tier (`scripts/bench_deep8m_coarse.py`'s operating point):
+     fit, K3 (folded rowmax) against its plain version at the query's
+     shapes, 1,024 queries, recall, qps, bytes, peak device memory.
 
 Each phase prints one JSON line. Then come the kernel summary line
 `{"kernels": [...]}` and, last, `{"ok": true, "device": {...}}`.
@@ -38,6 +49,10 @@ JAX_CPU_RECALL = 0.9882
 RECALL_TOL = 0.005
 N_QUERY = 1000
 U32 = 2.0 ** -24            # unit roundoff of f32
+# recall@10 of the JAX package on a TPU v5e at the folded_8m operating point
+# (results/deep8m_coarse_fold.json: steps 1, margin 16, refine 12288,
+# window 4096, m_cap 524288, overflow 2000): a parity reference, not a target
+TPU_DEEP8M_RECALL = 0.8605
 
 
 def check(cond, msg: str) -> None:
@@ -59,6 +74,7 @@ def bench_conf(RDFConfig, TableConfig):
 
 
 QUERY_KW = dict(steps=0, probe_mode="margin", probe_budget=16)
+WINDOW_M_CAP = 65536        # scripts/bench_large.py's config 2
 
 
 def clustered(n, d, n_clusters, noise, seed=7):
@@ -71,10 +87,248 @@ def clustered(n, d, n_clusters, noise, seed=7):
     return x.astype(np.float32)
 
 
+def deep_corpus(n, d=96, n_clusters=50_000, noise=0.05, seed=11, chunk=1 << 20):
+    """Deep-8M-shaped clustered corpus (scripts/bench_deep8m_coarse.py:75-83),
+    drawn from the same generator in the same order, a chunk of rows at a
+    time so the float64 temporaries stay small."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(n_clusters, d))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    assign = rng.integers(0, n_clusters, n)
+    out = np.empty((n, d), dtype=np.float32)
+    for c0 in range(0, n, chunk):
+        c1 = min(n, c0 + chunk)
+        x = centers[assign[c0:c1]] + noise * rng.normal(size=(c1 - c0, d))
+        out[c0:c1] = x / np.linalg.norm(x, axis=1, keepdims=True)
+    return out
+
+
 def recall_at(gt: np.ndarray, got: np.ndarray) -> float:
     hits = sum(len(set(gt[i].tolist()) & set(int(v) for v in got[i] if v >= 0))
                for i in range(len(gt)))
     return hits / gt.size
+
+
+def reset_launches() -> None:
+    """Zero every kernel's launch count, right before a main path runs."""
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_fold as K3
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import hash_kernel as K1
+
+    K1.LAUNCHES = K2.LAUNCHES = K2.WINDOW_LAUNCHES = K3.LAUNCHES = 0
+
+
+def read_launches() -> dict:
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_fold as K3
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import hash_kernel as K1
+
+    return {"hash_dense_kernel": K1.LAUNCHES, "coarse_block_scores_kernel": K2.LAUNCHES,
+            "coarse_window_scores_kernel": K2.WINDOW_LAUNCHES,
+            "coarse_rowmax_kernel": K3.LAUNCHES}
+
+
+def window_kernel_phase(big, xq, sync, median_ms) -> dict:
+    """K2b against its plain version on the window-mode query's real blocks:
+    128 queries of the 1M corpus, m_cap 65536, 64-slot windows."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch.index import forest as F
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
+
+    state, layout = big.state, big.layout
+    h, margins = F.hash_dense_with_margins(state.model, xq)
+    probes, pvalid = F._probe_hashes_margin(h, margins, layout, QUERY_KW["probe_budget"])
+    home = F.partition_of_hash(h, state.part_proj)
+    base, table, start, end, _, win = F.gather_blocks(
+        state.tables, h, home, layout, 0, WINDOW_M_CAP, True, probes, pvalid, window=64)
+    tier = state.coarse_tier
+    mb = base.shape[1]
+    blk = torch.clamp(base + torch.arange(mb, device=xq.device) * win, max=tier.shape[1] - win)
+    live = ((blk < end) & (blk + win > start)).contiguous()
+    args = [a.to(torch.int32).contiguous() for a in (table, blk, start, end)]
+    q_low = (xq @ state.coarse_proj).to(torch.bfloat16).contiguous()
+    sk = K2.coarse_window_scores_kernel(tier, q_low, *args, live, win)
+    sp = K2.coarse_window_scores_plain(tier, q_low, *args, live, win)
+    sync()
+    check(bool(torch.equal(torch.isneginf(sk), torch.isneginf(sp))),
+          "K2b masks a different set of slots than its plain version")
+    fin = torch.isfinite(sp)
+    s_abs = K2.coarse_block_scores_plain(tier.abs(), q_low.abs(), args[0], args[1], win)
+    err = (sk - sp).abs()[fin]
+    check(bool((err <= 2 * tier.shape[2] * U32 * s_abs[fin]).all()),
+          f"K2b scores exceed the f32 bound: max err {float(err.max())}")
+    out = {"shape": {"B": xq.shape[0], "MB": mb, "win": win, "L": tier.shape[0],
+                     "caprows": tier.shape[1], "cs": tier.shape[2]},
+           "live_window_share": float(live.float().mean()),
+           "valid_slot_share": float(fin.float().mean()),
+           "max_abs_err": float(err.max()),
+           "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score; -inf slots equal",
+           "ms": median_ms(lambda: K2.coarse_window_scores_kernel(tier, q_low, *args, live,
+                                                                  win)),
+           "plain_ms": median_ms(lambda: K2.coarse_window_scores_plain(tier, q_low, *args,
+                                                                       live, win))}
+    emit({"phase": "kernels_window", "K2b": out})
+    return out
+
+
+def window_phase(big, conf_l, ql, qids, gt, recall_block, cpu_agree, sync) -> dict:
+    """The 1M forest in window mode at `scripts/bench_large.py`'s config 2
+    (m_cap 65536, refine 1024, batch 128, auto 64-slot windows), without
+    pruning and keeping 256 of the 1024 windows (the JAX package's measured
+    keep, MB/4)."""
+    import time
+
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch import RDFForest
+
+    conf_w = conf_l.replace(query_batch_size=128, max_candidates=WINDOW_M_CAP,
+                            coarse_refine=1024, coarse_window=-1)
+    wf = RDFForest(conf_w, model=big.model, device=ql.device)
+    wf.state = big.state
+    out = {"phase": "window_1m", "n": big.size(), "queries": ql.shape[0], "m_cap": WINDOW_M_CAP,
+           "refine": 1024, "query_batch_size": 128, "window": 64,
+           "block_mode_recall_at_10": recall_block, "cpu_path_agreement_20k": cpu_agree}
+    reset_launches()
+    results = {keep: wf.query_device(ql, query_ids=qids, window_keep=keep, **QUERY_KW)
+               for keep in (0, 256)}
+    sync()
+    out["launches"] = read_launches()
+    check(out["launches"]["coarse_window_scores_kernel"] > 0
+          and out["launches"]["hash_dense_kernel"] > 0,
+          f"window mode did not launch its kernels: {out['launches']}")
+    for keep, (got, sc) in results.items():
+        got = got.cpu().numpy()
+        check(got.shape == (ql.shape[0], 10) and bool(torch.isfinite(sc).all()),
+              f"window_keep {keep}: wrong shape or non-finite scores")
+        rec = recall_at(gt, got)
+        check(rec >= recall_block, f"window mode (keep {keep}) recall {rec} is below "
+                                   f"block mode's {recall_block} on the same corpus")
+        times = []
+        for _ in range(4):
+            sync()
+            t0 = time.perf_counter()
+            wf.query_device(ql, query_ids=qids, window_keep=keep, **QUERY_KW)
+            sync()
+            times.append(time.perf_counter() - t0)
+        q_s = float(np.median(times[1:]))
+        out[f"keep_{keep}"] = {"recall_at_10": rec, "qps": ql.shape[0] / q_s, "query_s": q_s}
+    emit(out)
+    return out
+
+
+def folded_phase(dev, sync, median_ms):
+    """The Deep-8M operating point of the folded tier: fit, K3 against its
+    plain version at the query's real shapes, then 1,024 self-excluded
+    queries. → (K3's check and timings, launch counts of the query)."""
+    import time
+
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch import DenseBatch, RDFConfig, RDFForest, TableConfig
+    from similaritysearchbyrdf_tpu_torch.index import forest as F
+    from similaritysearchbyrdf_tpu_torch.ops.exact import exact_search
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_fold as K3
+
+    n, d, nq, qb = 8_000_000, 96, 1024, 64
+    steps, budget, refine, win, m_cap, gsl = 1, 16, 12288, 4096, 524288, 64
+    conf = RDFConfig(
+        vector_dim=d, table_num=10, permutation_num=3, family_size=100, partition_bits=3,
+        lsh_table=TableConfig(chain_length=32, bucket_overflow=2000), query_batch_size=qb,
+        max_candidates=m_cap, top_k=10, coarse_dim=16, coarse_dtype="int8",
+        coarse_refine=refine, coarse_layout="folded", coarse_group=gsl, coarse_rows_keep=0,
+        coarse_window=win)
+    t0 = time.perf_counter()
+    x = deep_corpus(n, d)
+    gen_s = time.perf_counter() - t0
+    ids = np.arange(n, dtype=np.int32)
+    xd = torch.as_tensor(x, device=dev)
+    gt, _ = exact_search(xd, x[:nq], 10, exclude_self=True, device=dev)
+    del x
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    forest = RDFForest(conf, device=dev).fit(DenseBatch(ids, xd))
+    sync()
+    t0 = time.perf_counter()
+    forest.fit(DenseBatch(ids, xd))
+    sync()
+    fit_s = time.perf_counter() - t0
+    st = forest.state
+
+    # K3 against its plain version on the query's real windows
+    q = xd[:qb].contiguous()
+    h, margins = F.hash_dense_with_margins(st.model, q)
+    probes, pvalid = F._probe_hashes_margin(h, margins, forest.layout, budget)
+    home = F.partition_of_hash(h, st.part_proj)
+    folded = st.coarse_folded
+    _, capf, lanes = folded.shape
+    fold = lanes // st.coarse_proj.shape[1]
+    base, table, start, end, _, _ = F.gather_blocks(
+        st.tables, h, home, forest.layout, steps, m_cap, True, probes, pvalid, window=win,
+        align=max(gsl, 8 * fold))
+    blk = torch.clamp(base + torch.arange(base.shape[1], device=dev) * win, 0,
+                      capf * fold - win)
+    live = (blk < end) & (blk + win > start)
+    rs = torch.where(live, blk // fold, -1).to(torch.int32).contiguous()
+    table = table.to(torch.int32).contiguous()
+    qi8 = F.query_int8(q, st.coarse_proj)
+    wpr, rpg, mshift = win // fold, gsl // fold, gsl.bit_length() - 1
+    mismatched, max_err = {}, 0
+    for emit2 in (False, True):
+        got = K3.coarse_rowmax_kernel(folded, qi8, table, rs, wpr, rpg, mshift, emit2)
+        want = K3.coarse_rowmax_plain(folded, qi8, table, rs, wpr, rpg, mshift, emit2)
+        pairs = list(zip(got, want)) if emit2 else [(got, want)]
+        mismatched[f"emit2_{emit2}"] = sum(int((g != w).sum()) for g, w in pairs)
+        max_err = max([max_err] + [int((g.long() - w.long()).abs().max()) for g, w in pairs])
+    sync()
+    check(not any(mismatched.values()), f"K3 differs from its plain version: {mismatched}")
+    k3 = {"shape": {"B": qb, "MB": base.shape[1], "wpr": wpr, "fold": fold, "rpg": rpg,
+                    "mshift": mshift, "L": folded.shape[0], "capf": capf, "lanes": lanes},
+          "live_window_share": float(live.float().mean()),
+          "mismatched_words": mismatched, "max_abs_err": float(max_err),
+          "tolerance": "bit for bit (0 mismatched words)"}
+    for emit2 in (False, True):
+        sfx = "_emit2" if emit2 else ""
+        k3["ms" + sfx] = median_ms(lambda: K3.coarse_rowmax_kernel(
+            folded, qi8, table, rs, wpr, rpg, mshift, emit2))
+        k3["plain_ms" + sfx] = median_ms(lambda: K3.coarse_rowmax_plain(
+            folded, qi8, table, rs, wpr, rpg, mshift, emit2))
+    emit({"phase": "kernels_folded", "K3": k3})
+
+    qkw = dict(steps=steps, probe_mode="margin", probe_budget=budget)
+    qd, qids = xd[:nq], ids[:nq]
+    reset_launches()
+    got, sc = forest.query_device(qd, query_ids=qids, **qkw)
+    sync()
+    launches = read_launches()
+    check(launches["coarse_rowmax_kernel"] > 0 and launches["hash_dense_kernel"] > 0,
+          f"the folded path did not launch its kernels: {launches}")
+    got = got.cpu().numpy()
+    check(got.shape == (nq, 10) and bool(torch.isfinite(sc).all()),
+          "folded query output has the wrong shape or non-finite scores")
+    rec = recall_at(gt, got)
+    times = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        forest.query_device(qd, query_ids=qids, **qkw)
+        sync()
+        times.append(time.perf_counter() - t0)
+    q_s = float(np.median(times))
+    emit({"phase": "folded_8m", "n": n, "dim": d, "queries": nq, "corpus_gen_s": gen_s,
+          "config": {"bucket_overflow": 2000, "coarse_dim": 16, "coarse_group": gsl,
+                     "rows_keep": 0, "window": win, "m_cap": m_cap, "refine": refine,
+                     "steps": steps, "probe_budget": budget, "query_batch_size": qb},
+          "recall_at_10": rec, "tpu_v5e_recall_at_10": TPU_DEEP8M_RECALL,
+          "recall_gap": rec - TPU_DEEP8M_RECALL, "launches": launches,
+          "qps": nq / q_s, "query_s": q_s, "build_vectors_per_sec": n / fit_s,
+          "build_s": fit_s, "index_bytes_per_vector": forest.index_bytes_per_vector(),
+          "coarse_tier_bytes_per_vector": st.coarse_tier.numel() / n,
+          "corpus_bytes": st.corpus.numel() * 4, "coarse_tier_bytes": st.coarse_tier.numel(),
+          "table_bytes": st.tables.index_bytes(),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(dev)})
+    return k3, launches
 
 
 def main() -> int:
@@ -89,6 +343,7 @@ def main() -> int:
     from similaritysearchbyrdf_tpu_torch.ops.bitops import pack_bits_msb_first, popcount
     from similaritysearchbyrdf_tpu_torch.ops.exact import exact_search
     from similaritysearchbyrdf_tpu_torch.ops.kernels import build
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_fold as K3
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
     from similaritysearchbyrdf_tpu_torch.ops.kernels import hash_kernel as K1
 
@@ -172,7 +427,7 @@ def main() -> int:
     h, margins = F.hash_dense_with_margins(model, xb)
     probes, pvalid = F._probe_hashes_margin(h, margins, layout, QUERY_KW["probe_budget"])
     home = F.partition_of_hash(h, state.part_proj)
-    base_b, table_b, end_b, _, bs = F.gather_blocks(
+    base_b, table_b, _, end_b, _, bs = F.gather_blocks(
         state.tables, h, home, layout, 0, conf.max_candidates, True, probes, pvalid)
     mb = base_b.shape[1]
     tier = state.coarse_tier
@@ -203,7 +458,7 @@ def main() -> int:
 
     # ---- phase 2: the bench config, end to end ------------------------------
     gt, _ = exact_search(x, x[:N_QUERY], 10, exclude_self=True, device=dev)
-    K1.LAUNCHES = K2.LAUNCHES = 0
+    reset_launches()
     forest = RDFForest(conf, device=dev).fit(DenseBatch(ids, xd))
     got, scores = forest.query_device(qd, query_ids=qids, **QUERY_KW)
     sync()
@@ -221,6 +476,13 @@ def main() -> int:
     cpu_ids, _ = cpu_forest.query(x[:128], query_ids=qids[:128], **QUERY_KW)
     cpu_agree = float((cpu_ids == got_np[:128]).all(axis=1).mean())
     check(cpu_agree >= 0.99, f"GPU and CPU paths agree on only {cpu_agree} of queries")
+    # the same in window mode (K2b and its plain version), reported by window_1m
+    win_kw = dict(QUERY_KW, coarse_window=64, m_cap=32768)
+    win_gpu, _ = forest.query(x[:128], query_ids=qids[:128], **win_kw)
+    win_cpu, _ = cpu_forest.query(x[:128], query_ids=qids[:128], **win_kw)
+    win_cpu_agree = float((win_cpu == win_gpu).all(axis=1).mean())
+    check(win_cpu_agree >= 0.99,
+          f"window mode: GPU and CPU paths agree on only {win_cpu_agree} of queries")
 
     nb_pad = forest.state.tables.bucket_keys.shape[1]
     fit_s = float("inf")
@@ -259,7 +521,9 @@ def main() -> int:
     ids_l = np.arange(n_big, dtype=np.int32)
     xl_d = torch.as_tensor(xl, device=dev)
     gt_l, _ = exact_search(xl_d, xl[:N_QUERY], 10, exclude_self=True, device=dev)
-    big = RDFForest(conf, device=dev).fit(DenseBatch(ids_l, xl_d))
+    # a head tier for window_1m's pruning; block mode does not read it
+    conf_l = conf.replace(coarse_head_pool=64)
+    big = RDFForest(conf_l, device=dev).fit(DenseBatch(ids_l, xl_d))
     sync()
     t0 = time.perf_counter()
     big.fit(DenseBatch(ids_l, xl_d))
@@ -276,14 +540,24 @@ def main() -> int:
     check(got_l.shape == (N_QUERY, 10) and bool(torch.isfinite(sc_l).all()),
           "1M query output has the wrong shape or non-finite scores")
     st = big.state
+    recall_l = recall_at(gt_l, got_l)
     emit({"phase": "deploy_1m", "n": n_big, "dim": 100, "queries": N_QUERY,
-          "corpus_gen_s": gen_s, "recall_at_10": recall_at(gt_l, got_l),
+          "corpus_gen_s": gen_s, "recall_at_10": recall_l,
           "qps": N_QUERY / q_l, "build_vectors_per_sec": n_big / fit_l, "build_s": fit_l,
           "index_bytes_per_vector": big.index_bytes_per_vector(),
           "corpus_bytes": st.corpus.numel() * 4,
           "coarse_tier_bytes": st.coarse_tier.numel(),
           "table_bytes": st.tables.index_bytes(),
           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)})
+
+    # ---- phases 4 and 5: window mode on the 1M forest -----------------------
+    k2b = window_kernel_phase(big, xl_d[:128].contiguous(), sync, median_ms)
+    win = window_phase(big, conf_l, ql, ids_l[:N_QUERY], gt_l, recall_l, win_cpu_agree, sync)
+    del big, st, xl, xl_d, ql
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: the folded tier on an 8M corpus ----------------------------
+    k3, launches_f = folded_phase(dev, sync, median_ms)
 
     emit({"kernels": [
         {"name": "hash_dense_kernel", "route": "cuda",
@@ -296,6 +570,16 @@ def main() -> int:
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py:107",
          "launches": launches["coarse_block_scores_kernel"],
          "max_abs_err": float(s_err.max()), "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "coarse_window_scores_kernel", "route": "cuda",
+         "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
+         "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py:544,569,590,626,647",
+         "launches": win["launches"]["coarse_window_scores_kernel"],
+         "max_abs_err": k2b["max_abs_err"], "ms": k2b["ms"], "plain_ms": k2b["plain_ms"]},
+        {"name": "coarse_rowmax_kernel", "route": "cuda",
+         "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_fold.cu",
+         "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_fold.py:253",
+         "launches": launches_f["coarse_rowmax_kernel"],
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

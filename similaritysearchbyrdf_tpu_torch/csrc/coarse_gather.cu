@@ -1,9 +1,11 @@
-// K2: coarse gather-score kernel for Hopper (sm_90a).
+// K2 and K2b: coarse gather-score kernels for Hopper (sm_90a).
 //
-// Replaces the TPU kernels of similaritysearchbyrdf_tpu/ops/pallas/
-// coarse_gather.py: `pallas_coarse_scores` (`_kernel`, blocks at arbitrary
-// starts) and, by function, `pallas_coarse_scores_aligned` (8-aligned
-// windows). For every (query b, block m) it reads `bs` contiguous rows of
+// Replace the TPU kernels of similaritysearchbyrdf_tpu/ops/pallas/
+// coarse_gather.py: K2 `pallas_coarse_scores` (`_kernel`, blocks at
+// arbitrary starts, block mode) and K2b `pallas_coarse_scores_aligned`
+// (`_kernel_aligned*`, aligned windows of window mode, dead windows
+// skipped; see `coarse_window_scores_kernel` below for what K2b adds).
+// For every (query b, block m) K2 reads `bs` contiguous rows of
 // table t = clip(table[b, m], 0, L-1) starting at s = clip(start[b, m], 0,
 // caprows-bs) of the per-table int8 tier [L, caprows, cs], and writes
 //   out[b, m, j] = sum_c float(tier[t, s+j, c]) * float(q[b, c])
@@ -30,6 +32,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -93,17 +96,95 @@ coarse_block_scores_kernel(const int8_t* __restrict__ tier,
   }
 }
 
+// K2b: scores of aligned windows with the validity mask fused in. Same warp
+// layout and loads as K2 (one warp per (query, window), the query in
+// registers, one coalesced 8-byte load per lane and row chunk). A window
+// with live[i] == 0 reads neither the query nor the tier and writes -inf;
+// a slot whose position blk_start + j lies outside [start, end) issues no
+// load and writes -inf. The rows read start at clip(blk_start, 0,
+// caprows - win), as K2 clips; callers pass blk_start already clamped.
+// Bound: bytes, as K2. At the window-mode query's shapes (B 128, MB 1024,
+// win 64, cs 32) a call writes 33.5 MB of scores and reads at most 268 MB
+// of tier rows, less by the dead windows and masked slots it skips; the
+// fused mask saves the caller two elementwise passes over the scores.
+template <int CPR>
+__global__ void __launch_bounds__(kThreads)
+coarse_window_scores_kernel(const int8_t* __restrict__ tier,
+                            const __nv_bfloat16* __restrict__ q,
+                            const int* __restrict__ table,
+                            const int* __restrict__ blk_start,
+                            const int* __restrict__ start, const int* __restrict__ end,
+                            const uint8_t* __restrict__ live, float* __restrict__ out,
+                            int L, int caprows, int B, int MB, int win) {
+  constexpr int CS = CPR * 8;
+  constexpr int kRowsPerPass = 32 / CPR;
+  const int lane = threadIdx.x & 31;
+  const int chunk = lane % CPR;
+  const int row_in_pass = lane / CPR;
+  const long long n_windows = (long long)B * MB;
+  const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+       i < n_windows; i += n_warps) {    // warp-uniform
+    float* o = out + i * win;
+    if (!live[i]) {
+      for (int r = lane; r < win; r += 32) o[r] = -INFINITY;
+      continue;
+    }
+    const int b = (int)(i / MB);
+    float qv[8];
+    const uint4 raw = *reinterpret_cast<const uint4*>(q + (size_t)b * CS + chunk * 8);
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h2[k]);
+      qv[2 * k] = f.x;
+      qv[2 * k + 1] = f.y;
+    }
+    const int t = min(max(table[i], 0), L - 1);
+    const int p0 = blk_start[i];
+    const int lo = start[i];
+    const int hi = end[i];
+    const int s = min(max(p0, 0), caprows - win);
+    const int8_t* rows = tier + ((size_t)t * caprows + s) * CS + chunk * 8;
+    for (int r0 = 0; r0 < win; r0 += kRowsPerPass) {
+      const int r = r0 + row_in_pass;
+      const bool valid = r < win && p0 + r >= lo && p0 + r < hi;
+      float acc = 0.f;
+      if (valid) acc = dot8(*reinterpret_cast<const uint2*>(rows + (size_t)r * CS), qv);
+#pragma unroll
+      for (int off = CPR / 2; off > 0; off >>= 1) {
+        acc += __shfl_xor_sync(kFull, acc, off);
+      }
+      if (chunk == 0 && r < win) o[r] = valid ? acc : -INFINITY;
+    }
+  }
+}
+
+int grid_for(long long n_items) {
+  const long long warps_per_cta = kThreads / 32;
+  const long long ctas = (n_items + warps_per_cta - 1) / warps_per_cta;
+  return (int)(ctas < 132 * 32 ? ctas : 132 * 32);
+}
+
 template <int CPR>
 int launch(const void* tier, const void* q, const void* table, const void* start,
            void* out, int L, int caprows, int B, int MB, int bs, cudaStream_t stream) {
-  const long long n_blocks = (long long)B * MB;
-  const long long warps_per_cta = kThreads / 32;
-  const long long ctas = (n_blocks + warps_per_cta - 1) / warps_per_cta;
-  const int grid = (int)(ctas < 132 * 32 ? ctas : 132 * 32);
-  coarse_block_scores_kernel<CPR><<<grid, kThreads, 0, stream>>>(
+  coarse_block_scores_kernel<CPR><<<grid_for((long long)B * MB), kThreads, 0, stream>>>(
       static_cast<const int8_t*>(tier), static_cast<const __nv_bfloat16*>(q),
       static_cast<const int*>(table), static_cast<const int*>(start),
       static_cast<float*>(out), L, caprows, B, MB, bs);
+  return (int)cudaGetLastError();
+}
+
+template <int CPR>
+int launch_window(const void* tier, const void* q, const void* table, const void* blk_start,
+                  const void* start, const void* end, const void* live, void* out, int L,
+                  int caprows, int B, int MB, int win, cudaStream_t stream) {
+  coarse_window_scores_kernel<CPR><<<grid_for((long long)B * MB), kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(tier), static_cast<const __nv_bfloat16*>(q),
+      static_cast<const int*>(table), static_cast<const int*>(blk_start),
+      static_cast<const int*>(start), static_cast<const int*>(end),
+      static_cast<const uint8_t*>(live), static_cast<float*>(out), L, caprows, B, MB, win);
   return (int)cudaGetLastError();
 }
 
@@ -128,4 +209,30 @@ extern "C" int rdf_coarse_block_scores(const void* tier, const void* q,
     case 256: return launch<32>(tier, q, table, start, out, L, caprows, B, MB, bs, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// K2b. tier i8[L, caprows, cs], q bf16[B, cs], table, blk_start, start and
+// end i32[B, MB], live u8[B, MB] (all contiguous, tier and q 16-byte
+// aligned); out f32[B, MB, win] with out[b, m, j] = the K2 score of row
+// clip(blk_start, 0, caprows-win) + j when live[b, m] and start[b, m] <=
+// blk_start[b, m] + j < end[b, m], else -inf. cs as for K2, caprows >= win.
+extern "C" int rdf_coarse_window_scores(const void* tier, const void* q, const void* table,
+                                        const void* blk_start, const void* start,
+                                        const void* end, const void* live, void* out,
+                                        int L, int caprows, int cs, int B, int MB, int win,
+                                        void* stream) {
+  if ((long long)B * MB == 0) return 0;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define RDF_WIN(CPR) \
+  launch_window<CPR>(tier, q, table, blk_start, start, end, live, out, L, caprows, B, MB, win, st)
+  switch (cs) {
+    case 8: return RDF_WIN(1);
+    case 16: return RDF_WIN(2);
+    case 32: return RDF_WIN(4);
+    case 64: return RDF_WIN(8);
+    case 128: return RDF_WIN(16);
+    case 256: return RDF_WIN(32);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef RDF_WIN
 }

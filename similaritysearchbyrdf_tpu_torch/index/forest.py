@@ -1,18 +1,28 @@
 """RDFForest: the dense Dynamic Partition Forest on PyTorch.
 
-Counterpart of `similaritysearchbyrdf_tpu/index/forest.py`, block mode:
+Counterpart of `similaritysearchbyrdf_tpu/index/forest.py`:
 
 fit   hash the corpus (K1) → partition-hash → composite keys → per-table
       stable sort → overflow-rule leaf buckets; with `coarse_dim`, an int8
-      coarse tier of every corpus row per table in bucket-sorted order.
+      coarse tier of every corpus row per table in bucket-sorted order (and,
+      with `coarse_head_pool`, its mean-pooled head tier).
 query hash with margins (K1) → probe keys (partition steps x bit flips) →
       bucket lookup → range dedup with step-distance priority → ragged
-      flatten into blocks of 8 slots → coarse block scores (K2) → top-m2
-      select → exact f32 rerank with deduplicated top-k.
+      flatten, then one of three coarse paths and an exact f32 rerank with
+      deduplicated top-k:
+      * block mode (m_cap < 32768): blocks of 8 slots → coarse block scores
+        (K2) → top-m2 select;
+      * window mode (m_cap >= 32768, `coarse_window`): aligned 64-slot
+        windows → optional head-tier window pruning (`window_keep`) →
+        window scores with the validity mask fused (K2b) → strided 4-way
+        tournament → top-m2 select;
+      * folded layout (`coarse_layout="folded"`): aligned windows of the
+        slot-folded view of the tier → packed per-row maxima (K3) → group
+        max → group select, optional id dedup (`select_mult`) or staged
+        int8 rerank (`stage2`).
 
-Not ported yet: window mode and its pruning, the folded tier and the
-groupmax path, the PCA coarse basis, a bf16 coarse tier, the bf16 two-stage
-rerank (`rerank_dtype="bfloat16"`), sparse corpora.
+Not ported yet: the PCA coarse basis, a bf16 coarse tier, the bf16
+two-stage rerank (`rerank_dtype="bfloat16"`), sparse corpora.
 """
 
 from __future__ import annotations
@@ -28,7 +38,8 @@ from ..models.families import Device, HashModel, generate_model
 from ..ops import rerank as rerank_ops
 from ..ops.bitops import clz, to_key
 from ..ops.hashing import hash_dense, hash_dense_with_margins
-from ..ops.kernels.coarse_gather import coarse_block_scores_kernel
+from ..ops.kernels.coarse_fold import I32_DEAD, coarse_rowmax_kernel
+from ..ops.kernels.coarse_gather import coarse_block_scores_kernel, coarse_window_scores_kernel
 from ..vectors import DenseBatch
 from .bucket_table import KEY_PAD, BucketTables, KeyLayout, build_tables, composite_keys, lookup_ranges
 from .partitioner import generate_partition_projections, partition_of_hash, stepwise_patterns
@@ -49,10 +60,28 @@ class ForestState:
     # per-table coarse rows in bucket-sorted order, so a query block's rows
     # are contiguous (padding rows 0)
     coarse_tier: Optional[torch.Tensor] = None    # i8[L, Npad+ID_PAD, cs]
+    # mean-pooled head tier for window pruning (`coarse_head_pool` rows per
+    # head row, lane layout only)
+    coarse_head: Optional[torch.Tensor] = None    # bf16[L, ceil(caprows/hp), cs]
+    # "folded": queries run the groupmax path on `coarse_folded`
+    coarse_layout: str = "lane"
 
     @property
     def capacity(self) -> int:
         return self.corpus.shape[0]
+
+    @property
+    def coarse_folded(self) -> Optional[torch.Tensor]:
+        """The slot-folded tier i8[L, caprows/fold, fold*cs]: a view of
+        `coarse_tier` (the JAX package's `_fill_folded` is a row-major
+        reshape of the same rows), or None outside the folded layout."""
+        if self.coarse_layout != "folded" or self.coarse_tier is None:
+            return None
+        l, caprows, cs = self.coarse_tier.shape
+        fold = coarse_fold_factor(cs)
+        if caprows % fold:
+            raise ValueError(f"coarse tier rows {caprows} are not a multiple of fold {fold}")
+        return self.coarse_tier.view(l, caprows // fold, fold * cs)
 
     @property
     def device(self) -> torch.device:
@@ -88,6 +117,14 @@ def coarse_seg_width(cd: int) -> int:
         if cd <= cs:
             return cs
     return int(np.ceil(cd / 128.0) * 128)
+
+
+def coarse_fold_factor(cs: int) -> int:
+    """Slots per physical row of the folded tier: 128 // cs for the packable
+    widths, 1 for a 128 multiple. Not a hardware unit here but part of the
+    semantics: a physical row is what the rowmax reduces over and what the
+    member bits address, as in the JAX package."""
+    return max(1, 128 // cs)
 
 
 def _coarse_projection(d: int, cd: int, seed: int, mode: str = "random") -> np.ndarray:
@@ -128,6 +165,24 @@ def _build_coarse_tier(corpus: torch.Tensor, sorted_ids: torch.Tensor, coarse_di
     return coarse_proj, tier
 
 
+def build_head_tier(tier: torch.Tensor, sorted_ids: torch.Tensor, hp: int) -> torch.Tensor:
+    """Head tier bf16[L, ceil(caprows/hp), cs] for window pruning: row r of
+    table t is the mean of the table's live coarse rows [r*hp, (r+1)*hp),
+    summed in f32 (exact for int8) and divided by the live count, as the JAX
+    package's `build_head_tier` does per lane segment. Built a table at a
+    time, so the f32 sums never hold more than one table."""
+    l, caprows, cs = tier.shape
+    hr = -(-caprows // hp)
+    pad = hr * hp - caprows
+    out = torch.empty((l, hr, cs), dtype=torch.bfloat16, device=tier.device)
+    for t in range(l):
+        rows = torch.nn.functional.pad(tier[t], (0, 0, 0, pad)).to(torch.float32)
+        live = torch.nn.functional.pad((sorted_ids[t] >= 0).to(torch.int32), (0, pad))
+        cnt = live.view(hr, hp).sum(dim=1).clamp(min=1).to(torch.float32)
+        out[t] = (rows.view(hr, hp, cs).sum(dim=1) / cnt[:, None]).to(torch.bfloat16)
+    return out
+
+
 def fit_dense(conf: RDFConfig, batch: DenseBatch, model: Optional[HashModel] = None,
               part_proj: Optional[torch.Tensor] = None, nb_pad: Optional[int] = None,
               device: Device = None) -> ForestState:
@@ -135,8 +190,11 @@ def fit_dense(conf: RDFConfig, batch: DenseBatch, model: Optional[HashModel] = N
     `DensevectorRDFInit.scala:127-206`). `batch.values` may be a numpy array
     or a tensor; the forest lives on `device` (default: the tensor's, else
     the CPU)."""
-    if conf.coarse_dim and conf.coarse_layout != "lane":
-        raise NotImplementedError(f"coarse_layout={conf.coarse_layout!r} is not ported yet")
+    if conf.coarse_layout not in ("lane", "folded"):
+        raise ValueError(f"unknown coarse_layout {conf.coarse_layout!r}")
+    if conf.coarse_dim and conf.coarse_layout == "folded" and conf.coarse_dtype != "int8":
+        raise ValueError("coarse_layout='folded' requires coarse_dtype='int8' (the groupmax "
+                         "kernel packs integer scores)")
     if conf.rerank_dtype != "float32":
         raise NotImplementedError(f"rerank_dtype={conf.rerank_dtype!r} is not ported yet")
     if isinstance(batch.values, torch.Tensor) and device is None:
@@ -161,14 +219,18 @@ def fit_dense(conf: RDFConfig, batch: DenseBatch, model: Optional[HashModel] = N
     ids = torch.where(pos < n, pos, -1).expand_as(keys)
     tables = build_tables(keys, ids, layout, conf.lsh_table.bucket_overflow, nb_pad=nb_pad)
     del keys, ids
-    coarse_proj = coarse_tier = None
+    coarse_proj = coarse_tier = coarse_head = None
     if conf.coarse_dim:
         coarse_proj, coarse_tier = _build_coarse_tier(
             values, tables.sorted_ids, conf.coarse_dim, conf.coarse_dtype, conf.seed,
             proj_mode=conf.coarse_proj_mode)
+        if conf.coarse_layout == "lane" and conf.coarse_head_pool:
+            coarse_head = build_head_tier(coarse_tier, tables.sorted_ids,
+                                          conf.coarse_head_pool)
     return ForestState(
         model=model, part_proj=part_proj, tables=tables, corpus=values, row_ids=row_ids,
-        coarse_proj=coarse_proj, coarse_tier=coarse_tier,
+        coarse_proj=coarse_proj, coarse_tier=coarse_tier, coarse_head=coarse_head,
+        coarse_layout=conf.coarse_layout,
     )
 
 
@@ -231,12 +293,19 @@ def probe_key_set(h: torch.Tensor, home: torch.Tensor, layout: KeyLayout, steps:
 def gather_blocks(tables: BucketTables, h: torch.Tensor, home: torch.Tensor,
                   layout: KeyLayout, steps: int, m_cap: int, multiprobe: bool,
                   probes: Optional[torch.Tensor] = None,
-                  probe_valid: Optional[torch.Tensor] = None):
+                  probe_valid: Optional[torch.Tensor] = None,
+                  window: int = 0, align: int = 8):
     """Probe fan-out → bucket ranges → dedup and priority → ragged flatten
-    at block granularity (block mode). Returns (base, table, end, total, bs):
+    at block granularity. Returns (base, table, start, end, total, bs):
     base/table/end int64[B, MB], total int64[B]; block mb covers sorted
     positions [base + mb*bs, base + (mb+1)*bs) of its table, and a slot is
-    valid while its position is < end."""
+    valid while its position is < end (and >= start in window mode; start
+    is None in block mode).
+
+    window > 0 is the aligned-window mode: each range's allocation starts at
+    its `align`-aligned head (start & ~(align-1)) and rounds up to whole
+    windows of `window` slots, so every window is aligned and `window`
+    long; rows before the range's true start are masked by `start`."""
     b, l = h.shape
     dev = h.device
     probe_keys, valid = probe_key_set(h, home, layout, steps, multiprobe, probes, probe_valid)
@@ -277,20 +346,31 @@ def gather_blocks(tables: BucketTables, h: torch.Tensor, home: torch.Tensor,
     # the last range whose first block is <= mb (the reference builds the
     # same assignment with a merge sort and prefix sums, which suits a TPU;
     # here it is one binary search per block)
-    bs = 8 if (m_cap % 8 == 0 and m_cap >= 4096) else 1
+    if window:
+        if m_cap % window or window % align:
+            raise ValueError(f"window {window} must divide m_cap {m_cap} and be a "
+                             f"multiple of align {align}")
+        bs = window
+        head = start_s & (align - 1)
+        alloc_start = start_s - head
+        alen = torch.where(length_s > 0, (head + length_s + (bs - 1)) // bs * bs, 0)
+    else:
+        bs = 8 if (m_cap % 8 == 0 and m_cap >= 4096) else 1
+        alloc_start = start_s
+        alen = (length_s + (bs - 1)) // bs * bs
     mb_cap = m_cap // bs
-    alen = (length_s + (bs - 1)) // bs * bs
     cum = torch.cumsum(alen, dim=1)
     first_block = torch.clamp((cum - alen) // bs, max=mb_cap)
-    block_base = start_s - (cum - alen)
+    block_base = alloc_start - (cum - alen)
     end_r = start_s + length_s
     mb = torch.arange(mb_cap, device=dev).expand(b, mb_cap).contiguous()
     owner = torch.searchsorted(first_block.contiguous(), mb, right=True) - 1   # >= 0
     base_b = torch.gather(block_base, 1, owner)
     table_b = torch.gather(table_s, 1, owner)
+    start_b = torch.gather(start_s, 1, owner) if window else None
     end_b = torch.gather(end_r, 1, owner)
     total = torch.clamp(length_s.sum(dim=1), max=m_cap)
-    return base_b, table_b, end_b, total, bs
+    return base_b, table_b, start_b, end_b, total, bs
 
 
 def _gather_id_blocks(sorted_ids: torch.Tensor, base_b: torch.Tensor,
@@ -311,7 +391,7 @@ def gather_candidates(tables: BucketTables, h, home, layout: KeyLayout, steps: i
                       m_cap: int, multiprobe: bool, probes=None, probe_valid=None):
     """Probe fan-out → ranges → flatten into a fixed candidate buffer.
     → (cand i32[B, m_cap] row positions, -1 invalid; total int64[B])."""
-    base_b, table_b, end_b, total, bs = gather_blocks(
+    base_b, table_b, _, end_b, total, bs = gather_blocks(
         tables, h, home, layout, steps, m_cap, multiprobe, probes, probe_valid)
     pos = base_b.repeat_interleave(bs, dim=1) + torch.arange(m_cap, device=h.device)
     slot_end = end_b.repeat_interleave(bs, dim=1)
@@ -324,23 +404,95 @@ def gather_candidates(tables: BucketTables, h, home, layout: KeyLayout, steps: i
 # ---------------------------------------------------------------------------
 
 
+def _i32(a: torch.Tensor) -> torch.Tensor:
+    return a.to(torch.int32).contiguous()
+
+
 def _coarse_block_scores(tier: torch.Tensor, coarse_proj: torch.Tensor,
                          queries: torch.Tensor, base_b: torch.Tensor,
-                         table_b: torch.Tensor, end_b: torch.Tensor, bs: int):
+                         table_b: torch.Tensor, end_b: torch.Tensor, bs: int,
+                         start_b: Optional[torch.Tensor] = None, abs_starts: bool = False):
     """Coarse scores of every candidate slot, read as contiguous blocks of
-    the per-table tier by K2. → (scores f32[B, M] with -inf invalid,
-    pos int64[B, M], table int64[B, M])."""
+    the per-table tier: by K2 in block mode, by K2b in window mode (start_b
+    given), which also applies the validity mask. abs_starts: base_b holds
+    absolute window starts already (the pruned subset). → (scores f32[B, M]
+    with -inf invalid, pos int64[B, M], table int64[B, M])."""
     b, mb_cap = base_b.shape
-    mb = torch.arange(mb_cap, device=base_b.device)
-    blk_start = base_b + mb * bs
-    q_low = (queries @ coarse_proj).to(torch.bfloat16)
-    scores = coarse_block_scores_kernel(
-        tier, q_low.contiguous(), table_b.to(torch.int32).contiguous(),
-        blk_start.to(torch.int32).contiguous(), bs)              # [B, MB, bs]
-    pos = blk_start[..., None] + torch.arange(bs, device=base_b.device)
-    scores = torch.where(pos < end_b[..., None], scores, NEG_INF_F32)
+    dev = base_b.device
+    mb = torch.arange(mb_cap, device=dev)
+    blk_start = base_b if abs_starts else base_b + mb * bs
+    q_low = (queries @ coarse_proj).to(torch.bfloat16).contiguous()
+    if start_b is None:
+        scores = coarse_block_scores_kernel(tier, q_low, _i32(table_b), _i32(blk_start), bs)
+        pos = blk_start[..., None] + torch.arange(bs, device=dev)
+        scores = torch.where(pos < end_b[..., None], scores, NEG_INF_F32)
+    else:
+        # clamp BEFORE positions are derived: a live window within `bs` of
+        # the table's end keeps covering its range (start > caprows - bs
+        # implies [start, end) lies in [caprows - bs, caprows)), and scores
+        # always belong to `pos`
+        blk_start = torch.clamp(blk_start, max=tier.shape[1] - bs)
+        live = (blk_start < end_b) & (blk_start + bs > start_b)
+        scores = coarse_window_scores_kernel(
+            tier, q_low, _i32(table_b), _i32(blk_start), _i32(start_b), _i32(end_b),
+            live.contiguous(), bs)                                # masked [B, MB, bs]
+        pos = blk_start[..., None] + torch.arange(bs, device=dev)
     return (scores.reshape(b, -1), pos.reshape(b, -1),
             table_b.repeat_interleave(bs, dim=1))
+
+
+def _prune_windows(head: torch.Tensor, hp: int, q_low: torch.Tensor,
+                   base_b: torch.Tensor, table_b: torch.Tensor, start_b: torch.Tensor,
+                   end_b: torch.Tensor, win: int, keep: int):
+    """Window pruning: score each window by its head-tier proxy (the max,
+    over the head rows it overlaps, of the pooled row's dot with the query)
+    and keep the `keep` best windows per query, back in slot order. →
+    (blk_start, table, start, end), each int64[B, keep], with blk_start
+    absolute. The proxy is not a bound: a window whose best row hides in a
+    poor pool group can drop, so `keep` trades recall for scored windows."""
+    l, hr, _ = head.shape
+    b, mb_cap = base_b.shape
+    dev = base_b.device
+    mb = torch.arange(mb_cap, device=dev)
+    blk_start = base_b + mb * win
+    live = (blk_start < end_b) & (blk_start + win > start_b)
+    # head rows overlapping [blk_start, blk_start + win): starts are aligned
+    # to 8, not to hp, so one extra row covers the straddle
+    gidx = (blk_start // hp)[..., None] + torch.arange(win // hp + 1, device=dev)
+    rows = head[table_b.clamp(0, l - 1)[..., None], gidx.clamp(0, hr - 1)]   # [B, MB, R, cs]
+    sc = torch.einsum("bmrc,bc->bmr", rows.to(torch.float32), q_low.to(torch.float32))
+    row_lo = gidx * hp
+    lo = torch.maximum(blk_start, start_b)[..., None]
+    hi = torch.minimum(blk_start + win, end_b)[..., None]
+    wscore = torch.where((row_lo + hp > lo) & (row_lo < hi), sc, NEG_INF_F32).amax(dim=2)
+    wscore = torch.where(live, wscore, NEG_INF_F32)
+    # exact top-keep by window score (stable: ties keep slot order), then
+    # back to slot order, the JAX package's order, on which the select's
+    # ties depend
+    _, wi = torch.sort(wscore, dim=1, descending=True, stable=True)
+    wi, _ = torch.sort(wi[:, :keep], dim=1)
+    return tuple(torch.gather(x, 1, wi) for x in (blk_start, table_b, start_b, end_b))
+
+
+def _strided_tournament(scores: torch.Tensor, pos: torch.Tensor, table_slot: torch.Tensor,
+                        win: int, m_slab: int, m2: int):
+    """Window-mode prefilter, a strided 4-way max tournament: each window's
+    slots regroup into win/4 groups of 4 members spaced win/4 apart, and the
+    best member of each survives, so the select runs over a 4x narrower
+    slab. Strided, not consecutive: a bucket's rows are consecutive slots,
+    and its best rows should not knock each other out. Ties go to the first
+    member (`argmax`, as `jnp.argmax`). The identity unless win % 4 == 0 and
+    m2 * 8 <= m_slab."""
+    if not (win and win % 4 == 0 and m2 * 8 <= m_slab):
+        return scores, pos, table_slot
+    b = scores.shape[0]
+    shape = (b, m_slab // win, 4, win // 4)
+    am = scores.reshape(shape).argmax(dim=2, keepdim=True)        # [B, MB, 1, win/4]
+
+    def pick(x):
+        return torch.gather(x.reshape(shape), 2, am).reshape(b, -1)
+
+    return pick(scores), pick(pos), pick(table_slot)
 
 
 def _select_m2(scores: torch.Tensor, pos: torch.Tensor, table_slot: torch.Tensor,
@@ -365,60 +517,329 @@ def _to_user_ids(state: ForestState, rows: torch.Tensor) -> torch.Tensor:
     return torch.where(rows >= 0, state.row_ids[rows.clamp(min=0).to(torch.int64)], -1)
 
 
-def _query_dense_coarse(state: ForestState, queries, query_ids, layout: KeyLayout,
-                        steps: int, m_cap: int, k: int, multiprobe: bool,
-                        exclude_self: bool, refine: int, probes=None, probe_valid=None,
-                        h=None, window: int = -1):
-    """Query through the coarse tier: coarse scores of all candidates,
-    exact re-scores of the top `refine` only. The window rule is the
-    reference's: -1 picks 64-slot windows at m_cap >= 32768, 0 is block
-    mode; window mode is not ported yet."""
-    if window < 0:
-        win = 64 if m_cap % 64 == 0 and m_cap >= 32768 else 0
-    else:
-        win = window if (window and m_cap % window == 0) else 0
-    if win:
-        raise NotImplementedError(f"coarse window mode (window {win}) is not ported yet")
-    if h is None:
-        h = hash_dense(state.model, queries)
-    home = partition_of_hash(h, state.part_proj)
-    base_b, table_b, end_b, total, bs = gather_blocks(
-        state.tables, h, home, layout, steps, m_cap, multiprobe, probes, probe_valid)
-    scores, pos, table_slot = _coarse_block_scores(
-        state.coarse_tier, state.coarse_proj, queries, base_b, table_b, end_b, bs)
-    l = state.tables.num_tables
-    cap = state.tables.capacity
-    m2 = min(max(refine, (k + 1) * l), m_cap)
-    t2, p2, sel_valid = _select_m2(scores, pos, table_slot, m2)
-    cand2 = state.tables.sorted_ids[t2.clamp(0, l - 1), p2.clamp(0, cap - 1)]
-    cand2 = torch.where(sel_valid & (cand2 >= 0), cand2, -1)
+def _rerank(state: ForestState, cand2: torch.Tensor, queries: torch.Tensor,
+            query_ids: torch.Tensor, exclude_self: bool, k: int):
+    """Exact f32 rerank of the selected candidate rows → user ids, scores."""
     if exclude_self:
         cand2 = _exclude_self(cand2, state.row_ids, query_ids)
     rows, sc = rerank_ops.dedup_topk(
         cand2, rerank_ops.score_candidates(state.corpus, cand2, queries), k)
-    return _to_user_ids(state, rows), sc, total
+    return _to_user_ids(state, rows), sc
+
+
+def _query_dense_coarse(state: ForestState, queries, query_ids, layout: KeyLayout,
+                        steps: int, m_cap: int, k: int, multiprobe: bool,
+                        exclude_self: bool, refine: int, probes=None, probe_valid=None,
+                        h=None, window: int = -1, window_keep: int = 0, head_pool: int = 0):
+    """Query through the coarse tier: coarse scores of all candidates,
+    exact re-scores of the top `refine` only. In window mode, window_keep >
+    0 with a head tier (`coarse_head_pool`) prunes to the `window_keep` best
+    windows first (`_prune_windows`); window_keep >= m_cap // win keeps
+    every window and so is off. The window rule is the reference's: -1
+    picks 64-slot windows at m_cap >= 32768, 0 is block mode, > 0 an
+    explicit window size."""
+    if window < 0:
+        win = 64 if m_cap % 64 == 0 and m_cap >= 32768 else 0
+    else:
+        win = window if (window and m_cap % window == 0) else 0
+    if h is None:
+        h = hash_dense(state.model, queries)
+    home = partition_of_hash(h, state.part_proj)
+    base_b, table_b, start_b, end_b, total, bs = gather_blocks(
+        state.tables, h, home, layout, steps, m_cap, multiprobe, probes, probe_valid,
+        window=win)
+    m_slab = m_cap
+    prune = (window_keep > 0 and win > 0 and state.coarse_head is not None
+             and head_pool > 0 and win % head_pool == 0 and window_keep < m_cap // win)
+    if prune:
+        q_low = (queries @ state.coarse_proj).to(torch.bfloat16)
+        base_b, table_b, start_b, end_b = _prune_windows(
+            state.coarse_head, head_pool, q_low, base_b, table_b, start_b, end_b, win,
+            window_keep)
+        m_slab = window_keep * win
+    scores, pos, table_slot = _coarse_block_scores(
+        state.coarse_tier, state.coarse_proj, queries, base_b, table_b, end_b, bs,
+        start_b=start_b, abs_starts=prune)
+    l = state.tables.num_tables
+    cap = state.tables.capacity
+    m2 = min(max(refine, (k + 1) * l), m_slab)
+    scores, pos, table_slot = _strided_tournament(scores, pos, table_slot, win, m_slab, m2)
+    t2, p2, sel_valid = _select_m2(scores, pos, table_slot, m2)
+    cand2 = state.tables.sorted_ids[t2.clamp(0, l - 1), p2.clamp(0, cap - 1)]
+    cand2 = torch.where(sel_valid & (cand2 >= 0), cand2, -1)
+    ids, sc = _rerank(state, cand2, queries, query_ids, exclude_self, k)
+    return ids, sc, total
+
+
+def _first_dups(sorted_keys: torch.Tensor) -> torch.Tensor:
+    """bool[B, M]: True where an entry equals its left neighbour."""
+    return torch.cat([torch.zeros_like(sorted_keys[:, :1], dtype=torch.bool),
+                      sorted_keys[:, 1:] == sorted_keys[:, :-1]], dim=1)
+
+
+def query_int8(queries: torch.Tensor, coarse_proj: torch.Tensor) -> torch.Tensor:
+    """The folded path's coarse query i8[B, cs]: each query's projection
+    quantized with its own scale (any positive scale keeps its order),
+    rounding half to even as the JAX package does."""
+    q_low = queries @ coarse_proj
+    qscale = 127.0 / torch.clamp(q_low.abs().amax(dim=1, keepdim=True), min=1e-20)
+    return torch.clamp(torch.round(q_low * qscale), -127, 127).to(torch.int8).contiguous()
+
+
+def _query_groupmax(state: ForestState, queries, query_ids, layout: KeyLayout, steps: int,
+                    m_cap: int, k: int, multiprobe: bool, exclude_self: bool, refine: int,
+                    probes=None, probe_valid=None, h=None, window: int = -1,
+                    group_slots: int = 64, rows_keep: int = 1, select_mult: int = 1,
+                    stage2: int = 0):
+    """Query through the slot-folded tier: aligned windows of folded rows,
+    each row reduced by K3 to its best packed `(score << mshift) | member`,
+    rows to groups of `group_slots` slots by a max, and the select runs on
+    one int32 per group. rows_keep=0 reranks every slot of the best
+    refine/group_slots groups (optionally over-selecting by `select_mult`
+    and deduplicating ids, or re-scoring them in int8 and keeping the
+    `stage2` best unique ids); rows_keep=1|2 reranks only each group's best
+    (and second) slot. All packed selects are those of the JAX package's
+    `_query_groupmax`, with the same bit layouts, so the selections agree
+    bit for bit; they run in int64 here, where no value wraps."""
+    if h is None:
+        h = hash_dense(state.model, queries)
+    home = partition_of_hash(h, state.part_proj)
+    folded = state.coarse_folded                  # i8[L, capf, lanes]
+    l_n, capf, lanes = folded.shape
+    cs = state.coarse_proj.shape[1]
+    fold = lanes // cs
+    gsl = group_slots
+    rpg = gsl // fold
+    if rpg * fold != gsl or gsl & (gsl - 1):
+        raise ValueError(f"coarse_group {gsl} must be a power of 2 and a multiple of "
+                         f"fold {fold}")
+    mshift = gsl.bit_length() - 1
+    # window starts on the group grid and on 8-physical-row boundaries
+    align = max(gsl, 8 * fold)
+    capslots = capf * fold
+    if window > 0:
+        win = window
+    else:
+        # the largest power of 2 <= min(4096, m_cap/8, table size): each
+        # probed range needs a window of its own
+        win = align
+        while win * 2 <= min(4096, max(align, m_cap // 8), capslots):
+            win *= 2
+    if win % align or m_cap % win or win > capslots:
+        raise ValueError(f"folded window {win} must be a multiple of {align}, divide "
+                         f"m_cap {m_cap} and fit the table ({capslots} slots)")
+    # the packed (score << mshift) | member must fit int32 on every path
+    score_bits = (cs * 127 * 127).bit_length() + 1       # signed int8 dot
+    if score_bits + mshift > 32:
+        raise ValueError(f"folded groupmax pack overflow: score bits {score_bits} + "
+                         f"member bits {mshift} > 32")
+    base_b, table_b, start_b, end_b, total, _ = gather_blocks(
+        state.tables, h, home, layout, steps, m_cap, multiprobe, probes, probe_valid,
+        window=win, align=align)
+    b = queries.shape[0]
+    dev = queries.device
+    mb_cap = m_cap // win
+    # clamp BEFORE positions are derived, as in window mode
+    blk = torch.clamp(base_b + torch.arange(mb_cap, device=dev) * win, 0, capslots - win)
+    live = (blk < end_b) & (blk + win > start_b)
+    qi8 = query_int8(queries, state.coarse_proj)
+    wpr = win // fold
+    rs = torch.where(live, blk // fold, -1)
+    # rows_keep 2 at rpg 1: a group is one row, and its second slot comes
+    # from the kernel's second output
+    emit2 = rows_keep == 2 and rpg == 1
+    out = coarse_rowmax_kernel(folded, qi8, _i32(table_b), _i32(rs), wpr, rpg, mshift, emit2)
+    rowpk, rowpk2 = out if emit2 else (out, None)
+    # rows with no live slot (flatten round-up past `end`, the aligned head
+    # before `start`) are dead; rows straddling a boundary keep their max,
+    # a fold-granular superset of real corpus rows
+    slot0 = blk[..., None] + torch.arange(wpr, device=dev) * fold
+    row_live = live[..., None] & (slot0 < end_b[..., None]) & (slot0 + fold > start_b[..., None])
+    rowpk = torch.where(row_live, rowpk.view(b, mb_cap, wpr), I32_DEAD)
+    if rowpk2 is not None:
+        rowpk2 = torch.where(row_live, rowpk2.view(b, mb_cap, wpr), I32_DEAD)
+    ngw = win // gsl
+    g4 = rowpk.reshape(b, mb_cap, ngw, rpg)
+    g1 = g4.amax(dim=-1)                                        # [B, MB, NGW]
+    cap = state.tables.capacity
+    sorted_ids = state.tables.sorted_ids
+    if rows_keep == 0:
+        width = mb_cap * ngw
+        flat = g1.reshape(b, width).to(torch.int64)
+        rtarget = max(1, min(refine // gsl, width))
+        rgg = max(1, min(rtarget * select_mult, width))
+        bits_w = max(1, (width - 1).bit_length())
+        sh = max(0, score_bits + mshift - (32 - bits_w))
+        gidx = torch.arange(width, device=dev)
+        if sh <= mshift + 8:
+            # one-operand select: the group value quantized to its top
+            # 32 - bits_w bits, the group index in the low bits; the dead
+            # sentinel clamps to lo, below every live value
+            lo = -(1 << (31 - bits_w))
+            pack = (torch.clamp(flat >> sh, min=lo) << bits_w) | gidx
+            pack_s, _ = torch.sort(pack, dim=1, descending=True)
+            pack_s = pack_s[:, :rgg]
+            sel = pack_s & ((1 << bits_w) - 1)
+            live_sel = (pack_s >> bits_w) > lo
+        else:
+            vals, sel = torch.sort(flat, dim=1, descending=True, stable=True)
+            sel, live_sel = sel[:, :rgg], vals[:, :rgg] != I32_DEAD
+        mbi = sel // ngw
+        base = torch.gather(blk, 1, mbi) + (sel % ngw) * gsl        # [B, RGG]
+        t2 = torch.gather(table_b, 1, mbi)
+        sel_valid = live_sel.repeat_interleave(gsl, dim=1)
+        # every slot of a selected group; groups are gsl-aligned and never
+        # straddle the table's end
+        id_cap = sorted_ids.shape[1]
+        basec = base.clamp(0, (id_cap - gsl) // gsl * gsl)
+        cand2 = sorted_ids[t2.clamp(0, l_n - 1)[..., None],
+                           basec[..., None] + torch.arange(gsl, device=dev)]
+        cand2 = cand2.reshape(b, rgg * gsl)
+        cand2 = torch.where(sel_valid & (cand2 >= 0), cand2, -1)
+        if 0 < stage2 < rgg * gsl:
+            cand2 = _stage2(folded, qi8, base, t2, cand2, gsl, rpg, stage2)
+        elif rgg > rtarget:
+            cand2 = _dedup_selected(cand2, cap, rtarget * gsl)
+    else:
+        if rows_keep == 2:
+            if rowpk2 is not None:
+                g2 = rowpk2.reshape(b, mb_cap, ngw)
+            else:
+                # the group's second-best row (member bits make packed values
+                # unique, so equality finds the winner row)
+                g2 = torch.where(g4 == g1[..., None], I32_DEAD, g4).amax(dim=-1)
+            gsel = torch.cat([g1, g2], dim=2)                   # [B, MB, 2*NGW]
+        else:
+            gsel = g1
+        keep = gsel.shape[2] // ngw
+        width = mb_cap * ngw * keep
+        flat = gsel.reshape(b, width).to(torch.int64)
+        rg = min(refine, width)
+        bits_w = max(1, (width - 1).bit_length())
+        q_bits = 32 - bits_w - mshift
+        if 0 <= score_bits + mshift - q_bits <= 10 and q_bits >= 8:
+            # one-operand select carrying the member bits: quantized value,
+            # member, flat index; dead clamps strictly below every live value
+            sh = score_bits + mshift - q_bits
+            lo = -(1 << (q_bits - 1))
+            qv = torch.where(flat == I32_DEAD, lo, torch.clamp(flat >> sh, min=lo + 1))
+            pack = ((qv << (bits_w + mshift)) | ((flat & (gsl - 1)) << bits_w)
+                    | torch.arange(width, device=dev))
+            pack_s, _ = torch.sort(pack, dim=1, descending=True)
+            pack_s = pack_s[:, :rg]
+            sel = pack_s & ((1 << bits_w) - 1)
+            member = (pack_s >> bits_w) & (gsl - 1)
+            sel_valid = (pack_s >> (bits_w + mshift)) > lo
+        else:
+            vals, sel = torch.sort(flat, dim=1, descending=True, stable=True)
+            selpk, sel = vals[:, :rg], sel[:, :rg]
+            member = selpk & (gsl - 1)
+            sel_valid = selpk != I32_DEAD
+        mbi = sel // (ngw * keep)
+        pos = torch.gather(blk, 1, mbi) + (sel % ngw) * gsl + member
+        t2 = torch.gather(table_b, 1, mbi)
+        cand2 = sorted_ids[t2.clamp(0, l_n - 1), pos.clamp(0, cap - 1)]
+        cand2 = torch.where(sel_valid & (cand2 >= 0), cand2, -1)
+    ids, sc = _rerank(state, cand2, queries, query_ids, exclude_self, k)
+    return ids, sc, total
+
+
+def _stage2(folded: torch.Tensor, qi8: torch.Tensor, base: torch.Tensor, t2: torch.Tensor,
+            cand2: torch.Tensor, gsl: int, rpg: int, stage2: int) -> torch.Tensor:
+    """Staged rerank: re-score every slot of the selected groups with the
+    same int8 dots K3 reduced away, deduplicate ids keeping each id's best
+    copy, and keep the `stage2` best unique ids (-1 padded) for the exact
+    rerank."""
+    l_n, capf, lanes = folded.shape
+    b, rgg = base.shape
+    cs = qi8.shape[1]
+    fold = lanes // cs
+    rowf = base.clamp(0, capf * fold - gsl) // fold
+    tf = t2.clamp(0, l_n - 1)
+    if rpg > 1:
+        rowf = (rowf[..., None] + torch.arange(rpg, device=base.device)).reshape(b, rgg * rpg)
+        tf = tf.repeat_interleave(rpg, dim=1)
+    frows = folded[tf, rowf].view(b, -1, fold, cs)             # [B, R2, fold, cs]
+    slot_sc = (frows.to(torch.int32) * qi8.to(torch.int32)[:, None, None, :]).sum(
+        -1, dtype=torch.int32).reshape(b, rgg * gsl)           # (row, slot) = cand2 order
+    # sort 1: (id asc, -score asc), so each id's best copy leads; sort 2:
+    # unique ids by score. The sentinel 2^30 clears every real row index
+    # (< Npad) and every negated score: |score| <= cs*127^2, which is
+    # 4,129,024 at the widest tier width (cs 256)
+    sent = 1 << 30
+    idk = torch.where(cand2 >= 0, cand2, sent).to(torch.int64)
+    negsc = torch.where(cand2 >= 0, -slot_sc, sent).to(torch.int64)
+    key, _ = torch.sort((idk << 32) | (negsc + 2**31), dim=1)
+    id_s = key >> 32
+    neg_s = (key & 0xFFFFFFFF) - 2**31
+    neg_s = torch.where(_first_dups(id_s) | (id_s == sent), sent, neg_s)
+    neg2, order = torch.sort(neg_s, dim=1, stable=True)
+    id2 = torch.gather(id_s, 1, order)
+    return torch.where(neg2 != sent, id2, -1)[:, :stage2]
+
+
+def _dedup_selected(cand2: torch.Tensor, cap: int, width: int) -> torch.Tensor:
+    """Deduplicate the over-selected candidate ids keeping select order,
+    then truncate to `width` (-1 padded). With room for the rank beside the
+    id (cap < 2^27), one packed key per sort: the row id in the high bits,
+    the select rank quantized to the low bits, so truncation moves only
+    within one quantum of rank, as in the JAX package."""
+    b, m = cand2.shape
+    dev = cand2.device
+    big = 2**31 - 1
+    bits_id = cap.bit_length()
+    rank_bits = 31 - bits_id
+    rank = torch.arange(m, device=dev)
+    if rank_bits >= 4:
+        rq_sh = max(0, (m - 1).bit_length() - rank_bits)
+        sent = (1 << bits_id) - 1                     # > any real row id
+        idk = torch.where(cand2 >= 0, cand2, sent).to(torch.int64)
+        k1, _ = torch.sort((idk << rank_bits) | (rank >> rq_sh), dim=1)
+        id_s = k1 >> rank_bits
+        rq = k1 & ((1 << rank_bits) - 1)
+        k2 = torch.where(_first_dups(id_s) | (id_s == sent), big, (rq << bits_id) | id_s)
+        k2, _ = torch.sort(k2, dim=1)
+        k2 = k2[:, :width]
+        return torch.where(k2 == big, -1, k2 & ((1 << bits_id) - 1))
+    idk = torch.where(cand2 >= 0, cand2, big).to(torch.int64)
+    idk_s, rank_s = torch.sort(idk, dim=1, stable=True)      # (id, rank) order
+    key2 = torch.where(_first_dups(idk_s) | (idk_s == big), rank_s + (1 << 30), rank_s)
+    _, order = torch.sort(key2, dim=1, stable=True)
+    out = torch.gather(idk_s, 1, order)[:, :width]
+    return torch.where(out == big, -1, out)
 
 
 def _query_dense(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
                  layout: KeyLayout, steps: int = 0, m_cap: int = 4096, k: int = 10,
                  multiprobe: bool = True, exclude_self: bool = True,
                  probe_mode: str = "reference", probe_budget: int = 8,
-                 coarse_refine: int = 2048, coarse_window: int = -1):
+                 coarse_refine: int = 2048, coarse_window: int = -1,
+                 window_keep: int = 0, head_pool: int = 0, coarse_group: int = 64,
+                 rows_keep: int = 1, select_mult: int = 1, stage2: int = 0):
     """Batched ANN query core → (ids i32[B, k] user ids with -1 padding,
     scores f32[B, k], candidate counts int64[B]). probe_mode "reference"
     flips low bits blindly as the reference does; "margin" flips the
-    `probe_budget` smallest-margin bits per table."""
+    `probe_budget` smallest-margin bits per table. A folded tier queries
+    through `_query_groupmax` (coarse_group, rows_keep, select_mult,
+    stage2), a lane tier through `_query_dense_coarse` (window_keep,
+    head_pool)."""
     probes = probe_valid = None
     if probe_mode == "margin" and multiprobe:
         h, margins = hash_dense_with_margins(state.model, queries)
         probes, probe_valid = _probe_hashes_margin(h, margins, layout, probe_budget)
     else:
         h = hash_dense(state.model, queries)
+    if state.coarse_folded is not None:
+        return _query_groupmax(
+            state, queries, query_ids, layout, steps, m_cap, k, multiprobe,
+            exclude_self, refine=coarse_refine, probes=probes, probe_valid=probe_valid,
+            h=h, window=coarse_window, group_slots=coarse_group, rows_keep=rows_keep,
+            select_mult=select_mult, stage2=stage2)
     if state.coarse_tier is not None:
         return _query_dense_coarse(
             state, queries, query_ids, layout, steps, m_cap, k, multiprobe,
             exclude_self, refine=coarse_refine, probes=probes, probe_valid=probe_valid,
-            h=h, window=coarse_window)
+            h=h, window=coarse_window, window_keep=window_keep, head_pool=head_pool)
     home = partition_of_hash(h, state.part_proj)
     cand, total = gather_candidates(state.tables, h, home, layout, steps, m_cap,
                                     multiprobe, probes, probe_valid)
@@ -475,11 +896,16 @@ class RDFForest:
                      k: Optional[int] = None, multiprobe: bool = True,
                      probe_mode: str = "reference", probe_budget: int = 8,
                      coarse_refine: Optional[int] = None, m_cap: Optional[int] = None,
-                     coarse_window: Optional[int] = None
+                     coarse_window: Optional[int] = None, window_keep: Optional[int] = None,
+                     coarse_group: Optional[int] = None, rows_keep: Optional[int] = None,
+                     select_mult: Optional[int] = None, stage2: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """`query` without the host transfer: tensors on the forest's device.
         Queries are taken `conf.query_batch_size` at a time; coarse_refine,
-        m_cap and coarse_window default to the config's."""
+        m_cap, coarse_window, window_keep, coarse_group, rows_keep,
+        select_mult and stage2 default to the config's (`coarse_keep`,
+        `coarse_rows_keep`, `coarse_select_mult`, `coarse_stage2` for the
+        renamed ones)."""
         if self.state is None:
             raise RuntimeError("need to fit the data first")
         k = k or self.conf.top_k
@@ -496,6 +922,12 @@ class RDFForest:
             coarse_refine=coarse_refine or self.conf.coarse_refine,
             coarse_window=(coarse_window if coarse_window is not None
                            else self.conf.coarse_window),
+            window_keep=window_keep if window_keep is not None else self.conf.coarse_keep,
+            head_pool=self.conf.coarse_head_pool,
+            coarse_group=coarse_group or self.conf.coarse_group,
+            rows_keep=rows_keep if rows_keep is not None else self.conf.coarse_rows_keep,
+            select_mult=select_mult or self.conf.coarse_select_mult,
+            stage2=stage2 if stage2 is not None else self.conf.coarse_stage2,
         )
         thr = self.conf.similarity_threshold
         if thr > 0.0:

@@ -6,9 +6,12 @@ arrays, keyed by their attribute paths (`"model.proj"`,
 index. Layout changes on the way:
   * uint32 keys become the port's order-preserving int32 keys;
   * the corpus loses its 128-lane column padding;
-  * the lane-packed coarse tier [Lg, caprows, G*cs] (G tables per row) is
-    unpacked per table: table t is group t // G, lanes
-    [(t % G)*cs, (t % G + 1)*cs).
+  * the lane-packed coarse tier [Lg, caprows, G*cs] (G tables per row) and
+    its head tier [Lg, hr, G*cs] are unpacked per table: table t is group
+    t // G, lanes [(t % G)*cs, (t % G + 1)*cs);
+  * the slot-folded tier [L, caprows/fold, fold*cs] is reshaped back to the
+    per-table tier [L, caprows, cs] (exact: folding is a row-major
+    reshape), of which the port's folded tier is a view.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ FIELDS = (
     "tables.sorted_keys", "tables.sorted_ids", "tables.bucket_keys",
     "tables.bucket_starts", "tables.bucket_shifts", "corpus", "row_ids",
 )
-OPTIONAL_FIELDS = ("coarse_proj", "coarse_by_table")   # forests with a coarse tier
+# forests with a coarse tier: coarse_proj and one of coarse_by_table (lane
+# layout, with coarse_head when `coarse_head_pool` was set) or coarse_folded
+OPTIONAL_FIELDS = ("coarse_proj", "coarse_by_table", "coarse_head", "coarse_folded")
 
 
 def unpack_lane_tier(packed: np.ndarray, num_tables: int, cs: int) -> np.ndarray:
@@ -69,15 +74,27 @@ def from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
         bucket_keys=bucket_keys, bucket_starts=bucket_starts, bucket_shifts=bucket_shifts,
         records=build_records(bucket_keys, bucket_starts, bucket_shifts),
     )
-    coarse_proj: Optional[torch.Tensor] = None
-    tier: Optional[torch.Tensor] = None
+    coarse_proj = tier = head = None
+    layout = "lane"
+    l = tables.num_tables
     if arrays.get("coarse_by_table") is not None:
         coarse_proj = t("coarse_proj", torch.float32)
+        cs = coarse_proj.shape[1]
         tier = torch.as_tensor(
-            unpack_lane_tier(np.asarray(arrays["coarse_by_table"]), tables.num_tables,
-                             coarse_proj.shape[1]), device=device)
+            unpack_lane_tier(np.asarray(arrays["coarse_by_table"]), l, cs), device=device)
+        if arrays.get("coarse_head") is not None:
+            # bf16 values widen to f32 exactly, and narrow back exactly
+            packed = np.asarray(arrays["coarse_head"], dtype=np.float32)
+            head = torch.as_tensor(unpack_lane_tier(packed, l, cs), device=device)
+            head = head.to(torch.bfloat16)
+    elif arrays.get("coarse_folded") is not None:
+        coarse_proj = t("coarse_proj", torch.float32)
+        folded = np.array(arrays["coarse_folded"])
+        tier = torch.as_tensor(folded.reshape(l, -1, coarse_proj.shape[1]), device=device)
+        layout = "folded"
     return ForestState(
         model=model, part_proj=t("part_proj", torch.float32), tables=tables,
         corpus=t("corpus", torch.float32)[:, :conf.vector_dim].contiguous(),
         row_ids=t("row_ids", torch.int32), coarse_proj=coarse_proj, coarse_tier=tier,
+        coarse_head=head, coarse_layout=layout,
     )

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels on first use.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into one
-shared library with a plain C interface, loaded through `ctypes`. Sources
-include no PyTorch header, so a build takes seconds, not minutes. The
-library lands in `build/kernels/<hash of the sources>/` at the root of the
-checkout (git-ignored), so an edited source rebuilds and an unchanged one
-loads from the cache. A failed build raises; nothing falls back.
+Every `csrc/*.cu` file is compiled by its own `nvcc` process for Hopper
+(`sm_90a`), all started together, and the objects are linked into one shared
+library with a plain C interface, loaded through `ctypes`. Sources include no
+PyTorch header, so a build takes seconds, not minutes. The library lands in
+`build/kernels/<hash of the sources>/` at the root of the checkout
+(git-ignored), so an edited source rebuilds and an unchanged one loads from
+the cache. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 _lock = threading.Lock()
@@ -56,15 +57,29 @@ def build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    last_build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{last_build_log}")
-    os.replace(tmp, out)   # atomic: concurrent builders never see half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        tmp = Path(tmp)
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj, log = tmp / f"{src.stem}.o", tmp / f"{src.stem}.log"
+            with open(log, "w") as f:
+                proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                        stdout=f, stderr=subprocess.STDOUT)
+            jobs.append((src, obj, log, proc))
+        codes = [proc.wait() for *_, proc in jobs]
+        last_build_log = "".join(f"== {src.name}\n{log.read_text()}" for src, _, log, _ in jobs)
+        if any(codes):
+            failed = [src.name for (src, *_), c in zip(jobs, codes) if c]
+            raise RuntimeError(f"nvcc failed for {failed}:\n{last_build_log}")
+        so = tmp / "librdf_kernels.so"
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(so),
+                               *(str(obj) for _, obj, _, _ in jobs)],
+                              capture_output=True, text=True)
+        last_build_log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{last_build_log}")
+        os.replace(so, out)   # atomic: concurrent builders never see half a file
     return out
 
 
@@ -79,8 +94,23 @@ def library() -> ctypes.CDLL:
             lib.rdf_hash_dense.restype = i
             lib.rdf_coarse_block_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
             lib.rdf_coarse_block_scores.restype = i
+            lib.rdf_coarse_window_scores.argtypes = [p] * 8 + [i] * 6 + [p]
+            lib.rdf_coarse_window_scores.restype = i
+            lib.rdf_coarse_rowmax.argtypes = [p] * 6 + [i] * 9 + [p]
+            lib.rdf_coarse_rowmax.restype = i
             _lib = lib
     return _lib
+
+
+def check_operands(kernel: str, device, aligned=(), **operands) -> None:
+    """Raise ValueError unless every operand (a tensor) lies contiguous on
+    `device`, and those named in `aligned` start 16-byte aligned, as the
+    kernels' vector loads need."""
+    for name, a in operands.items():
+        if a.device != device or not a.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous on {device}")
+        if name in aligned and a.data_ptr() % 16:
+            raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
 
 
 def check(err: int, name: str) -> None:

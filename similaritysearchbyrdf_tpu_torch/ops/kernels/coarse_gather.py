@@ -1,18 +1,21 @@
-"""K2, the coarse gather-score kernel: CUDA wrapper and its plain PyTorch version.
+"""K2 and K2b, the coarse gather-score kernels: CUDA wrappers and their plain
+PyTorch versions.
 
-Replaces `similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py`: by code,
-`pallas_coarse_scores` (`_kernel`, blocks at arbitrary starts); by function
-also `pallas_coarse_scores_aligned` (8-aligned windows are blocks whose
-starts happen to be aligned). The kernel (`csrc/coarse_gather.cu`) scores
-`bs` contiguous rows of the per-table int8 coarse tier against each query's
-bf16 coarse vector with f32 accumulation. On the H100 it is bound by bytes
-read (2 flops per tier byte); the design reads each 256-byte block with one
+Replace `similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py`:
+K2 `pallas_coarse_scores` (`_kernel`, blocks at arbitrary starts, block
+mode) and K2b `pallas_coarse_scores_aligned` (`_kernel_aligned*`, aligned
+windows, window mode). Both kernels (`csrc/coarse_gather.cu`) score
+contiguous rows of the per-table int8 coarse tier against each query's bf16
+coarse vector with f32 accumulation. On the H100 they are bound by bytes
+read (2 flops per tier byte); the design reads each row chunk with one
 coalesced 8-byte load per lane and keeps the query in registers, so the
-dependent table/start-then-rows loads of many warps overlap.
+dependent table/start-then-rows loads of many warps overlap. K2b also takes
+the window mode's validity: a dead window loads nothing, and a slot outside
+its range's [start, end) scores -inf, so the caller needs no masking pass.
 
-`coarse_block_scores_kernel` launches the kernel for CUDA tensors and runs
-`coarse_block_scores_plain` for CPU tensors; a CUDA tensor never takes the
-plain version.
+`coarse_block_scores_kernel` and `coarse_window_scores_kernel` launch their
+kernels for CUDA tensors and run the plain versions for CPU tensors; a CUDA
+tensor never takes a plain version.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import torch
 
 from . import build
 
-LAUNCHES = 0   # kernel launches since the last reset (plain runs never count)
+LAUNCHES = 0          # K2 launches since the last reset (plain runs never count)
+WINDOW_LAUNCHES = 0   # K2b launches since the last reset
 _CS_SUPPORTED = (8, 16, 32, 64, 128, 256)
 
 
@@ -60,13 +64,8 @@ def coarse_block_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
         raise ValueError(f"coarse_block_scores_kernel: shapes tier {tuple(tier.shape)}, "
                          f"q_low {tuple(q_low.shape)}, table {tuple(table.shape)}, "
                          f"blk_start {tuple(blk_start.shape)}, bs {bs}")
-    for name, a in (("tier", tier), ("q_low", q_low), ("table", table),
-                    ("blk_start", blk_start)):
-        if a.device != tier.device or not a.is_contiguous():
-            raise ValueError(f"coarse_block_scores_kernel: {name} must be contiguous "
-                             f"on {tier.device}")
-    if tier.data_ptr() % 16 or q_low.data_ptr() % 16:
-        raise ValueError("coarse_block_scores_kernel: tier and q_low must be 16-byte aligned")
+    build.check_operands("coarse_block_scores_kernel", tier.device, ("tier", "q_low"),
+                         tier=tier, q_low=q_low, table=table, blk_start=blk_start)
     out = torch.empty((b, mb, bs), dtype=torch.float32, device=tier.device)
     if out.numel() == 0:
         return out
@@ -77,4 +76,57 @@ def coarse_block_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
     )
     build.check(err, "rdf_coarse_block_scores")
     LAUNCHES += 1
+    return out
+
+
+def coarse_window_scores_plain(tier: torch.Tensor, q_low: torch.Tensor,
+                               table: torch.Tensor, blk_start: torch.Tensor,
+                               start: torch.Tensor, end: torch.Tensor,
+                               live: torch.Tensor, win: int) -> torch.Tensor:
+    """tier i8[L, caprows, cs], q_low bf16[B, cs], table, blk_start, start and
+    end i32[B, MB], live bool[B, MB] → f32[B, MB, win]: the K2 score of row
+    clip(blk_start, 0, caprows-win) + j where live and start <= blk_start + j
+    < end, else -inf (the masks of `index/forest.py:1183-1189`)."""
+    scores = coarse_block_scores_plain(tier, q_low, table, blk_start, win)
+    pos = blk_start.to(torch.int64)[..., None] + torch.arange(win, device=tier.device)
+    valid = live.to(torch.bool)[..., None] & (pos >= start[..., None]) & (pos < end[..., None])
+    return torch.where(valid, scores, float("-inf"))
+
+
+def coarse_window_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
+                                table: torch.Tensor, blk_start: torch.Tensor,
+                                start: torch.Tensor, end: torch.Tensor,
+                                live: torch.Tensor, win: int) -> torch.Tensor:
+    """K2b on CUDA tensors, its plain version on CPU tensors. Same contract
+    as `coarse_window_scores_plain`; `live` is bool or uint8."""
+    global WINDOW_LAUNCHES
+    if tier.device.type == "cpu":
+        return coarse_window_scores_plain(tier, q_low, table, blk_start, start, end, live, win)
+    if tier.device.type != "cuda":
+        raise ValueError(f"coarse_window_scores_kernel: unsupported device {tier.device}")
+    if (tier.dtype != torch.int8 or q_low.dtype != torch.bfloat16
+            or any(a.dtype != torch.int32 for a in (table, blk_start, start, end))
+            or live.dtype not in (torch.bool, torch.uint8)):
+        raise TypeError("coarse_window_scores_kernel: needs tier i8, q_low bf16, table, "
+                        "blk_start, start and end i32, live bool or u8")
+    l, caprows, cs = tier.shape
+    b, mb = table.shape
+    if (q_low.shape != (b, cs) or cs not in _CS_SUPPORTED or not 0 < win <= caprows
+            or win % 8 or any(a.shape != (b, mb) for a in (blk_start, start, end, live))):
+        raise ValueError(f"coarse_window_scores_kernel: shapes tier {tuple(tier.shape)}, "
+                         f"q_low {tuple(q_low.shape)}, table {tuple(table.shape)}, "
+                         f"win {win} (a multiple of 8)")
+    build.check_operands("coarse_window_scores_kernel", tier.device, ("tier", "q_low"),
+                         tier=tier, q_low=q_low, table=table, blk_start=blk_start,
+                         start=start, end=end, live=live)
+    out = torch.empty((b, mb, win), dtype=torch.float32, device=tier.device)
+    if out.numel() == 0:
+        return out
+    err = build.library().rdf_coarse_window_scores(
+        tier.data_ptr(), q_low.data_ptr(), table.data_ptr(), blk_start.data_ptr(),
+        start.data_ptr(), end.data_ptr(), live.data_ptr(), out.data_ptr(),
+        l, caprows, cs, b, mb, win, torch.cuda.current_stream(tier.device).cuda_stream,
+    )
+    build.check(err, "rdf_coarse_window_scores")
+    WINDOW_LAUNCHES += 1
     return out

@@ -74,9 +74,7 @@ def hash_dense_kernel(x: torch.Tensor, proj: torch.Tensor, perm: torch.Tensor,
                          f"{tuple(proj.shape)}, perm {tuple(perm.shape)}")
     if (d + p) * 32 * 4 > 227 * 1024:
         raise ValueError(f"hash_dense_kernel: D={d} exceeds shared memory")
-    for name, a in (("x", x), ("proj", proj), ("perm", perm)):
-        if a.device != x.device or not a.is_contiguous():
-            raise ValueError(f"hash_dense_kernel: {name} must be contiguous on {x.device}")
+    build.check_operands("hash_dense_kernel", x.device, x=x, proj=proj, perm=perm)
     hashes = torch.empty((b, t * p), dtype=HASH_DTYPE, device=x.device)
     margins = (torch.empty((b, t * p, 32), dtype=torch.float32, device=x.device)
                if emit_margins else None)

@@ -57,6 +57,11 @@ def jax_state_arrays(state):
            "corpus": state.corpus, "row_ids": state.row_ids}
     if state.coarse_by_table is not None:
         out.update({"coarse_proj": state.coarse_proj, "coarse_by_table": state.coarse_by_table})
+    if state.coarse_head is not None:
+        # numpy has no bf16: widen to f32, which is exact
+        out["coarse_head"] = np.asarray(state.coarse_head, dtype=np.float32)
+    if state.coarse_folded is not None:
+        out.update({"coarse_proj": state.coarse_proj, "coarse_folded": state.coarse_folded})
     return {k: np.asarray(v) for k, v in out.items()}
 
 
@@ -141,8 +146,8 @@ def test_gather_blocks_match_jax(world, probe_mode, steps):
     got = tforest.gather_blocks(conv.tables, t(h), t(home), tf.layout, steps, 4096, True,
                                 t(probes), None if pvalid is None else torch.tensor(
                                     np.asarray(pvalid)))
-    assert got[4] == bs == 8
-    for g, w in zip(got[:4], (base, table, end, total)):
+    assert got[5] == bs == 8 and got[2] is None and want[2] is None
+    for g, w in zip(got[:2] + got[3:5], (base, table, end, total)):
         np.testing.assert_array_equal(g.numpy(), w)
     assert (total > 0).all()
 
@@ -198,11 +203,33 @@ def test_unported_options_are_refused(world):
     x, ids = world["x"], world["ids"]
     with pytest.raises(NotImplementedError):
         tforest.fit_dense(tc.replace(rerank_dtype="bfloat16"), TBatch(ids, x))
-    with pytest.raises(NotImplementedError):
-        tforest.fit_dense(tc.replace(coarse_layout="folded"), TBatch(ids, x))
 
 
-def test_window_mode_is_refused(world):
-    _, tc, _, tf = world[True]
-    with pytest.raises(NotImplementedError):
-        tf.query(world["x"][:4], m_cap=32768)
+def test_window_mode_matches_jax(world):
+    """m_cap 32768 turns window mode on (64-slot windows) in both packages;
+    the port's own fit queries like the JAX package's."""
+    jc, tc, jf, tf = world[True]
+    x, ids, gt = world["x"], world["ids"], world["gt"]
+    kw = dict(query_ids=ids[:NQ], probe_mode="margin", probe_budget=16, m_cap=32768)
+    want, _ = jf.query(x[:NQ], **kw)
+    got, _ = tf.query(x[:NQ], **kw)
+    assert (got == want).all(axis=1).mean() >= 0.99
+    assert abs(recall(gt, got) - recall(gt, want)) <= 0.005
+    assert recall(gt, want) > 0.5
+
+
+def test_folded_fit_matches_jax(world):
+    """A folded fit runs in both packages, and the port's own folded fit
+    queries like the JAX package's."""
+    jc, tc, _, _ = world[True]
+    x, ids, gt = world["x"], world["ids"], world["gt"]
+    kw = dict(query_ids=ids[:NQ], probe_mode="margin", probe_budget=16, rows_keep=0,
+              coarse_window=256, coarse_refine=512)
+    jf = jforest.RDFForest(jc.replace(coarse_layout="folded")).fit(JBatch(ids, x))
+    tf = tforest.RDFForest(tc.replace(coarse_layout="folded")).fit(TBatch(ids, x))
+    assert tf.state.coarse_folded is not None
+    want, _ = jf.query(x[:NQ], **kw)
+    got, _ = tf.query(x[:NQ], **kw)
+    assert (got == want).all(axis=1).mean() >= 0.99
+    assert abs(recall(gt, got) - recall(gt, want)) <= 0.005
+    assert recall(gt, want) > 0.5

@@ -60,4 +60,4 @@ def test_kernel_sources_are_package_data():
     data = conf["tool"]["setuptools"]["package-data"]["similaritysearchbyrdf_tpu_torch"]
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "coarse_gather.cu", "hash_kernel.cu"]
+        "coarse_fold.cu", "coarse_gather.cu", "hash_kernel.cu"]
