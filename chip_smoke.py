@@ -25,14 +25,30 @@ device is present:
   6. folded_8m: 8,000,000 x 96 Deep-shaped clustered vectors with the
      folded tier (`scripts/bench_deep8m_coarse.py`'s operating point):
      fit, K3 (folded rowmax) against its plain version at the query's
-     shapes, 1,024 queries, recall, qps, bytes, peak device memory.
+     shapes, 1,024 queries, recall, qps, bytes, peak device memory;
+  7. flat_20k (after bench_20k): `bench.py`'s flat leg, `flat_topk` with
+     refine 128, and `FlatIndex()` in grouped mode (exact2: K4 unpacked and
+     K2b) on the bench corpus: recall against the JAX package's on the
+     CPU, qps, launches, agreement with the port's CPU path, and K4 (int8,
+     and bf16 on bf16 copies of the same values) and K2b against their
+     plain versions on the operands the grouped leg gave them;
+  8. kernels_flat: K4 (flat group-max) against its plain version at the
+     Deep-8M flat query's shapes (int8 packed, unpacked, packed with the
+     supergroup tier), and its sliced form at 200k x 800 (random int8);
+  9. flat_8m: `FlatIndex()` at its defaults (int8, argpack) on folded_8m's
+     corpus and ground truth: fit, 1,024 queries, recall, qps, bytes,
+     peak device memory.
 
 Each phase prints one JSON line. Then come the kernel summary line
-`{"kernels": [...]}` and, last, `{"ok": true, "device": {...}}`.
+`{"kernels": [...]}`, with each kernel's least possible time on the card
+(`bound_ms`: the larger of its bytes over the memory rate and its
+operations over the peak rate for their type, counted from this run's
+inputs), and, last, `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -53,6 +69,32 @@ U32 = 2.0 ** -24            # unit roundoff of f32
 # (results/deep8m_coarse_fold.json: steps 1, margin 16, refine 12288,
 # window 4096, m_cap 524288, overflow 2000): a parity reference, not a target
 TPU_DEEP8M_RECALL = 0.8605
+# recall@10 of the JAX package on the CPU (jax 0.9.0) on the bench corpus,
+# 1000 self-excluded queries padded to 1024: `flat_topk(refine=128)` (bench's
+# flat leg) and `FlatIndex()` (grouped, exact2 at 20k rows)
+JAX_CPU_FLAT_RECALL = 1.0
+JAX_CPU_FLAT_GROUPED_RECALL = 1.0
+# recall@10 of the JAX package's FlatIndex (argpack, refine 128) on a TPU v5e
+# at 8M x 96 (results/tune_argpack.json): a parity reference, gated at 0.995
+TPU_FLAT8M_RECALL = 1.0
+FLAT8M_RECALL_MIN = 0.995
+# published H100 SXM peaks (dense): memory bytes/s and operations/s by type
+PEAK = {"bytes": 3.35e12, "f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time the card could take: bytes moved (each input read
+    once, each output written once) over the memory rate, or operations
+    over the peak rate for their type, whichever is larger."""
+    t_bytes = nbytes / PEAK["bytes"] * 1e3
+    t_ops = ops / PEAK[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": float(nbytes), "bound_ops": float(ops), "bound_ops_type": kind}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def check(cond, msg: str) -> None:
@@ -113,19 +155,33 @@ def reset_launches() -> None:
     """Zero every kernel's launch count, right before a main path runs."""
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_fold as K3
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import flat_groupmax as K4
     from similaritysearchbyrdf_tpu_torch.ops.kernels import hash_kernel as K1
 
-    K1.LAUNCHES = K2.LAUNCHES = K2.WINDOW_LAUNCHES = K3.LAUNCHES = 0
+    K1.LAUNCHES = K2.LAUNCHES = K2.WINDOW_LAUNCHES = K3.LAUNCHES = K4.LAUNCHES = 0
 
 
 def read_launches() -> dict:
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_fold as K3
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import flat_groupmax as K4
     from similaritysearchbyrdf_tpu_torch.ops.kernels import hash_kernel as K1
 
     return {"hash_dense_kernel": K1.LAUNCHES, "coarse_block_scores_kernel": K2.LAUNCHES,
             "coarse_window_scores_kernel": K2.WINDOW_LAUNCHES,
-            "coarse_rowmax_kernel": K3.LAUNCHES}
+            "coarse_rowmax_kernel": K3.LAUNCHES, "flat_groupmax_kernel": K4.LAUNCHES}
+
+
+def timed_s(fn, sync, reps: int) -> float:
+    """Median host-clock seconds of `reps` calls, each ending in a sync."""
+    times = []
+    for _ in range(reps):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
 
 
 def window_kernel_phase(big, xq, sync, median_ms) -> dict:
@@ -158,12 +214,20 @@ def window_kernel_phase(big, xq, sync, median_ms) -> dict:
     err = (sk - sp).abs()[fin]
     check(bool((err <= 2 * tier.shape[2] * U32 * s_abs[fin]).all()),
           f"K2b scores exceed the f32 bound: max err {float(err.max())}")
+    # bytes: the distinct tier rows of valid slots, the small inputs, the scores
+    caprows, cs = tier.shape[1], tier.shape[2]
+    slot_rows = (args[0].long().clamp(0, tier.shape[0] - 1)[..., None] * caprows
+                 + args[1].long()[..., None] + torch.arange(win, device=xq.device))
+    rows_read = int(torch.unique(slot_rows[fin]).numel())
+    k2b_bound = bound(rows_read * cs + nbytes(q_low, *args, live, sk),
+                      2 * int(fin.sum()) * cs, "bf16")
     out = {"shape": {"B": xq.shape[0], "MB": mb, "win": win, "L": tier.shape[0],
                      "caprows": tier.shape[1], "cs": tier.shape[2]},
            "live_window_share": float(live.float().mean()),
            "valid_slot_share": float(fin.float().mean()),
            "max_abs_err": float(err.max()),
            "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score; -inf slots equal",
+           **k2b_bound,
            "ms": median_ms(lambda: K2.coarse_window_scores_kernel(tier, q_low, *args, live,
                                                                   win)),
            "plain_ms": median_ms(lambda: K2.coarse_window_scores_plain(tier, q_low, *args,
@@ -283,11 +347,18 @@ def folded_phase(dev, sync, median_ms):
         max_err = max([max_err] + [int((g.long() - w.long()).abs().max()) for g, w in pairs])
     sync()
     check(not any(mismatched.values()), f"K3 differs from its plain version: {mismatched}")
+    # bytes: the distinct folded rows of live windows, the small inputs, both outputs
+    l_rows = (table.long().clamp(0, folded.shape[0] - 1)[..., None] * capf
+              + rs.long().clamp(0, capf - wpr)[..., None] + torch.arange(wpr, device=dev))
+    rows_read = int(torch.unique(l_rows[live]).numel())
+    k3_out = qb * base.shape[1] * wpr * 4
+    k3_bound = bound(rows_read * lanes + nbytes(qi8, table, rs) + k3_out,
+                     2 * int(live.sum()) * wpr * lanes, "int8")
     k3 = {"shape": {"B": qb, "MB": base.shape[1], "wpr": wpr, "fold": fold, "rpg": rpg,
                     "mshift": mshift, "L": folded.shape[0], "capf": capf, "lanes": lanes},
           "live_window_share": float(live.float().mean()),
           "mismatched_words": mismatched, "max_abs_err": float(max_err),
-          "tolerance": "bit for bit (0 mismatched words)"}
+          "tolerance": "bit for bit (0 mismatched words)", **k3_bound}
     for emit2 in (False, True):
         sfx = "_emit2" if emit2 else ""
         k3["ms" + sfx] = median_ms(lambda: K3.coarse_rowmax_kernel(
@@ -328,7 +399,302 @@ def folded_phase(dev, sync, median_ms):
           "corpus_bytes": st.corpus.numel() * 4, "coarse_tier_bytes": st.coarse_tier.numel(),
           "table_bytes": st.tables.index_bytes(),
           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)})
-    return k3, launches
+    return k3, launches, xd, gt
+
+
+def device_profile(fn, sync, reps: int = 3) -> dict:
+    """torch.profiler over `reps` calls of `fn`: CUDA-kernel time and count
+    per call (kernel events only, so no operator is counted twice), the
+    largest kernels, and the idle share 1 - kernel time / unprofiled wall
+    time of the same call."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    wall_ms = timed_s(fn, sync, 5) * 1e3
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    per = [(e.key, getattr(e, "self_device_time_total", 0) / 1e3 / reps, e.count / reps)
+           for e in kern]
+    total = sum(ms for _, ms, _ in per)
+    if total <= 0:
+        return {"wall_ms": wall_ms, "kernel_ms": "not measured"}
+    top = sorted(per, key=lambda t: -t[1])[:8]
+    return {"wall_ms": wall_ms, "kernel_ms": total,
+            "kernels_per_call": sum(c for *_, c in per), "idle_share": 1 - total / wall_ms,
+            "top_kernels_ms": [[k[:80], ms, c] for k, ms, c in top]}
+
+
+@contextlib.contextmanager
+def recording(module, *names):
+    """Within the block, calls of `module.<name>` for each name also keep
+    their arguments: {name: [(args, kwargs), ...]}. The kernels' own launch
+    counts are untouched."""
+    calls = {name: [] for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def keep(name):
+        def call(*args, **kw):
+            calls[name].append((args, kw))
+            return saved[name](*args, **kw)
+        return call
+
+    for name in names:
+        setattr(module, name, keep(name))
+    try:
+        yield calls
+    finally:
+        for name in names:
+            setattr(module, name, saved[name])
+
+
+def flat_20k_kernels(calls, sync, median_ms) -> dict:
+    """K4 and K2b against their plain versions on the operands the grouped
+    leg gave them: K4 int8 unpacked (bit for bit), K4 in bf16 on bf16 copies
+    of the same int8 operands (within the f32 bound, and equal to the int8
+    result, as every sum of those products is an integer below 2^24), and
+    K2b on the int8 sketch as a one-table tier (within the f32 bound, the
+    same -inf slots)."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import flat_groupmax as K4
+
+    check(len(calls["flat_groupmax_kernel"]) == 1
+          and len(calls["coarse_window_scores_kernel"]) == 1,
+          f"grouped flat made {len(calls['flat_groupmax_kernel'])} K4 and "
+          f"{len(calls['coarse_window_scores_kernel'])} K2b calls, not one each")
+    (sk, q8, group), kw4 = calls["flat_groupmax_kernel"][0]
+    check(not kw4 and sk.dtype == torch.int8, f"unexpected K4 call on the path: {kw4}")
+    npad, dk = sk.shape
+    b = q8.shape[0]
+    got = K4.flat_groupmax_kernel(sk, q8, group)
+    want = K4.flat_groupmax_plain(sk, q8, group)
+    sync()
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    check(bad == 0, f"K4 int8 on flat_20k's operands differs in {bad} words")
+    out = {"K4_int8": {"shape": {"B": b, "Npad": npad, "D": dk, "group": group},
+                       "mismatched_words": bad,
+                       "max_abs_err": float((got - want).abs().max()),
+                       **bound(nbytes(sk, q8, got), 2.0 * b * npad * dk, "int8"),
+                       "ms": median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, group)),
+                       "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk, q8, group))}}
+    s16, q16 = sk.to(torch.bfloat16), q8.to(torch.bfloat16)
+    got16 = K4.flat_groupmax_kernel(s16, q16, group)
+    want16 = K4.flat_groupmax_plain(s16, q16, group)
+    lim = 2 * dk * U32 * K4.flat_groupmax_plain(s16.abs(), q16.abs(), group)
+    sync()
+    err = (got16 - want16).abs()
+    check(bool((err <= lim).all()), f"K4 bf16 exceeds the f32 bound: max err {float(err.max())}")
+    vs_int8 = int((got16.view(torch.int32) != got.view(torch.int32)).sum())
+    check(vs_int8 == 0, f"K4 bf16 on int8 values differs from K4 int8 in {vs_int8} words")
+    out["K4_bf16"] = {"max_abs_err": float(err.max()), "words_unequal_to_int8": vs_int8,
+                      **bound(nbytes(s16, q16, got16), 2.0 * b * npad * dk, "bf16"),
+                      "ms": median_ms(lambda: K4.flat_groupmax_kernel(s16, q16, group)),
+                      "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(s16, q16, group))}
+    del got, want, got16, want16, lim, err
+
+    args, kw2 = calls["coarse_window_scores_kernel"][0]
+    check(not kw2, f"unexpected K2b call on the path: {kw2}")
+    tier, q_low, table, blk_start, start, end, live, win = args
+    got = K2.coarse_window_scores_kernel(*args)
+    want = K2.coarse_window_scores_plain(*args)
+    sync()
+    check(bool(torch.equal(torch.isneginf(got), torch.isneginf(want))),
+          "K2b masks a different set of slots than its plain version on flat_20k")
+    fin = torch.isfinite(want)
+    s_abs = K2.coarse_block_scores_plain(tier.abs(), q_low.abs(), table, blk_start, win)
+    err = (got - want).abs()[fin]
+    check(bool((err <= 2 * tier.shape[2] * U32 * s_abs[fin]).all()),
+          f"K2b on flat_20k exceeds the f32 bound: max err {float(err.max())}")
+    pos = blk_start.long()[..., None] + torch.arange(win, device=tier.device)
+    rows_read = int(torch.unique(pos[fin]).numel())
+    out["K2b"] = {"shape": {"B": q_low.shape[0], "MB": blk_start.shape[1], "win": win,
+                            "cs": tier.shape[2], "tier": str(tier.dtype)},
+                  "valid_slot_share": float(fin.float().mean()),
+                  "max_abs_err": float(err.max()),
+                  **bound(rows_read * tier.shape[2] * tier.element_size()
+                          + nbytes(q_low, table, blk_start, start, end, live, got),
+                          2.0 * int(fin.sum()) * tier.shape[2], "bf16"),
+                  "ms": median_ms(lambda: K2.coarse_window_scores_kernel(*args)),
+                  "plain_ms": median_ms(lambda: K2.coarse_window_scores_plain(*args))}
+    out["tolerance"] = ("K4 int8: bit for bit; K4 bf16 and K2b: |err| <= "
+                        "2*D*2^-24*sum|s*q| per value, K2b's -inf slots equal")
+    return out
+
+
+def flat_20k_phase(x, gt, dev, sync, median_ms) -> dict:
+    """`bench.py`'s flat leg (`flat_topk`, refine 128, 1,000 self-excluded
+    queries padded to 1,024) and `FlatIndex()` in grouped mode (exact2 at
+    20k rows: K4 unpacked, then K2b) on the bench corpus; K4 and K2b are
+    checked on the grouped leg's own operands."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch import DenseBatch, FlatIndex, flat_topk
+    from similaritysearchbyrdf_tpu_torch.ops import flat as FL
+
+    n = x.shape[0]
+    ids = np.arange(n, dtype=np.int32)
+    xd = torch.as_tensor(x, device=dev)
+    pad = (-N_QUERY) % 1024
+    qf = torch.as_tensor(np.pad(x[:N_QUERY], ((0, pad), (0, 0))), device=dev)
+    qfi = torch.as_tensor(np.pad(ids[:N_QUERY], (0, pad), constant_values=-1), device=dev)
+    rid = torch.as_tensor(ids, device=dev)
+    sketch, _ = FL.build_flat_sketch(xd, "int8")
+    out = {"phase": "flat_20k", "n": n, "queries": N_QUERY, "batch": 1024, "refine": 128}
+
+    def scan():
+        return flat_topk(sketch, xd, rid, qf, qfi, 10, refine=128)
+
+    flat = FlatIndex(device=dev).fit(DenseBatch(ids, xd))
+
+    def grouped():
+        return flat.query_device(x[:N_QUERY], k=10, query_ids=ids[:N_QUERY])
+
+    cpu_kw = {"scan": dict(mode="scan"), "grouped": {}}
+    for name, fn, want in (("scan", scan, JAX_CPU_FLAT_RECALL),
+                           ("grouped", grouped, JAX_CPU_FLAT_GROUPED_RECALL)):
+        with recording(FL, "flat_groupmax_kernel", "coarse_window_scores_kernel") as calls:
+            reset_launches()
+            got, sc = fn()
+            sync()
+            launches = read_launches()
+        got = got[:N_QUERY].cpu().numpy()
+        check(got.shape == (N_QUERY, 10) and bool(torch.isfinite(sc[:N_QUERY]).all()),
+              f"flat_20k {name}: wrong shape or non-finite scores")
+        rec = recall_at(gt, got)
+        check(abs(rec - want) <= RECALL_TOL, f"flat_20k {name}: recall@10 {rec} is not within "
+                                             f"{RECALL_TOL} of the JAX package's {want}")
+        if name == "grouped":
+            check(launches["flat_groupmax_kernel"] > 0
+                  and launches["coarse_window_scores_kernel"] > 0,
+                  f"grouped flat did not launch K4 and K2b: {launches}")
+            kernels = flat_20k_kernels(calls, sync, median_ms)
+        cpu = FlatIndex(device="cpu", **cpu_kw[name]).fit(DenseBatch(ids, x))
+        cpu_ids, _ = cpu.query(x[:128], k=10, query_ids=ids[:128])
+        agree = float((cpu_ids == got[:128]).all(axis=1).mean())
+        check(agree >= 0.99, f"flat_20k {name}: GPU and CPU paths agree on only {agree}")
+        q_s = timed_s(fn, sync, 7)
+        out[name] = {"recall_at_10": rec, "jax_cpu_recall_at_10": want,
+                     "launches": {k: v for k, v in launches.items() if v},
+                     "cpu_path_agreement_128": agree, "qps": N_QUERY / q_s, "query_s": q_s,
+                     "profile": device_profile(fn, sync)}
+    out["grouped"]["select_mode"] = FL._resolve_select_mode("auto", flat.sketch.dtype, n,
+                                                            flat.sketch.shape[1])
+    out["grouped"]["kernels"] = kernels
+    emit(out)
+    return out
+
+
+def flat_8m_phase(xd, gt, dev, sync, median_ms):
+    """K4 against its plain version at the Deep-8M flat query's shapes, then
+    `FlatIndex()` at its defaults (int8, refine 128, batch 1024, argpack with
+    supergroups of 32 and a sorted level 2) on folded_8m's corpus: 1,024
+    self-excluded queries.
+    → (K4's check and timings, launch counts of the query)."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch import DenseBatch, FlatIndex
+    from similaritysearchbyrdf_tpu_torch.ops import flat as FL
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import flat_groupmax as K4
+
+    n, d = xd.shape
+    nq = 1024
+    ids = np.arange(n, dtype=np.int32)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    flat = FlatIndex(device=dev).fit(DenseBatch(ids, xd))
+    fit_s = timed_s(lambda: flat.fit(DenseBatch(ids, xd)), sync, 1)
+
+    # ---- kernels_flat: K4 on the path's real operands -----------------------
+    sk = flat.sketch
+    q8 = FL._quantize_queries(xd[:nq], sk)
+    npad, dk = sk.shape
+    k4 = {"shape": {"B": nq, "Npad": npad, "D": dk, "group": 64},
+          "tolerance": "bit for bit (0 mismatched words)"}
+    for name, kw in (("int8_packed", dict(pack_arg=True)), ("int8", {}),
+                     ("int8_packed_emit16", dict(pack_arg=True, emit_sg=16))):
+        got = K4.flat_groupmax_kernel(sk, q8, 64, **kw)
+        want = K4.flat_groupmax_plain(sk, q8, 64, **kw)
+        pairs = list(zip(got, want)) if "emit_sg" in kw else [(got, want)]
+        sync()
+        bad = sum(int((g != w).sum()) for g, w in pairs)
+        err = max(float((g.double() - w.double()).abs().max()) for g, w in pairs)
+        check(bad == 0, f"K4 {name} differs from its plain version in {bad} words")
+        out_bytes = nbytes(*(g for g, _ in pairs))
+        del got, want, pairs
+        k4[name] = {"mismatched_words": bad, "max_abs_err": err,
+                    **bound(nbytes(sk, q8) + out_bytes, 2.0 * nq * npad * dk, "int8"),
+                    "ms": median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, 64, **kw)),
+                    "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk, q8, 64, **kw))}
+    # the sliced form (D staged in 256-byte slices) at the JAX package's
+    # high-D flat workload, 200k x 784 (sketch width 800), exact2's unpacked
+    # call: seeded random int8 values
+    gen = torch.Generator(device=dev).manual_seed(784)
+    sk_hd = torch.randint(-127, 128, (204_800, 800), generator=gen, device=dev, dtype=torch.int8)
+    q_hd = torch.randint(-127, 128, (nq, 800), generator=gen, device=dev, dtype=torch.int8)
+    got = K4.flat_groupmax_kernel(sk_hd, q_hd, 64)
+    want = K4.flat_groupmax_plain(sk_hd, q_hd, 64)
+    sync()
+    bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    check(bad == 0, f"K4's sliced form differs from its plain version in {bad} words")
+    k4["int8_sliced_200k_d800"] = {
+        "shape": {"B": nq, "Npad": sk_hd.shape[0], "D": 800, "group": 64},
+        "mismatched_words": bad, "max_abs_err": float((got - want).abs().max()),
+        **bound(nbytes(sk_hd, q_hd, got), 2.0 * nq * sk_hd.shape[0] * 800, "int8"),
+        "ms": median_ms(lambda: K4.flat_groupmax_kernel(sk_hd, q_hd, 64)),
+        "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk_hd, q_hd, 64))}
+    del sk_hd, q_hd, got, want
+    emit({"phase": "kernels_flat", "K4": k4})
+
+    # ---- flat_8m: the engine at its defaults --------------------------------
+    qd = xd[:nq]
+    reset_launches()
+    got, sc = flat.query_device(qd, k=10, query_ids=ids[:nq])
+    sync()
+    launches = read_launches()
+    check(launches["flat_groupmax_kernel"] > 0, f"flat_8m did not launch K4: {launches}")
+    got = got.cpu().numpy()
+    check(got.shape == (nq, 10) and bool(torch.isfinite(sc).all()),
+          "flat_8m output has the wrong shape or non-finite scores")
+    rec = recall_at(gt, got)
+    check(rec >= FLAT8M_RECALL_MIN, f"flat_8m recall@10 {rec} is below {FLAT8M_RECALL_MIN}")
+    q_s = timed_s(lambda: flat.query_device(qd, k=10, query_ids=ids[:nq]), sync, 3)
+    # host-clock stages of the argpack path around K4 (median of 7, each
+    # ending in a sync; K4's own time is kernels_flat's "ms")
+    n_live = flat.row_ids.shape[0]
+    qi = torch.arange(nq, dtype=torch.int32, device=dev)
+    packed = K4.flat_groupmax_kernel(sk, q8, 64, pack_arg=True)
+    cand, sel = FL.select_packed_rows(packed, 64, 128, n_live)
+
+    def stage_ms(fn):
+        return timed_s(fn, sync, 7) * 1e3
+
+    stages = {
+        "quantize_queries": stage_ms(lambda: FL._quantize_queries(qd, sk)),
+        "mask_dead_groups": stage_ms(lambda: packed[:, -(-n_live // 64):].fill_(FL._I32_DEAD)),
+        "two_level_select": stage_ms(lambda: FL.select_packed_rows(packed, 64, 128, n_live)),
+        "exact_refine": stage_ms(lambda: FL._exact_refine(flat.corpus, flat.row_ids, qd, cand,
+                                                          torch.isfinite(sel), qi, 10, True))}
+    del packed
+    emit({"phase": "flat_8m", "n": n, "dim": d, "queries": nq,
+          "config": {"sketch_dtype": "int8", "refine": 128, "query_batch": 1024,
+                     "select_mode": FL._resolve_select_mode("auto", sk.dtype, n, dk),
+                     "select_sg": 32, "argpack_l2": "sort", "group": 64},
+          "recall_at_10": rec, "tpu_v5e_recall_at_10": TPU_FLAT8M_RECALL,
+          "recall_gap": rec - TPU_FLAT8M_RECALL,
+          "launches": {k: v for k, v in launches.items() if v},
+          "qps": nq / q_s, "query_s": q_s, "fit_s": fit_s,
+          "bytes_per_vector": flat.bytes_per_vector(),
+          "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+          "stage_ms": stages,
+          "profile": device_profile(lambda: flat.query_device(qd, k=10, query_ids=ids[:nq]),
+                                    sync)})
+    return k4, launches
 
 
 def main() -> int:
@@ -417,6 +783,9 @@ def main() -> int:
     m_bound = 2 * xb.shape[1] * U32 * m_abs[fin]
     check(bool((m_err <= m_bound).all()), f"K1 margins exceed the f32 bound: "
                                           f"max err {float(m_err.max())}")
+    t_, c_, d_ = model.proj.shape
+    k1_bound = bound(nbytes(xb, model.proj, model.perm, hk, mk),
+                     2.0 * xb.shape[0] * t_ * c_ * d_, "f32")
     k1_ms = median_ms(lambda: K1.hash_dense_kernel(xb, model.proj, model.perm, True))
     k1_plain_ms = median_ms(lambda: K1.hash_dense_plain(xb, model.proj, model.perm, True))
     xf = xd[:8192].contiguous()
@@ -442,18 +811,26 @@ def main() -> int:
     s_bound = 2 * tier.shape[2] * U32 * s_abs
     check(bool((s_err <= s_bound).all()), f"K2 scores exceed the f32 bound: max err "
                                           f"{float(s_err.max())}")
+    caprows = tier.shape[1]
+    blk_rows = (table_i.long().clamp(0, tier.shape[0] - 1)[..., None] * caprows
+                + blk_start.long().clamp(0, caprows - bs)[..., None]
+                + torch.arange(bs, device=dev))
+    k2_bound = bound(int(torch.unique(blk_rows).numel()) * tier.shape[2]
+                     + nbytes(q_low, table_i, blk_start, sk), 2.0 * sk.numel() * tier.shape[2],
+                     "bf16")
     k2_ms = median_ms(lambda: K2.coarse_block_scores_kernel(tier, q_low, table_i, blk_start, bs))
     k2_plain_ms = median_ms(lambda: K2.coarse_block_scores_plain(tier, q_low, table_i,
                                                                  blk_start, bs))
     emit({"phase": "kernels", "build_s": build_s,
           "K1": {"shape": {"B": 1024, "D": 100, "T": 10, "P": 3, "C": 32},
                  "far_mismatch_words": far_mismatch, "near_zero_bit_flips": near_flips,
-                 "max_margin_err": float(m_err.max()), "ms": k1_ms, "plain_ms": k1_plain_ms,
+                 "max_margin_err": float(m_err.max()), **k1_bound,
+                 "ms": k1_ms, "plain_ms": k1_plain_ms,
                  "fit_shape_B": 8192, "fit_ms": k1_fit_ms, "fit_plain_ms": k1_fit_plain_ms},
           "K2": {"shape": {"B": 1024, "MB": mb, "bs": bs, "L": tier.shape[0],
                            "caprows": tier.shape[1], "cs": tier.shape[2]},
                  "max_abs_err": float(s_err.max()),
-                 "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score",
+                 "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score", **k2_bound,
                  "ms": k2_ms, "plain_ms": k2_plain_ms}})
 
     # ---- phase 2: the bench config, end to end ------------------------------
@@ -510,6 +887,9 @@ def main() -> int:
           "index_bytes_per_vector": forest.index_bytes_per_vector(),
           "coarse_tier_bytes_per_vector": tier.numel() * tier.element_size() / n})
 
+    # ---- the flat engine on the bench corpus ---------------------------------
+    flat_20k_phase(x, gt, dev, sync, median_ms)
+
     # ---- phase 3: a deployment-size corpus ----------------------------------
     del forest, cpu_forest
     torch.cuda.empty_cache()
@@ -557,29 +937,46 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 6: the folded tier on an 8M corpus ----------------------------
-    k3, launches_f = folded_phase(dev, sync, median_ms)
+    k3, launches_f, x8, gt8 = folded_phase(dev, sync, median_ms)
+    torch.cuda.empty_cache()
+
+    # ---- phases 8 and 9: the flat engine on the same 8M corpus ---------------
+    k4, launches_flat = flat_8m_phase(x8, gt8, dev, sync, median_ms)
+    del x8
+    k4p = k4["int8_packed"]
+    lib = {"library_ms": None}     # no single PyTorch call computes any of these functions
 
     emit({"kernels": [
         {"name": "hash_dense_kernel", "route": "cuda",
          "source": "similaritysearchbyrdf_tpu_torch/csrc/hash_kernel.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/hash_kernel.py:103",
          "launches": launches["hash_dense_kernel"], "max_abs_err": float(m_err.max()),
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound["bound_ms"],
+         "bound_by": k1_bound["bound_by"], **lib},
         {"name": "coarse_block_scores_kernel", "route": "cuda",
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py:107",
          "launches": launches["coarse_block_scores_kernel"],
-         "max_abs_err": float(s_err.max()), "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "max_abs_err": float(s_err.max()), "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"], **lib},
         {"name": "coarse_window_scores_kernel", "route": "cuda",
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py:544,569,590,626,647",
          "launches": win["launches"]["coarse_window_scores_kernel"],
-         "max_abs_err": k2b["max_abs_err"], "ms": k2b["ms"], "plain_ms": k2b["plain_ms"]},
+         "max_abs_err": k2b["max_abs_err"], "ms": k2b["ms"], "plain_ms": k2b["plain_ms"],
+         "bound_ms": k2b["bound_ms"], "bound_by": k2b["bound_by"], **lib},
         {"name": "coarse_rowmax_kernel", "route": "cuda",
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_fold.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_fold.py:253",
          "launches": launches_f["coarse_rowmax_kernel"],
-         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"]},
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], **lib},
+        {"name": "flat_groupmax_kernel", "route": "cuda",
+         "source": "similaritysearchbyrdf_tpu_torch/csrc/flat_groupmax.cu",
+         "replaces": "similaritysearchbyrdf_tpu/ops/pallas/flat_groupmax.py:191,247,401",
+         "launches": launches_flat["flat_groupmax_kernel"], "max_abs_err": k4p["max_abs_err"],
+         "ms": k4p["ms"], "plain_ms": k4p["plain_ms"], "bound_ms": k4p["bound_ms"],
+         "bound_by": k4p["bound_by"], **lib},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,15 +2,18 @@
 
 The port of `similaritysearchbyrdf_tpu` (JAX + Pallas on a TPU, kept as the
 reference) to PyTorch and hand-written CUDA kernels for an NVIDIA H100. It
-never imports jax. This slice covers the dense forest's main path in block
-mode: fit (K1 hash kernel, bucket tables, int8 coarse tier) and query
-(margin or reference probes, bucket lookup, K2 coarse gather-score kernel,
-exact rerank). The CUDA kernels are built on first use, never at import.
+never imports jax. It covers the dense forest (fit with the K1 hash kernel,
+bucket tables and an int8 coarse tier; query in block mode with K2, window
+mode with K2b, or the folded tier with K3) and the dense flat engine
+(`FlatIndex`, `flat_topk`, `flat_topk_grouped` with the K4 group-max
+kernel). Entry points run on the first CUDA card unless given
+`device="cpu"`. The CUDA kernels are built on first use, never at import.
 """
 
 from .config import RDFConfig, TableConfig
 from .index.forest import ForestState, RDFForest, fit_dense, query_dense_many
-from .interop import from_jax_state
+from .interop import from_jax_flat, from_jax_state
+from .ops.flat import FlatIndex, flat_topk, flat_topk_grouped
 from .vectors import DenseBatch
 
 __version__ = "0.1.0"
@@ -24,4 +27,8 @@ __all__ = [
     "fit_dense",
     "query_dense_many",
     "from_jax_state",
+    "from_jax_flat",
+    "FlatIndex",
+    "flat_topk",
+    "flat_topk_grouped",
 ]

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..config import RDFConfig
-from ..models.families import Device, HashModel, generate_model
+from ..models.families import Device, HashModel, generate_model, resolve_device
 from ..ops import rerank as rerank_ops
 from ..ops.bitops import clz, to_key
 from ..ops.hashing import hash_dense, hash_dense_with_margins
@@ -189,7 +189,7 @@ def fit_dense(conf: RDFConfig, batch: DenseBatch, model: Optional[HashModel] = N
     """Build a forest over a dense corpus (`newFastFit`/`newMultiThreadFit`,
     `DensevectorRDFInit.scala:127-206`). `batch.values` may be a numpy array
     or a tensor; the forest lives on `device` (default: the tensor's, else
-    the CPU)."""
+    the first CUDA card, `resolve_device`)."""
     if conf.coarse_layout not in ("lane", "folded"):
         raise ValueError(f"unknown coarse_layout {conf.coarse_layout!r}")
     if conf.coarse_dim and conf.coarse_layout == "folded" and conf.coarse_dtype != "int8":
@@ -199,7 +199,7 @@ def fit_dense(conf: RDFConfig, batch: DenseBatch, model: Optional[HashModel] = N
         raise NotImplementedError(f"rerank_dtype={conf.rerank_dtype!r} is not ported yet")
     if isinstance(batch.values, torch.Tensor) and device is None:
         device = batch.values.device
-    device = torch.device(device or "cpu")
+    device = resolve_device(device)
     layout = KeyLayout.from_config(conf, conf.lsh_table)
     model = model if model is not None else generate_model(conf, device=device)
     if part_proj is None:
@@ -867,12 +867,13 @@ def query_dense_many(state: ForestState, queries: torch.Tensor, query_ids: torch
 
 class RDFForest:
     """Host orchestrator for a dense forest (`DensevectorRDFInit` at the
-    index layer). Everything lives on `device`."""
+    index layer). Everything lives on `device` (default: the first CUDA
+    card; `device="cpu"` for the CPU)."""
 
     def __init__(self, conf: RDFConfig, model: Optional[HashModel] = None,
                  seed: Optional[int] = None, device: Device = None):
         self.conf = conf
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.layout = KeyLayout.from_config(conf, conf.lsh_table)
         self.model = model.to(self.device) if model is not None else generate_model(
             conf, seed, device=self.device)

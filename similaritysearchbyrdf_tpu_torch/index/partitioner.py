@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..config import RDFConfig, partition_config
-from ..models.families import Device, generate_angle_model
+from ..models.families import Device, generate_angle_model, resolve_device
 from ..ops.bitops import bits_of
 
 
@@ -25,11 +25,12 @@ def generate_partition_projections(conf: RDFConfig, seed: Optional[int] = None,
     table (`DensevectorRDFInit.scala:63-70`)."""
     if conf.partition_family_file_path is not None:
         raise NotImplementedError("partition chains from a file are not ported yet")
+    device = resolve_device(device)
     pconf = partition_config(conf)
     base_seed = conf.seed if seed is None else seed
-    qs = [generate_angle_model(pconf, seed=base_seed + 7919 * (t + 1)).proj[0]
+    qs = [generate_angle_model(pconf, seed=base_seed + 7919 * (t + 1), device=device).proj[0]
           for t in range(conf.hash_tables)]
-    return torch.stack(qs).to(device=device, dtype=torch.float32)
+    return torch.stack(qs)
 
 
 def partition_of_hash(hashes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

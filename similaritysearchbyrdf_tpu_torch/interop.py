@@ -1,4 +1,4 @@
-"""Carry a fitted JAX-package forest over into the port's state.
+"""Carry a fitted JAX-package forest or flat index over into the port's state.
 
 `from_jax_state` takes the JAX package's `ForestState` fields as numpy
 arrays, keyed by their attribute paths (`"model.proj"`,
@@ -12,6 +12,11 @@ index. Layout changes on the way:
   * the slot-folded tier [L, caprows/fold, fold*cs] is reshaped back to the
     per-table tier [L, caprows, cs] (exact: folding is a row-major
     reshape), of which the port's folded tier is a view.
+
+`from_jax_flat` does the same for the JAX package's `FlatIndex`: its sketch
+loses the 128-lane padding down to the port's multiple of 32 columns, its
+exact tier the padding down to the true width, and its strided second
+sketch copy (`sketch_gmax`, a TPU tactic) is not read.
 """
 
 from __future__ import annotations
@@ -24,8 +29,9 @@ import torch
 from .config import RDFConfig
 from .index.bucket_table import BucketTables, build_records
 from .index.forest import ForestState
-from .models.families import Device, HashModel
+from .models.families import Device, HashModel, resolve_device
 from .ops.bitops import to_key
+from .ops.flat import FlatIndex
 
 FIELDS = (
     "model.proj", "model.perm", "model.b", "model.sampling_perm", "part_proj",
@@ -47,7 +53,9 @@ def unpack_lane_tier(packed: np.ndarray, num_tables: int, cs: int) -> np.ndarray
 def from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
                    device: Device = None) -> ForestState:
     """The port's `ForestState` from the JAX package's state arrays (see
-    `FIELDS`; `OPTIONAL_FIELDS` may be absent)."""
+    `FIELDS`; `OPTIONAL_FIELDS` may be absent), on `device` (default: the
+    first CUDA card)."""
+    device = resolve_device(device)
     missing = [f for f in FIELDS if f not in arrays]
     if missing:
         raise KeyError(f"from_jax_state: missing arrays {missing}")
@@ -98,3 +106,28 @@ def from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
         row_ids=t("row_ids", torch.int32), coarse_proj=coarse_proj, coarse_tier=tier,
         coarse_head=head, coarse_layout=layout,
     )
+
+
+def from_jax_flat(arrays: Dict[str, np.ndarray], dim: int, device: Device = None,
+                  **index_kw) -> FlatIndex:
+    """A fitted port `FlatIndex` (on `device`, default the first CUDA card;
+    `index_kw` as for `FlatIndex`) from the JAX package's FlatIndex arrays
+    `sketch`, `scale`, `corpus` and `row_ids`. `dim` is the corpus's true
+    width: both packages pad it with zero columns, which change no score."""
+    device = resolve_device(device)
+    missing = [f for f in ("sketch", "scale", "corpus", "row_ids") if f not in arrays]
+    if missing:
+        raise KeyError(f"from_jax_flat: missing arrays {missing}")
+    def host(a, dtype=None):    # a writable copy
+        return torch.from_numpy(np.array(a, dtype=dtype))
+
+    sketch_np = np.asarray(arrays["sketch"])[:, :-(-dim // 32) * 32]
+    bf16 = sketch_np.dtype != np.int8
+    # bf16 values widen to f32 exactly, and narrow back exactly
+    sketch = host(sketch_np, np.float32).to(torch.bfloat16) if bf16 else host(sketch_np)
+    corpus_np = np.asarray(arrays["corpus"])
+    index = FlatIndex(sketch_dtype="bfloat16" if bf16 else "int8",
+                      corpus_dtype="float32" if corpus_np.dtype == np.float32 else "bfloat16",
+                      device=device, **index_kw)
+    return index.set_state(sketch, float(arrays["scale"]), host(corpus_np[:, :dim], np.float32),
+                           host(arrays["row_ids"], np.int32))

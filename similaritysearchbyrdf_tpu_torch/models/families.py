@@ -29,6 +29,17 @@ from . import transforms
 Device = Union[str, torch.device, None]
 
 
+def resolve_device(device: Device = None) -> torch.device:
+    """The device an entry point runs on: the one named, else the first CUDA
+    card. With no device named and no CUDA it raises: the port never falls
+    back to the CPU quietly. Pass `device="cpu"` to run on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda", 0)
+
+
 @dataclasses.dataclass
 class HashModel:
     proj: torch.Tensor           # f32[T, C, D]
@@ -68,6 +79,7 @@ class HashModel:
 
 def _model(proj, perm, b, conf: RDFConfig, family: str, w: int,
            device: Device) -> HashModel:
+    device = resolve_device(device)
     return HashModel(
         proj=torch.as_tensor(np.ascontiguousarray(proj), dtype=torch.float32, device=device),
         perm=torch.as_tensor(np.ascontiguousarray(perm), dtype=torch.int32, device=device),

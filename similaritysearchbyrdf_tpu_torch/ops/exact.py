@@ -12,6 +12,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..models.families import Device, resolve_device
 from .rerank import top_sorted
 
 
@@ -41,10 +42,14 @@ def exact_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
 
 
 def exact_search(corpus, queries, k: int, batch: int = 1024,
-                 exclude_self: bool = False, device=None
+                 exclude_self: bool = False, device: Device = None
                  ) -> Tuple[np.ndarray, np.ndarray]:
     """Host-facing exact search over query batches; corpus and queries are
-    numpy arrays or tensors, searched on `device`."""
+    numpy arrays or tensors, searched on `device` (default: a tensor
+    corpus's own device, else the first CUDA card)."""
+    if device is None and isinstance(corpus, torch.Tensor):
+        device = corpus.device
+    device = resolve_device(device)
     corpus_d = torch.as_tensor(corpus, dtype=torch.float32, device=device)
     q = torch.as_tensor(queries, dtype=torch.float32, device=device)
     out_i, out_s = [], []

@@ -94,10 +94,12 @@ def library() -> ctypes.CDLL:
             lib.rdf_hash_dense.restype = i
             lib.rdf_coarse_block_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
             lib.rdf_coarse_block_scores.restype = i
-            lib.rdf_coarse_window_scores.argtypes = [p] * 8 + [i] * 6 + [p]
+            lib.rdf_coarse_window_scores.argtypes = [p] * 8 + [i] * 7 + [p]
             lib.rdf_coarse_window_scores.restype = i
             lib.rdf_coarse_rowmax.argtypes = [p] * 6 + [i] * 9 + [p]
             lib.rdf_coarse_rowmax.restype = i
+            lib.rdf_flat_groupmax.argtypes = [p] * 4 + [i] * 7 + [p]
+            lib.rdf_flat_groupmax.restype = i
             _lib = lib
     return _lib
 

@@ -12,6 +12,8 @@ coalesced 8-byte load per lane and keeps the query in registers, so the
 dependent table/start-then-rows loads of many warps overlap. K2b also takes
 the window mode's validity: a dead window loads nothing, and a slot outside
 its range's [start, end) scores -inf, so the caller needs no masking pass.
+K2b also takes a bf16 tier: the flat engine's bf16 sketch, re-scored as a
+one-table tier (`ops/flat.py`).
 
 `coarse_block_scores_kernel` and `coarse_window_scores_kernel` launch their
 kernels for CUDA tensors and run the plain versions for CPU tensors; a CUDA
@@ -26,7 +28,11 @@ from . import build
 
 LAUNCHES = 0          # K2 launches since the last reset (plain runs never count)
 WINDOW_LAUNCHES = 0   # K2b launches since the last reset
-_CS_SUPPORTED = (8, 16, 32, 64, 128, 256)
+MAX_CS = 2048         # tier row width (columns) the kernels take: any multiple of 8 up to this
+
+
+def _cs_ok(cs: int) -> bool:
+    return 0 < cs <= MAX_CS and cs % 8 == 0
 
 
 def coarse_block_scores_plain(tier: torch.Tensor, q_low: torch.Tensor,
@@ -59,11 +65,12 @@ def coarse_block_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
                         "table and blk_start i32")
     l, caprows, cs = tier.shape
     b, mb = table.shape
-    if (q_low.shape != (b, cs) or blk_start.shape != (b, mb) or cs not in _CS_SUPPORTED
+    if (q_low.shape != (b, cs) or blk_start.shape != (b, mb) or not _cs_ok(cs)
             or not 0 < bs <= caprows):
         raise ValueError(f"coarse_block_scores_kernel: shapes tier {tuple(tier.shape)}, "
                          f"q_low {tuple(q_low.shape)}, table {tuple(table.shape)}, "
-                         f"blk_start {tuple(blk_start.shape)}, bs {bs}")
+                         f"blk_start {tuple(blk_start.shape)}, bs {bs}; cs a multiple of 8 "
+                         f"up to {MAX_CS}")
     build.check_operands("coarse_block_scores_kernel", tier.device, ("tier", "q_low"),
                          tier=tier, q_low=q_low, table=table, blk_start=blk_start)
     out = torch.empty((b, mb, bs), dtype=torch.float32, device=tier.device)
@@ -83,8 +90,9 @@ def coarse_window_scores_plain(tier: torch.Tensor, q_low: torch.Tensor,
                                table: torch.Tensor, blk_start: torch.Tensor,
                                start: torch.Tensor, end: torch.Tensor,
                                live: torch.Tensor, win: int) -> torch.Tensor:
-    """tier i8[L, caprows, cs], q_low bf16[B, cs], table, blk_start, start and
-    end i32[B, MB], live bool[B, MB] → f32[B, MB, win]: the K2 score of row
+    """tier i8 (or bf16) [L, caprows, cs], q_low bf16[B, cs], table,
+    blk_start, start and end i32[B, MB], live bool[B, MB] → f32[B, MB, win]:
+    the K2 score of row
     clip(blk_start, 0, caprows-win) + j where live and start <= blk_start + j
     < end, else -inf (the masks of `index/forest.py:1183-1189`)."""
     scores = coarse_block_scores_plain(tier, q_low, table, blk_start, win)
@@ -104,18 +112,18 @@ def coarse_window_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
         return coarse_window_scores_plain(tier, q_low, table, blk_start, start, end, live, win)
     if tier.device.type != "cuda":
         raise ValueError(f"coarse_window_scores_kernel: unsupported device {tier.device}")
-    if (tier.dtype != torch.int8 or q_low.dtype != torch.bfloat16
+    if (tier.dtype not in (torch.int8, torch.bfloat16) or q_low.dtype != torch.bfloat16
             or any(a.dtype != torch.int32 for a in (table, blk_start, start, end))
             or live.dtype not in (torch.bool, torch.uint8)):
-        raise TypeError("coarse_window_scores_kernel: needs tier i8, q_low bf16, table, "
-                        "blk_start, start and end i32, live bool or u8")
+        raise TypeError("coarse_window_scores_kernel: needs tier i8 or bf16, q_low bf16, "
+                        "table, blk_start, start and end i32, live bool or u8")
     l, caprows, cs = tier.shape
     b, mb = table.shape
-    if (q_low.shape != (b, cs) or cs not in _CS_SUPPORTED or not 0 < win <= caprows
+    if (q_low.shape != (b, cs) or not _cs_ok(cs) or not 0 < win <= caprows
             or win % 8 or any(a.shape != (b, mb) for a in (blk_start, start, end, live))):
         raise ValueError(f"coarse_window_scores_kernel: shapes tier {tuple(tier.shape)}, "
                          f"q_low {tuple(q_low.shape)}, table {tuple(table.shape)}, "
-                         f"win {win} (a multiple of 8)")
+                         f"win {win} (a multiple of 8); cs a multiple of 8 up to {MAX_CS}")
     build.check_operands("coarse_window_scores_kernel", tier.device, ("tier", "q_low"),
                          tier=tier, q_low=q_low, table=table, blk_start=blk_start,
                          start=start, end=end, live=live)
@@ -125,7 +133,8 @@ def coarse_window_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
     err = build.library().rdf_coarse_window_scores(
         tier.data_ptr(), q_low.data_ptr(), table.data_ptr(), blk_start.data_ptr(),
         start.data_ptr(), end.data_ptr(), live.data_ptr(), out.data_ptr(),
-        l, caprows, cs, b, mb, win, torch.cuda.current_stream(tier.device).cuda_stream,
+        l, caprows, cs, b, mb, win, int(tier.dtype == torch.bfloat16),
+        torch.cuda.current_stream(tier.device).cuda_stream,
     )
     build.check(err, "rdf_coarse_window_scores")
     WINDOW_LAUNCHES += 1

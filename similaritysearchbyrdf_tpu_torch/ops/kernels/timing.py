@@ -1,0 +1,100 @@
+"""Time the PyTorch port's coarse-score and group-max kernels on one GPU.
+
+Run from the root of a checkout of the repo (`-m` imports the port from the
+current directory, so two checkouts can be compared on one card):
+
+    python3 -m similaritysearchbyrdf_tpu_torch.ops.kernels.timing [--reps 50]
+
+Seeded random operands at the shapes `chip_smoke.py` gives the kernels:
+K2 at the bench config (B 1024 x 512 blocks of 8 rows, cs 32, 30 tables of
+20,000 rows), K2b at window_1m's (B 128 x 1024 windows of 64, cs 32, 10
+tables of 2^20 rows, 38% of windows live) and at flat_20k's re-score
+(B 1024 x 30 windows of 64, cs 128, the int8 sketch as one table), and K4
+int8 at flat_20k's (unpacked, B 1024 x 24,576 x 128) and flat_8m's
+(packed, B 1024 x 8,003,584 x 96). Prints the card's name and power limit,
+then one JSON line of medians of `--reps` CUDA-event timings (ms) after 3
+warm-up calls.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=50)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("timing: needs a CUDA device", file=sys.stderr)
+        return 2
+    from . import coarse_gather as K2
+    from . import flat_groupmax as K4
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev, dtype=torch.int8)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def median_ms(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize(dev)
+        times = []
+        for _ in range(args.reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    out = {}
+    tier, q = i8(30, 20_000, 32), bf16(1024, 32)
+    table, blk = ints(0, 30, (1024, 512)), ints(0, 20_000 - 8, (1024, 512))
+    out["K2_bench"] = median_ms(lambda: K2.coarse_block_scores_kernel(tier, q, table, blk, 8))
+
+    tier, q = i8(10, 1 << 20, 32), bf16(128, 32)
+    table, blk = ints(0, 10, (128, 1024)), ints(0, ((1 << 20) - 64) // 8, (128, 1024)) * 8
+    live = torch.rand((128, 1024), generator=gen, device=dev) < 0.38
+    end = blk + 64
+    out["K2b_window_1m"] = median_ms(lambda: K2.coarse_window_scores_kernel(
+        tier, q, table, blk, blk, end, live, 64))
+
+    sk = i8(24_576, 128)
+    sk[20_000:] = 0
+    q = bf16(1024, 128)
+    zeros = torch.zeros((1024, 30), dtype=torch.int32, device=dev)
+    blk = ints(0, 20_000 // 64, (1024, 30)) * 64
+    n_end, live = torch.full_like(zeros, 20_000), torch.ones_like(zeros, dtype=torch.bool)
+    out["K2b_flat_20k"] = median_ms(lambda: K2.coarse_window_scores_kernel(
+        sk[None], q, zeros, blk, zeros, n_end, live, 64))
+
+    q8 = i8(1024, 128)
+    out["K4_flat_20k_unpacked"] = median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, 64))
+    sk, q8 = i8(8_003_584, 96), i8(1024, 96)
+    out["K4_flat_8m_packed"] = median_ms(
+        lambda: K4.flat_groupmax_kernel(sk, q8, 64, pack_arg=True))
+    print(json.dumps({"checkout": os.getcwd(), "reps": args.reps, "ms": out}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

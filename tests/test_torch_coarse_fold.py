@@ -51,9 +51,9 @@ def world():
     ids = np.arange(N, dtype=np.int32)
     jc, tc = confs()
     jf = jforest.RDFForest(jc).fit(JBatch(ids, x))
-    port = tforest.RDFForest(tc)
-    port.state = from_jax_state(jax_state_arrays(jf.state), tc)
-    gt, _ = exact_search(x, x[:NQ], K, exclude_self=True)
+    port = tforest.RDFForest(tc, device="cpu")
+    port.state = from_jax_state(jax_state_arrays(jf.state), tc, device="cpu")
+    gt, _ = exact_search(x, x[:NQ], K, exclude_self=True, device="cpu")
     return {"x": x, "ids": ids, "gt": gt, "jc": jc, "tc": tc, "jf": jf, "port": port}
 
 
@@ -72,7 +72,7 @@ def test_own_folded_fit_matches_jax(world):
     """The port's own folded fit: the same tables, and a tier equal to the
     JAX package's up to quantization ties (one count, rarely)."""
     x, ids, tc, js = world["x"], world["ids"], world["tc"], world["jf"].state
-    own = tforest.fit_dense(tc, TBatch(ids, x))
+    own = tforest.fit_dense(tc, TBatch(ids, x), device="cpu")
     np.testing.assert_array_equal(own.tables.sorted_ids.numpy(),
                                   np.asarray(js.tables.sorted_ids))
     assert own.coarse_head is None
@@ -84,7 +84,7 @@ def test_own_folded_fit_matches_jax(world):
 def test_folded_requires_int8(world):
     x, ids, tc = world["x"], world["ids"], world["tc"]
     with pytest.raises(ValueError):
-        tforest.fit_dense(tc.replace(coarse_dtype="bfloat16"), TBatch(ids, x))
+        tforest.fit_dense(tc.replace(coarse_dtype="bfloat16"), TBatch(ids, x), device="cpu")
 
 
 def _rowmax_inputs(seed, rpg, cs=16, b=4, mb=12, wpr=16, capf=256, l=3):

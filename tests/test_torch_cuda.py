@@ -11,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from similaritysearchbyrdf_tpu_torch import DenseBatch, RDFConfig, RDFForest, TableConfig
+from similaritysearchbyrdf_tpu_torch import (DenseBatch, FlatIndex, RDFConfig, RDFForest,
+                                             TableConfig, fit_dense, flat_topk_grouped)
+from similaritysearchbyrdf_tpu_torch.ops.exact import exact_search
 from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_fold as K3
 from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
+from similaritysearchbyrdf_tpu_torch.ops.kernels import flat_groupmax as K4
 from similaritysearchbyrdf_tpu_torch.ops.kernels import hash_kernel as K1
 
 pytestmark = pytest.mark.cuda
@@ -54,7 +57,8 @@ def test_hash_kernel_matches_plain(dev, b, d, t, p, c):
     assert torch.equal(K1.hash_dense_kernel(x, proj, perm)[0], hk)
 
 
-@pytest.mark.parametrize("cs,bs", [(8, 8), (16, 1), (32, 8), (64, 8), (128, 3), (256, 8)])
+@pytest.mark.parametrize("cs,bs", [(8, 8), (16, 1), (24, 8), (32, 8), (64, 8), (96, 8),
+                                   (128, 3), (224, 8), (256, 8), (800, 8), (2048, 2)])
 def test_coarse_kernel_matches_plain(dev, cs, bs):
     rng = np.random.default_rng(cs + bs)
     l, caprows, b, mb = 5, 300, 7, 33
@@ -73,13 +77,16 @@ def test_coarse_kernel_matches_plain(dev, cs, bs):
     assert ((got - want).abs() <= bound + 1e-30).all()
 
 
+@pytest.mark.parametrize("tier_dtype", [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize("win", [8, 64, 256])
-@pytest.mark.parametrize("cs", [16, 32])
-def test_window_kernel_matches_plain(dev, win, cs):
+@pytest.mark.parametrize("cs", [16, 24, 32, 96, 128, 224, 800])
+def test_window_kernel_matches_plain(dev, win, cs, tier_dtype):
     rng = np.random.default_rng(win + cs)
     l, caprows, b, mb = 4, 1200, 9, 40
     tier = torch.as_tensor(rng.integers(-127, 128, size=(l, caprows, cs)).astype(np.int8),
                            device=dev)
+    if tier_dtype == torch.bfloat16:    # the flat engine's bf16 sketch as a tier
+        tier = (tier.float() * 0.01).to(torch.bfloat16)
     q = torch.as_tensor(rng.normal(size=(b, cs)).astype(np.float32), device=dev)
     q = q.to(torch.bfloat16)
     blk = rng.integers(-2, (caprows + win) // 8, size=(b, mb)) * 8
@@ -130,11 +137,11 @@ def test_kernel_wrappers_raise_on_bad_input(dev):
         K1.hash_dense_kernel(x, proj, perm)                   # chain longer than 32
     with pytest.raises(TypeError):
         K1.hash_dense_kernel(x.double(), proj[:, :32], perm[..., :32])
-    tier = torch.zeros((2, 16, 24), dtype=torch.int8, device=dev)
-    q = torch.zeros((3, 24), dtype=torch.bfloat16, device=dev)
+    tier = torch.zeros((2, 16, 20), dtype=torch.int8, device=dev)
+    q = torch.zeros((3, 20), dtype=torch.bfloat16, device=dev)
     ti = torch.zeros((3, 4), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
-        K2.coarse_block_scores_kernel(tier, q, ti, ti, 8)     # cs 24 unsupported
+        K2.coarse_block_scores_kernel(tier, q, ti, ti, 8)     # cs 20: not a multiple of 8
     with pytest.raises(TypeError):
         K2.coarse_block_scores_kernel(tier[..., :16], q[:, :16].float(), ti, ti, 8)
     live = torch.ones((3, 4), dtype=torch.bool, device=dev)
@@ -166,7 +173,7 @@ def test_forest_on_card_matches_cpu(dev):
     k1, k2 = K1.LAUNCHES, K2.LAUNCHES
     gpu, _ = RDFForest(conf, device=dev).fit(DenseBatch(ids, x)).query(x[:128], **kw)
     assert K1.LAUNCHES > k1 and K2.LAUNCHES > k2
-    cpu, _ = RDFForest(conf).fit(DenseBatch(ids, x)).query(x[:128], **kw)
+    cpu, _ = RDFForest(conf, device="cpu").fit(DenseBatch(ids, x)).query(x[:128], **kw)
     assert (gpu == cpu).all(axis=1).mean() >= 0.99
 
 
@@ -187,5 +194,124 @@ def test_window_and_folded_on_card_match_cpu(dev, layout, extra):
     k2b, k3 = K2.WINDOW_LAUNCHES, K3.LAUNCHES
     gpu, _ = RDFForest(conf, device=dev).fit(DenseBatch(ids, x)).query(x[:128], **kw)
     assert (K3.LAUNCHES > k3) if layout == "folded" else (K2.WINDOW_LAUNCHES > k2b)
-    cpu, _ = RDFForest(conf).fit(DenseBatch(ids, x)).query(x[:128], **kw)
+    cpu, _ = RDFForest(conf, device="cpu").fit(DenseBatch(ids, x)).query(x[:128], **kw)
     assert (gpu == cpu).all(axis=1).mean() >= 0.99
+
+
+@pytest.mark.parametrize("npad", [2816, 3072])
+@pytest.mark.parametrize("group", [16, 64, 256])
+@pytest.mark.parametrize("d", [32, 96, 128, 224, 800, 1056])
+@pytest.mark.parametrize("b", [1, 45, 100])
+def test_groupmax_kernel_int8_matches_plain(dev, npad, group, d, b):
+    """int8 dots are exact: K4 equals its plain version bit for bit, unpacked,
+    packed and with the supergroup tier, at ragged B and N (2816 rows is not
+    a multiple of the kernel's 512-row CTA; at 3072 a supergroup spans
+    CTAs). D 800 and 1056 take the kernel's sliced form (D staged in
+    256-byte slices, the last one partial); at 1056 query 0's score on row 3
+    passes 2^24 and is odd, so unpacked it is rounded once to f32 on both
+    sides. Packing is checked where the key fits int32."""
+    rng = np.random.default_rng(npad + group + d + b)
+    sk = torch.as_tensor(rng.integers(-127, 128, (npad, d), dtype=np.int8), device=dev)
+    q = torch.as_tensor(rng.integers(-127, 128, (b, d), dtype=np.int8), device=dev)
+    sk[7::97] = sk[5]                                   # tied rows inside and across groups
+    q[0], sk[3], sk[3, 0] = 127, 127, 126               # score 127^2 * d - 127
+    ng = npad // group
+    esg = min(16, ng & -ng)                             # a power of two dividing NG
+    packs = ((True, 0), (True, esg)) if d * 127 * 127 * group < 2**31 else ()
+    for pack, emit in ((False, 0), *packs):
+        before = K4.LAUNCHES
+        got = K4.flat_groupmax_kernel(sk, q, group, pack_arg=pack, emit_sg=emit)
+        assert K4.LAUNCHES == before + 1
+        want = K4.flat_groupmax_plain(sk, q, group, pack_arg=pack, emit_sg=emit)
+        for g, w in zip(got if emit else (got,), want if emit else (want,)):
+            assert g.dtype == w.dtype and torch.equal(g, w), (pack, emit)
+
+
+@pytest.mark.parametrize("d", [32, 96, 128, 224, 800])
+@pytest.mark.parametrize("b", [3, 64])
+def test_groupmax_kernel_bf16_within_bound(dev, d, b):
+    """bf16 products are exact in f32; only the summation order differs, so
+    each group max is within 2*D*2^-24*sum|s*q| of the plain version's."""
+    rng = np.random.default_rng(d * b)
+    npad = 512 * 3 + 64 * 5
+    sk = torch.as_tensor(rng.normal(size=(npad, d)).astype(np.float32), device=dev)
+    q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32), device=dev)
+    sk, q = sk.to(torch.bfloat16), q.to(torch.bfloat16)
+    got = K4.flat_groupmax_kernel(sk, q, 64)
+    want = K4.flat_groupmax_plain(sk, q, 64)
+    bound = 2 * d * U * K4.flat_groupmax_plain(sk.abs(), q.abs(), 64)
+    assert got.dtype == torch.float32 and ((got - want).abs() <= bound + 1e-30).all()
+
+
+def test_groupmax_kernel_raises_on_bad_input(dev):
+    sk = torch.zeros((1024, 32), dtype=torch.int8, device=dev)
+    q = torch.zeros((4, 32), dtype=torch.int8, device=dev)
+    with pytest.raises(TypeError):
+        K4.flat_groupmax_kernel(sk, q.float(), 64)                     # mixed types
+    with pytest.raises(TypeError):
+        K4.flat_groupmax_kernel(sk.float(), q.float(), 64)             # f32 sketch
+    with pytest.raises(ValueError):
+        K4.flat_groupmax_kernel(torch.zeros((1024, 64), dtype=torch.int8, device=dev)[:, :32],
+                                q, 64)                                 # not contiguous
+    with pytest.raises(ValueError):
+        K4.flat_groupmax_kernel(torch.zeros((8192, 2112), dtype=torch.int8, device=dev),
+                                torch.zeros((4, 2112), dtype=torch.int8, device=dev), 64,
+                                pack_arg=True)                         # packed key overflows
+    with pytest.raises(ValueError):
+        K4.flat_groupmax_kernel(sk[:, :16].contiguous(), q[:, :16].contiguous(), 64)   # D % 32
+
+
+def _flat_corpus(n, d, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(64, d))
+    x = centers[rng.integers(0, 64, n)] + 0.3 * rng.normal(size=(n, d))
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("mode,d,dtype", [("grouped", 96, "int8"), ("grouped", 100, "int8"),
+                                          ("grouped", 100, "bfloat16"), ("scan", 100, "int8"),
+                                          ("grouped", 200, "int8"), ("grouped", 784, "int8"),
+                                          ("grouped", 784, "bfloat16")])
+def test_flat_index_on_card_matches_cpu(dev, mode, d, dtype):
+    x = _flat_corpus(6000, d, 2)
+    ids = np.arange(6000, dtype=np.int32)
+    kw = dict(refine=64, block=2048, mode=mode, sketch_dtype=dtype)
+    k4, k2b = K4.LAUNCHES, K2.WINDOW_LAUNCHES
+    gpu, _ = FlatIndex(device=dev, **kw).fit(DenseBatch(ids, x)).query(
+        x[:128], k=10, query_ids=ids[:128])
+    if mode == "grouped":
+        assert K4.LAUNCHES > k4 and K2.WINDOW_LAUNCHES > k2b
+    cpu, _ = FlatIndex(device="cpu", **kw).fit(DenseBatch(ids, x)).query(
+        x[:128], k=10, query_ids=ids[:128])
+    assert (gpu == cpu).all(axis=1).mean() >= 0.99
+
+
+@pytest.mark.parametrize("emit", [0, 16])
+def test_argpack_on_card_matches_cpu(dev, emit):
+    x = _flat_corpus(140_000, 32, 3)
+    q = x[:64]
+    out = {}
+    for where in (dev, torch.device("cpu")):
+        flat = FlatIndex(device=where).fit(DenseBatch(np.arange(len(x), dtype=np.int32), x))
+        qd = torch.as_tensor(q, device=where)
+        qi = torch.arange(64, dtype=torch.int32, device=where)
+        k4 = K4.LAUNCHES
+        got, _ = flat_topk_grouped(flat.sketch, flat.corpus, flat.row_ids, qd, qi, 10,
+                                   select_mode="argpack", gmax_emit_sg=emit)
+        assert (K4.LAUNCHES > k4) == (where.type == "cuda")
+        out[where.type] = got.cpu().numpy()
+    assert (out["cuda"] == out["cpu"]).all(axis=1).mean() >= 0.99
+
+
+def test_entry_points_default_to_the_card(dev):
+    conf = RDFConfig(vector_dim=16, table_num=2, permutation_num=1, family_size=20,
+                     lsh_table=TableConfig(chain_length=8, bucket_overflow=16), seed=5)
+    x = _flat_corpus(300, 16, 4)
+    batch = DenseBatch(np.arange(300, dtype=np.int32), x)
+    assert RDFForest(conf).device == torch.device("cuda", 0)
+    assert fit_dense(conf, batch).corpus.device == torch.device("cuda", 0)
+    flat = FlatIndex(refine=32).fit(batch)
+    assert flat.sketch.device == torch.device("cuda", 0)
+    got, _ = flat.query(x[:4], k=3, exclude_self=False)
+    gt, _ = exact_search(x, x[:4], 3)
+    assert np.array_equal(got, gt)

@@ -69,12 +69,12 @@ def jax_state_arrays(state):
 def world():
     x = corpus()
     ids = np.arange(N, dtype=np.int32)
-    gt, _ = exact_search(x, x[:NQ], K, exclude_self=True)
+    gt, _ = exact_search(x, x[:NQ], K, exclude_self=True, device="cpu")
     out = {"x": x, "ids": ids, "gt": gt}
     for coarse in (True, False):
         jc, tc = confs(coarse)
         jf = jforest.RDFForest(jc).fit(JBatch(ids, x))
-        tf = tforest.RDFForest(tc).fit(TBatch(ids, x))
+        tf = tforest.RDFForest(tc, device="cpu").fit(TBatch(ids, x))
         out[coarse] = (jc, tc, jf, tf)
     return out
 
@@ -110,7 +110,7 @@ def test_fit_matches_jax(world, coarse):
 @pytest.mark.parametrize("coarse", [True, False])
 def test_from_jax_state_gives_the_ports_own_fit(world, coarse):
     jc, tc, jf, tf = world[coarse]
-    conv = from_jax_state(jax_state_arrays(jf.state), tc)
+    conv = from_jax_state(jax_state_arrays(jf.state), tc, device="cpu")
     own = tf.state
     for name in ("sorted_keys", "sorted_ids", "bucket_keys", "bucket_starts",
                  "bucket_shifts", "records"):
@@ -138,7 +138,7 @@ def test_gather_blocks_match_jax(world, probe_mode, steps):
     want = jforest.gather_blocks(js.tables, h, home, jf.layout, steps, 4096, True,
                                  probes=probes, probe_valid=pvalid)
     base, table, _, end, total, bs = (None if a is None else np.asarray(a) for a in want)
-    conv = from_jax_state(jax_state_arrays(js), tc)
+    conv = from_jax_state(jax_state_arrays(js), tc, device="cpu")
 
     def t(a):
         return None if a is None else torch.from_numpy(np.asarray(a).astype(np.int64))
@@ -160,8 +160,8 @@ def test_query_matches_jax(world, coarse, probe_mode, steps):
     x, ids, gt = world["x"], world["ids"], world["gt"]
     kw = dict(steps=steps, query_ids=ids[:NQ], probe_mode=probe_mode, probe_budget=16)
     want, want_s = jf.query(x[:NQ], **kw)
-    port = tforest.RDFForest(tc)
-    port.state = from_jax_state(jax_state_arrays(jf.state), tc)
+    port = tforest.RDFForest(tc, device="cpu")
+    port.state = from_jax_state(jax_state_arrays(jf.state), tc, device="cpu")
     got, got_s = port.query(x[:NQ], **kw)
     assert got.shape == want.shape == (NQ, K)
     assert (got == want).all(axis=1).mean() >= 0.99
@@ -190,8 +190,8 @@ def test_similarity_threshold_matches_jax(world):
     jf_thr = jforest.RDFForest(jc.replace(similarity_threshold=0.8))
     jf_thr.state = jf.state
     want, want_s = jf_thr.query(x[:NQ], query_ids=ids[:NQ])
-    port = tforest.RDFForest(tc.replace(similarity_threshold=0.8))
-    port.state = from_jax_state(jax_state_arrays(jf.state), tc)
+    port = tforest.RDFForest(tc.replace(similarity_threshold=0.8), device="cpu")
+    port.state = from_jax_state(jax_state_arrays(jf.state), tc, device="cpu")
     got, got_s = port.query(x[:NQ], query_ids=ids[:NQ])
     assert 0 < (want < 0).mean() < 1
     assert (got == want).all(axis=1).mean() >= 0.99
@@ -202,7 +202,7 @@ def test_unported_options_are_refused(world):
     _, tc, _, _ = world[True]
     x, ids = world["x"], world["ids"]
     with pytest.raises(NotImplementedError):
-        tforest.fit_dense(tc.replace(rerank_dtype="bfloat16"), TBatch(ids, x))
+        tforest.fit_dense(tc.replace(rerank_dtype="bfloat16"), TBatch(ids, x), device="cpu")
 
 
 def test_window_mode_matches_jax(world):
@@ -226,7 +226,7 @@ def test_folded_fit_matches_jax(world):
     kw = dict(query_ids=ids[:NQ], probe_mode="margin", probe_budget=16, rows_keep=0,
               coarse_window=256, coarse_refine=512)
     jf = jforest.RDFForest(jc.replace(coarse_layout="folded")).fit(JBatch(ids, x))
-    tf = tforest.RDFForest(tc.replace(coarse_layout="folded")).fit(TBatch(ids, x))
+    tf = tforest.RDFForest(tc.replace(coarse_layout="folded"), device="cpu").fit(TBatch(ids, x))
     assert tf.state.coarse_folded is not None
     want, _ = jf.query(x[:NQ], **kw)
     got, _ = tf.query(x[:NQ], **kw)

@@ -65,7 +65,7 @@ def assert_hashes_equal(got, want, mask):
                                            ("pStable", False)])
 def test_generate_model_bit_equal(family, pallas):
     jc, tc = confs(family_name=family, use_pallas_hash=pallas)
-    jm, tm = jfam.generate_model(jc), tfam.generate_model(tc)
+    jm, tm = jfam.generate_model(jc), tfam.generate_model(tc, device="cpu")
     for name in ("proj", "perm", "b", "sampling_perm"):
         np.testing.assert_array_equal(getattr(tm, name).numpy(), np.asarray(getattr(jm, name)))
     assert (tm.family, tm.w, tm.type_of_index) == (jm.family, jm.w, jm.type_of_index)
@@ -74,14 +74,14 @@ def test_generate_model_bit_equal(family, pallas):
 
 def test_partition_projections_bit_equal():
     jc, tc = confs()
-    np.testing.assert_array_equal(tpart.generate_partition_projections(tc).numpy(),
+    np.testing.assert_array_equal(tpart.generate_partition_projections(tc, device="cpu").numpy(),
                                   np.asarray(jpart.generate_partition_projections(jc)))
 
 
 @pytest.mark.parametrize("chain", [8, 16, 32])
 def test_hash_dense_matches_xla_and_pallas(chain):
     jc, tc = confs(chain=chain)
-    jm, tm = jfam.generate_angle_model(jc), tfam.generate_angle_model(tc)
+    jm, tm = jfam.generate_angle_model(jc), tfam.generate_angle_model(tc, device="cpu")
     x = data()
     got = thash.hash_dense(tm, torch.from_numpy(x))
     assert got.dtype == tbit.HASH_DTYPE
@@ -95,7 +95,7 @@ def test_hash_dense_matches_xla_and_pallas(chain):
 @pytest.mark.parametrize("chain", [16, 32])
 def test_margins_match(chain):
     jc, tc = confs(chain=chain)
-    jm, tm = jfam.generate_angle_model(jc), tfam.generate_angle_model(tc)
+    jm, tm = jfam.generate_angle_model(jc), tfam.generate_angle_model(tc, device="cpu")
     x = data(seed=3)
     h, m = thash.hash_dense_with_margins(tm, torch.from_numpy(x))
     jh, jmg = jhash.hash_dense_with_margins(jm, jnp.asarray(x))
@@ -108,7 +108,7 @@ def test_margins_match(chain):
 
 def test_kernel_wrapper_takes_plain_version_on_cpu():
     _, tc = confs(chain=32)
-    tm = tfam.generate_angle_model(tc)
+    tm = tfam.generate_angle_model(tc, device="cpu")
     x = torch.from_numpy(data(seed=4))
     before = K1.LAUNCHES
     h, m = K1.hash_dense_kernel(x, tm.proj, tm.perm, emit_margins=True)
@@ -122,7 +122,7 @@ def test_kernel_wrapper_takes_plain_version_on_cpu():
 
 def test_pstable_hash_matches():
     jc, tc = confs(family_name="pStable")
-    jm, tm = jfam.generate_pstable_model(jc), tfam.generate_pstable_model(tc)
+    jm, tm = jfam.generate_pstable_model(jc), tfam.generate_pstable_model(tc, device="cpu")
     x = data(seed=5)
     got = thash.hash_dense(tm, torch.from_numpy(x)).numpy()
     want = np.asarray(jhash.hash_dense(jm, jnp.asarray(x))).astype(np.int64)

@@ -40,6 +40,7 @@ def test_port_imports_with_jax_blocked():
         "import similaritysearchbyrdf_tpu_torch as p\n"
         "import similaritysearchbyrdf_tpu_torch.interop\n"
         "import similaritysearchbyrdf_tpu_torch.ops.exact\n"
+        "import similaritysearchbyrdf_tpu_torch.ops.flat\n"
         "from similaritysearchbyrdf_tpu_torch.ops.kernels import build\n"
         "assert build._lib is None, 'kernels were built at import'\n"
         "assert 'triton' not in sys.modules\n"
@@ -50,7 +51,8 @@ def test_port_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     assert set(out.stdout.strip().split(",")) == {
         "RDFConfig", "TableConfig", "DenseBatch", "ForestState", "RDFForest",
-        "fit_dense", "query_dense_many", "from_jax_state"}
+        "fit_dense", "query_dense_many", "from_jax_state", "from_jax_flat", "FlatIndex",
+        "flat_topk", "flat_topk_grouped"}
 
 
 def test_kernel_sources_are_package_data():
@@ -60,4 +62,4 @@ def test_kernel_sources_are_package_data():
     data = conf["tool"]["setuptools"]["package-data"]["similaritysearchbyrdf_tpu_torch"]
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "coarse_fold.cu", "coarse_gather.cu", "hash_kernel.cu"]
+        "coarse_fold.cu", "coarse_gather.cu", "flat_groupmax.cu", "hash_kernel.cu"]

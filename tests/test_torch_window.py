@@ -57,9 +57,9 @@ def world():
     ids = np.arange(N, dtype=np.int32)
     jc, tc = confs()
     jf = jforest.RDFForest(jc).fit(JBatch(ids, x))
-    port = tforest.RDFForest(tc)
-    port.state = from_jax_state(jax_state_arrays(jf.state), tc)
-    gt, _ = exact_search(x, x[:NQ], K, exclude_self=True)
+    port = tforest.RDFForest(tc, device="cpu")
+    port.state = from_jax_state(jax_state_arrays(jf.state), tc, device="cpu")
+    gt, _ = exact_search(x, x[:NQ], K, exclude_self=True, device="cpu")
     return {"x": x, "ids": ids, "gt": gt, "jc": jc, "tc": tc, "jf": jf, "port": port}
 
 
