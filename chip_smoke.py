@@ -25,7 +25,8 @@ device is present:
   6. folded_8m: 8,000,000 x 96 Deep-shaped clustered vectors with the
      folded tier (`scripts/bench_deep8m_coarse.py`'s operating point):
      fit, K3 (folded rowmax) against its plain version at the query's
-     shapes, 1,024 queries, recall, qps, bytes, peak device memory;
+     shapes with its achieved rates (gathered and distinct bytes per ms),
+     1,024 queries, recall, qps, bytes, peak device memory;
   7. flat_20k (after bench_20k): `bench.py`'s flat leg, `flat_topk` with
      refine 128, and `FlatIndex()` in grouped mode (exact2: K4 unpacked and
      K2b) on the bench corpus: recall against the JAX package's on the
@@ -351,20 +352,26 @@ def folded_phase(dev, sync, median_ms):
     l_rows = (table.long().clamp(0, folded.shape[0] - 1)[..., None] * capf
               + rs.long().clamp(0, capf - wpr)[..., None] + torch.arange(wpr, device=dev))
     rows_read = int(torch.unique(l_rows[live]).numel())
-    k3_out = qb * base.shape[1] * wpr * 4
-    k3_bound = bound(rows_read * lanes + nbytes(qi8, table, rs) + k3_out,
-                     2 * int(live.sum()) * wpr * lanes, "int8")
+    gathered = int(live.sum()) * wpr * lanes           # what the kernel streams in
+    k3_out = qb * base.shape[1] * wpr * 4               # one output; emit2 writes two
+    k3_in = rows_read * lanes + nbytes(qi8, table, rs)
+    k3_bound = bound(k3_in + k3_out, 2 * gathered, "int8")
     k3 = {"shape": {"B": qb, "MB": base.shape[1], "wpr": wpr, "fold": fold, "rpg": rpg,
                     "mshift": mshift, "L": folded.shape[0], "capf": capf, "lanes": lanes},
           "live_window_share": float(live.float().mean()),
           "mismatched_words": mismatched, "max_abs_err": float(max_err),
-          "tolerance": "bit for bit (0 mismatched words)", **k3_bound}
+          "tolerance": "bit for bit (0 mismatched words)", **k3_bound,
+          "bound_ms_emit2": bound(k3_in + 2 * k3_out, 2 * gathered, "int8")["bound_ms"],
+          "gathered_bytes": gathered, "distinct_bytes": rows_read * lanes}
     for emit2 in (False, True):
         sfx = "_emit2" if emit2 else ""
         k3["ms" + sfx] = median_ms(lambda: K3.coarse_rowmax_kernel(
             folded, qi8, table, rs, wpr, rpg, mshift, emit2))
         k3["plain_ms" + sfx] = median_ms(lambda: K3.coarse_rowmax_plain(
             folded, qi8, table, rs, wpr, rpg, mshift, emit2))
+        # achieved rates over the kernel's time, GB/s
+        k3["gathered_gb_per_s" + sfx] = gathered / k3["ms" + sfx] / 1e6
+        k3["distinct_gb_per_s" + sfx] = rows_read * lanes / k3["ms" + sfx] / 1e6
     emit({"phase": "kernels_folded", "K3": k3})
 
     qkw = dict(steps=steps, probe_mode="margin", probe_budget=budget)

@@ -8,9 +8,11 @@ physical row (a view of the per-table tier, `index/forest.py`). For every
 window's `wpr` physical rows with an exact int32 dot of int8 tier values
 against the query's int8 coarse vector, packs `(score << mshift) | member`
 and keeps the maximum (and, with `emit2`, the second maximum) per physical
-row. On the H100 it is bound by bytes read; one warp reads two 128-byte rows
-per coalesced load and takes the dots with `__dp4a`. Every value is an
-integer, so kernel and plain version agree bit for bit.
+row. On the H100 it is bound by bytes read: a persistent grid streams each
+window's contiguous run of rows into a ring of shared-memory stages by TMA
+bulk copy, and each consumer thread scores one row with `__dp4a`, keeping
+its top two in registers. Every value is an integer, so kernel and plain
+version agree bit for bit.
 
 Unlike the TPU kernel, whose dead windows hold stale scratch, both versions
 write `I32_DEAD` on every row of a dead window (`row_start < 0`), as the
@@ -73,7 +75,8 @@ def coarse_rowmax_kernel(folded: torch.Tensor, qi8: torch.Tensor, table: torch.T
                          row_start: torch.Tensor, wpr: int, rpg: int, mshift: int,
                          emit2: bool = False) -> RowMax:
     """K3 on CUDA tensors, its plain version on CPU tensors. Same contract
-    as `coarse_rowmax_plain`."""
+    as `coarse_rowmax_plain`; the kernel takes `rpg` a power of two (the
+    folded query's `coarse_group // fold` always is)."""
     global LAUNCHES
     if folded.device.type == "cpu":
         return coarse_rowmax_plain(folded, qi8, table, row_start, wpr, rpg, mshift, emit2)
@@ -87,7 +90,7 @@ def coarse_rowmax_kernel(folded: torch.Tensor, qi8: torch.Tensor, table: torch.T
     b, mb = table.shape
     cs = qi8.shape[1] if qi8.dim() == 2 else -1
     if (qi8.shape != (b, cs) or (cs, lanes) not in _WIDTHS or row_start.shape != (b, mb)
-            or not 0 < wpr <= capf or rpg < 1 or not 0 <= mshift < 32):
+            or not 0 < wpr <= capf or rpg < 1 or rpg & (rpg - 1) or not 0 <= mshift < 32):
         raise ValueError(f"coarse_rowmax_kernel: shapes folded {tuple(folded.shape)}, "
                          f"qi8 {tuple(qi8.shape)}, table {tuple(table.shape)}, "
                          f"row_start {tuple(row_start.shape)}, wpr {wpr}, rpg {rpg}, "

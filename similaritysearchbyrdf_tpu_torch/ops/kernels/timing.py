@@ -9,11 +9,15 @@ Seeded random operands at the shapes `chip_smoke.py` gives the kernels:
 K2 at the bench config (B 1024 x 512 blocks of 8 rows, cs 32, 30 tables of
 20,000 rows), K2b at window_1m's (B 128 x 1024 windows of 64, cs 32, 10
 tables of 2^20 rows, 38% of windows live) and at flat_20k's re-score
-(B 1024 x 30 windows of 64, cs 128, the int8 sketch as one table), and K4
-int8 at flat_20k's (unpacked, B 1024 x 24,576 x 128) and flat_8m's
-(packed, B 1024 x 8,003,584 x 96). Prints the card's name and power limit,
-then one JSON line of medians of `--reps` CUDA-event timings (ms) after 3
-warm-up calls.
+(B 1024 x 30 windows of 64, cs 128, the int8 sketch as one table), K3 at
+folded_8m's (10 tables of 2^20 folded rows of 128 lanes, cs 16, B 64 x 128
+live windows of 512 rows, each query's windows consecutive from one random
+row of one table, as the folded query lays them out; with and without the
+second output), and K4 int8 at flat_20k's (unpacked, B 1024 x 24,576 x 128)
+and flat_8m's (packed, B 1024 x 8,003,584 x 96). `--only K3` times only the
+entries whose names start with one of the given prefixes. Prints the card's
+name and power limit, then one JSON line of medians of `--reps` CUDA-event
+timings (ms) after 3 warm-up calls.
 """
 
 from __future__ import annotations
@@ -31,10 +35,13 @@ import torch
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--only", nargs="*", default=[],
+                    help="time only entries whose names start with one of these")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("timing: needs a CUDA device", file=sys.stderr)
         return 2
+    from . import coarse_fold as K3
     from . import coarse_gather as K2
     from . import flat_groupmax as K4
 
@@ -66,32 +73,52 @@ def main() -> int:
             times.append(start.elapsed_time(end))
         return float(np.median(times))
 
+    def wanted(*names):
+        return not args.only or any(n.startswith(p) for n in names for p in args.only)
+
     out = {}
-    tier, q = i8(30, 20_000, 32), bf16(1024, 32)
-    table, blk = ints(0, 30, (1024, 512)), ints(0, 20_000 - 8, (1024, 512))
-    out["K2_bench"] = median_ms(lambda: K2.coarse_block_scores_kernel(tier, q, table, blk, 8))
+    if wanted("K2_bench"):
+        tier, q = i8(30, 20_000, 32), bf16(1024, 32)
+        table, blk = ints(0, 30, (1024, 512)), ints(0, 20_000 - 8, (1024, 512))
+        out["K2_bench"] = median_ms(lambda: K2.coarse_block_scores_kernel(tier, q, table, blk, 8))
 
-    tier, q = i8(10, 1 << 20, 32), bf16(128, 32)
-    table, blk = ints(0, 10, (128, 1024)), ints(0, ((1 << 20) - 64) // 8, (128, 1024)) * 8
-    live = torch.rand((128, 1024), generator=gen, device=dev) < 0.38
-    end = blk + 64
-    out["K2b_window_1m"] = median_ms(lambda: K2.coarse_window_scores_kernel(
-        tier, q, table, blk, blk, end, live, 64))
+    if wanted("K2b_window_1m"):
+        tier, q = i8(10, 1 << 20, 32), bf16(128, 32)
+        table, blk = ints(0, 10, (128, 1024)), ints(0, ((1 << 20) - 64) // 8, (128, 1024)) * 8
+        live = torch.rand((128, 1024), generator=gen, device=dev) < 0.38
+        end = blk + 64
+        out["K2b_window_1m"] = median_ms(lambda: K2.coarse_window_scores_kernel(
+            tier, q, table, blk, blk, end, live, 64))
 
-    sk = i8(24_576, 128)
-    sk[20_000:] = 0
-    q = bf16(1024, 128)
-    zeros = torch.zeros((1024, 30), dtype=torch.int32, device=dev)
-    blk = ints(0, 20_000 // 64, (1024, 30)) * 64
-    n_end, live = torch.full_like(zeros, 20_000), torch.ones_like(zeros, dtype=torch.bool)
-    out["K2b_flat_20k"] = median_ms(lambda: K2.coarse_window_scores_kernel(
-        sk[None], q, zeros, blk, zeros, n_end, live, 64))
+    if wanted("K3_folded_8m", "K3_folded_8m_emit2"):
+        b, mb, wpr, capf = 64, 128, 512, 1 << 20
+        folded, qi8 = i8(10, capf, 128), i8(b, 16)
+        table = ints(0, 10, (b, 1)).expand(b, mb).contiguous()
+        rs = (ints(0, (capf - mb * wpr) // 8, (b, 1)) * 8
+              + torch.arange(mb, device=dev, dtype=torch.int32) * wpr).contiguous()
+        for name, emit2 in (("K3_folded_8m", False), ("K3_folded_8m_emit2", True)):
+            if wanted(name):
+                out[name] = median_ms(lambda: K3.coarse_rowmax_kernel(
+                    folded, qi8, table, rs, wpr, 8, 6, emit2))
+        del folded
 
-    q8 = i8(1024, 128)
-    out["K4_flat_20k_unpacked"] = median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, 64))
-    sk, q8 = i8(8_003_584, 96), i8(1024, 96)
-    out["K4_flat_8m_packed"] = median_ms(
-        lambda: K4.flat_groupmax_kernel(sk, q8, 64, pack_arg=True))
+    if wanted("K2b_flat_20k", "K4_flat_20k_unpacked"):
+        sk = i8(24_576, 128)
+        sk[20_000:] = 0
+        q = bf16(1024, 128)
+        zeros = torch.zeros((1024, 30), dtype=torch.int32, device=dev)
+        blk = ints(0, 20_000 // 64, (1024, 30)) * 64
+        n_end, live = torch.full_like(zeros, 20_000), torch.ones_like(zeros, dtype=torch.bool)
+        if wanted("K2b_flat_20k"):
+            out["K2b_flat_20k"] = median_ms(lambda: K2.coarse_window_scores_kernel(
+                sk[None], q, zeros, blk, zeros, n_end, live, 64))
+        if wanted("K4_flat_20k_unpacked"):
+            q8 = i8(1024, 128)
+            out["K4_flat_20k_unpacked"] = median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, 64))
+    if wanted("K4_flat_8m_packed"):
+        sk, q8 = i8(8_003_584, 96), i8(1024, 96)
+        out["K4_flat_8m_packed"] = median_ms(
+            lambda: K4.flat_groupmax_kernel(sk, q8, 64, pack_arg=True))
     print(json.dumps({"checkout": os.getcwd(), "reps": args.reps, "ms": out}), flush=True)
     return 0
 

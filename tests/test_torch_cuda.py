@@ -108,25 +108,56 @@ def test_window_kernel_matches_plain(dev, win, cs, tier_dtype):
                        got)
 
 
-@pytest.mark.parametrize("rpg", [1, 8])
+# (cs, lanes, wpr, rpg, B, MB, layout): every width of the kernel, windows
+# shorter than one 16 KB ring stage (wpr 8), whole stages (64, 512 at fold
+# 8) and a partial last stage (520); "mixed" has dead windows and windows
+# past capf - wpr, "dead" only dead ones, "clamped" only clamped ones,
+# "runs" consecutive windows of one table per query (the folded query's
+# layout); B*MB from 3 (fewer than the grid's CTAs) to 38,400
+_ROWMAX_CASES = [
+    (16, 128, 8, 8, 7, 21, "mixed"), (16, 128, 64, 8, 7, 21, "mixed"),
+    (16, 128, 512, 8, 5, 9, "runs"), (16, 128, 520, 8, 4, 6, "mixed"),
+    (16, 128, 64, 1, 7, 21, "mixed"), (8, 128, 64, 8, 7, 21, "mixed"),
+    (32, 128, 64, 2, 7, 21, "mixed"), (64, 128, 64, 1, 7, 21, "mixed"),
+    (128, 128, 64, 1, 7, 21, "mixed"), (256, 256, 64, 1, 7, 21, "mixed"),
+    (16, 128, 64, 8, 6, 11, "dead"), (32, 128, 64, 4, 6, 11, "clamped"),
+    (16, 128, 64, 8, 1, 3, "mixed"), (16, 128, 8, 8, 64, 600, "mixed"),
+]
+
+
 @pytest.mark.parametrize("emit2", [False, True])
-@pytest.mark.parametrize("cs", [16, 64])
-def test_rowmax_kernel_matches_plain(dev, rpg, emit2, cs):
-    rng = np.random.default_rng(rpg * 10 + cs + emit2)
-    l, capf, b, mb, wpr = 3, 640, 7, 21, 64
-    folded = torch.as_tensor(rng.integers(-127, 128, (l, capf, 128), dtype=np.int8), device=dev)
+@pytest.mark.parametrize("cs,lanes,wpr,rpg,b,mb,layout", _ROWMAX_CASES)
+def test_rowmax_kernel_matches_plain(dev, cs, lanes, wpr, rpg, b, mb, layout, emit2):
+    rng = np.random.default_rng(cs + lanes + wpr + rpg + b + mb + emit2)
+    l, capf = 3, max(640, 2 * wpr)
+    folded = torch.as_tensor(rng.integers(-127, 128, (l, capf, lanes), dtype=np.int8),
+                             device=dev)
     qi8 = torch.as_tensor(rng.integers(-127, 128, (b, cs), dtype=np.int8), device=dev)
-    table = torch.as_tensor(rng.integers(-1, l + 1, (b, mb)).astype(np.int32), device=dev)
+    table = rng.integers(-1, l + 1, (b, mb))
     rs = rng.integers(0, capf // 8 + 4, (b, mb)) * 8
-    rs = np.where(rng.random((b, mb)) < 0.25, -1, rs)
-    rs = torch.as_tensor(rs.astype(np.int32), device=dev)      # dead, and past capf - wpr
-    mshift = (rpg * 128 // cs).bit_length() - 1
+    if layout == "mixed":                                       # dead, and past capf - wpr
+        rs = np.where(rng.random((b, mb)) < 0.25, -1, rs)
+    elif layout == "dead":
+        rs[:] = -1
+    elif layout == "clamped":
+        rs = capf - wpr + rng.integers(1, 64, (b, mb))
+    else:                                                       # runs
+        capf = mb * wpr + 64
+        folded = torch.as_tensor(rng.integers(-127, 128, (l, capf, lanes), dtype=np.int8),
+                                 device=dev)
+        table = np.repeat(rng.integers(0, l, (b, 1)), mb, axis=1)
+        rs = rng.integers(0, 8, (b, 1)) * 8 + np.arange(mb) * wpr
+    table = torch.as_tensor(table.astype(np.int32), device=dev)
+    rs = torch.as_tensor(rs.astype(np.int32), device=dev)
+    mshift = (rpg * lanes // cs).bit_length() - 1
     before = K3.LAUNCHES
     got = K3.coarse_rowmax_kernel(folded, qi8, table, rs, wpr, rpg, mshift, emit2)
     assert K3.LAUNCHES == before + 1
     want = K3.coarse_rowmax_plain(folded, qi8, table, rs, wpr, rpg, mshift, emit2)
     for g, w in zip(got if emit2 else (got,), want if emit2 else (want,)):
         assert g.dtype == torch.int32 and torch.equal(g, w)
+    if layout == "dead":
+        assert bool((got[0] if emit2 else got).eq(K3.I32_DEAD).all())
 
 
 def test_kernel_wrappers_raise_on_bad_input(dev):
@@ -156,6 +187,8 @@ def test_kernel_wrappers_raise_on_bad_input(dev):
         K3.coarse_rowmax_kernel(folded, qi8[:, :12].contiguous(), ti, ti, 8, 1, 3)  # cs 12
     with pytest.raises(ValueError):
         K3.coarse_rowmax_kernel(folded, qi8, ti, ti, 32, 1, 3)     # window past the table
+    with pytest.raises(ValueError):
+        K3.coarse_rowmax_kernel(folded, qi8, ti, ti, 8, 3, 3)      # rpg not a power of 2
     with pytest.raises(TypeError):
         K3.coarse_rowmax_kernel(folded, qi8.float(), ti, ti, 8, 1, 3)
 
