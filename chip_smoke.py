@@ -35,7 +35,9 @@ device is present:
      plain versions on the operands the grouped leg gave them;
   8. kernels_flat: K4 (flat group-max) against its plain version at the
      Deep-8M flat query's shapes (int8 packed, unpacked, packed with the
-     supergroup tier), and its sliced form at 200k x 800 (random int8);
+     supergroup tier: the wgmma form), and its sliced mma.sync form at
+     200k x 800 (random int8), each with the form it took and the share of
+     its bound it reached;
   9. flat_8m: `FlatIndex()` at its defaults (int8, argpack) on folded_8m's
      corpus and ground truth: fit, 1,024 queries, recall, qps, bytes,
      peak device memory.
@@ -485,7 +487,7 @@ def flat_20k_kernels(calls, sync, median_ms) -> dict:
     bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
     check(bad == 0, f"K4 int8 on flat_20k's operands differs in {bad} words")
     out = {"K4_int8": {"shape": {"B": b, "Npad": npad, "D": dk, "group": group},
-                       "mismatched_words": bad,
+                       "form": K4.kernel_form(sk.dtype, dk), "mismatched_words": bad,
                        "max_abs_err": float((got - want).abs().max()),
                        **bound(nbytes(sk, q8, got), 2.0 * b * npad * dk, "int8"),
                        "ms": median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, group)),
@@ -499,7 +501,8 @@ def flat_20k_kernels(calls, sync, median_ms) -> dict:
     check(bool((err <= lim).all()), f"K4 bf16 exceeds the f32 bound: max err {float(err.max())}")
     vs_int8 = int((got16.view(torch.int32) != got.view(torch.int32)).sum())
     check(vs_int8 == 0, f"K4 bf16 on int8 values differs from K4 int8 in {vs_int8} words")
-    out["K4_bf16"] = {"max_abs_err": float(err.max()), "words_unequal_to_int8": vs_int8,
+    out["K4_bf16"] = {"form": K4.kernel_form(s16.dtype, dk), "max_abs_err": float(err.max()),
+                      "words_unequal_to_int8": vs_int8,
                       **bound(nbytes(s16, q16, got16), 2.0 * b * npad * dk, "bf16"),
                       "ms": median_ms(lambda: K4.flat_groupmax_kernel(s16, q16, group)),
                       "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(s16, q16, group))}
@@ -634,10 +637,12 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
         check(bad == 0, f"K4 {name} differs from its plain version in {bad} words")
         out_bytes = nbytes(*(g for g, _ in pairs))
         del got, want, pairs
-        k4[name] = {"mismatched_words": bad, "max_abs_err": err,
+        k4[name] = {"form": K4.kernel_form(sk.dtype, dk), "mismatched_words": bad,
+                    "max_abs_err": err,
                     **bound(nbytes(sk, q8) + out_bytes, 2.0 * nq * npad * dk, "int8"),
                     "ms": median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, 64, **kw)),
                     "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk, q8, 64, **kw))}
+        k4[name]["bound_share"] = k4[name]["bound_ms"] / k4[name]["ms"]
     # the sliced form (D staged in 256-byte slices) at the JAX package's
     # high-D flat workload, 200k x 784 (sketch width 800), exact2's unpacked
     # call: seeded random int8 values
@@ -651,10 +656,13 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
     check(bad == 0, f"K4's sliced form differs from its plain version in {bad} words")
     k4["int8_sliced_200k_d800"] = {
         "shape": {"B": nq, "Npad": sk_hd.shape[0], "D": 800, "group": 64},
+        "form": K4.kernel_form(sk_hd.dtype, 800) + ", D in slices",
         "mismatched_words": bad, "max_abs_err": float((got - want).abs().max()),
         **bound(nbytes(sk_hd, q_hd, got), 2.0 * nq * sk_hd.shape[0] * 800, "int8"),
         "ms": median_ms(lambda: K4.flat_groupmax_kernel(sk_hd, q_hd, 64)),
         "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk_hd, q_hd, 64))}
+    k4["int8_sliced_200k_d800"]["bound_share"] = (k4["int8_sliced_200k_d800"]["bound_ms"]
+                                                  / k4["int8_sliced_200k_d800"]["ms"])
     del sk_hd, q_hd, got, want
     emit({"phase": "kernels_flat", "K4": k4})
 

@@ -20,10 +20,12 @@
 // rows (8 rows at cs 32: the whole 256-byte block in one coalesced 8-byte
 // load per lane). A lane keeps the query columns of its chunks in registers,
 // takes an 8-term dot per chunk, and a segmented butterfly of shuffles over
-// the lanes of a row finishes the sum. Any cs that is a multiple of 8 up to
-// 2048 works: at cs 96 (12 chunks) a row takes 16 lanes, of which 4 load
+// the lanes of a row finishes the sum. Any cs that is a multiple of 8
+// works: at cs 96 (12 chunks) a row takes 16 lanes, of which 4 load
 // nothing and add 0; past 32 chunks a lane takes CPL = 2, 4 or 8 chunks,
-// LPR chunks apart. The TPU's DMA tactics (aligned
+// LPR chunks apart, and past 2048 columns (CPL 0) a lane walks its chunks
+// 32 apart and reads each chunk's query columns through L1 instead of
+// holding them. The TPU's DMA tactics (aligned
 // 2*bs windows with a shift-select, lane packing of G tables per 128-lane
 // row, run coalescing, static drain) answered per-descriptor DMA cost and
 // have no counterpart here: the tier is stored per table.
@@ -86,7 +88,7 @@ __device__ __forceinline__ void load_query8(const __nv_bfloat16* src, bool loads
 }
 
 // a lane's query columns: chunks chunk, chunk + LPR, ... (CPL of them) of
-// the query row's cpr chunks, zeros past the row
+// the query row's cpr chunks, zeros past the row (none held with CPL 0)
 template <int LPR, int CPL>
 __device__ __forceinline__ void load_query(const __nv_bfloat16* qrow, int chunk, int cpr,
                                            float* qv) {
@@ -98,14 +100,23 @@ __device__ __forceinline__ void load_query(const __nv_bfloat16* qrow, int chunk,
 }
 
 // a lane's part of the dot of one tier row with the query (0 on a padding
-// lane)
+// lane); with CPL 0 the lane walks chunks LPR apart and reads the query row
 template <int LPR, int CPL, typename TierT>
-__device__ __forceinline__ float row_dot(const TierT* row, const float* qv, int chunk, int cpr) {
+__device__ __forceinline__ float row_dot(const TierT* row, const float* qv,
+                                         const __nv_bfloat16* qrow, int chunk, int cpr) {
   float acc = 0.f;
+  if constexpr (CPL == 0) {
+    for (int k = chunk; k < cpr; k += LPR) {
+      float qk[8];
+      load_query8(qrow + k * 8, true, qk);
+      acc += dot8(row + k * 8, qk);
+    }
+  } else {
 #pragma unroll
-  for (int c = 0; c < CPL; ++c) {
-    const int k = chunk + c * LPR;
-    if (k < cpr) acc += dot8(row + k * 8, qv + 8 * c);
+    for (int c = 0; c < CPL; ++c) {
+      const int k = chunk + c * LPR;
+      if (k < cpr) acc += dot8(row + k * 8, qv + 8 * c);
+    }
   }
   return acc;
 }
@@ -127,8 +138,9 @@ coarse_block_scores_kernel(const int8_t* __restrict__ tier,
   for (long long i = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
        i < n_blocks; i += n_warps) {     // warp-uniform
     const int b = (int)(i / MB);
-    float qv[8 * CPL];
-    load_query<LPR, CPL>(q + (size_t)b * cs, chunk, cpr, qv);
+    const __nv_bfloat16* qrow = q + (size_t)b * cs;
+    float qv[8 * (CPL ? CPL : 1)];
+    load_query<LPR, CPL>(qrow, chunk, cpr, qv);
     const int t = min(max(table[i], 0), L - 1);
     const int s = min(max(start[i], 0), caprows - bs);
     const int8_t* blk = tier + ((size_t)t * caprows + s) * cs;
@@ -136,7 +148,7 @@ coarse_block_scores_kernel(const int8_t* __restrict__ tier,
     for (int r0 = 0; r0 < bs; r0 += kRowsPerPass) {
       const int r = r0 + row_in_pass;
       float acc = 0.f;
-      if (r < bs) acc = row_dot<LPR, CPL>(blk + (size_t)r * cs, qv, chunk, cpr);
+      if (r < bs) acc = row_dot<LPR, CPL>(blk + (size_t)r * cs, qv, qrow, chunk, cpr);
 #pragma unroll
       for (int off = LPR / 2; off > 0; off >>= 1) {
         acc += __shfl_xor_sync(kFull, acc, off);
@@ -183,8 +195,9 @@ coarse_window_scores_kernel(const TierT* __restrict__ tier,
       continue;
     }
     const int b = (int)(i / MB);
-    float qv[8 * CPL];
-    load_query<LPR, CPL>(q + (size_t)b * cs, chunk, cpr, qv);
+    const __nv_bfloat16* qrow = q + (size_t)b * cs;
+    float qv[8 * (CPL ? CPL : 1)];
+    load_query<LPR, CPL>(qrow, chunk, cpr, qv);
     const int t = min(max(table[i], 0), L - 1);
     const int p0 = blk_start[i];
     const int lo = start[i];
@@ -195,7 +208,7 @@ coarse_window_scores_kernel(const TierT* __restrict__ tier,
       const int r = r0 + row_in_pass;
       const bool valid = r < win && p0 + r >= lo && p0 + r < hi;
       float acc = 0.f;
-      if (valid) acc = row_dot<LPR, CPL>(rows + (size_t)r * cs, qv, chunk, cpr);
+      if (valid) acc = row_dot<LPR, CPL>(rows + (size_t)r * cs, qv, qrow, chunk, cpr);
 #pragma unroll
       for (int off = LPR / 2; off > 0; off >>= 1) {
         acc += __shfl_xor_sync(kFull, acc, off);
@@ -247,7 +260,7 @@ int launch_window(const void* tier, const void* q, const void* table, const void
 }
 
 // LAUNCH(LPR, CPL) for a row of cs columns: the next power of two of lanes
-// up to 32, then 2, 4 or 8 chunks per lane (rows up to cs 2048)
+// up to 32, then 2, 4 or 8 chunks per lane, then (CPL 0) any width
 #define RDF_BY_WIDTH(cs, LAUNCH)                   \
   if ((cs) <= 8) return LAUNCH(1, 1);              \
   if ((cs) <= 16) return LAUNCH(2, 1);             \
@@ -258,13 +271,13 @@ int launch_window(const void* tier, const void* q, const void* table, const void
   if ((cs) <= 512) return LAUNCH(32, 2);           \
   if ((cs) <= 1024) return LAUNCH(32, 4);          \
   if ((cs) <= 2048) return LAUNCH(32, 8);          \
-  return (int)cudaErrorInvalidValue;
+  return LAUNCH(32, 0);
 
 }  // namespace
 
 // tier i8[L, caprows, cs], q bf16[B, cs], table and start i32[B, MB] (all
 // contiguous, 16-byte aligned); out f32[B, MB, bs]. cs is a multiple of 8
-// up to 2048 and caprows >= bs. Launches on `stream`; returns the
+// and caprows >= bs. Launches on `stream`; returns the
 // cudaError_t of the launch (cudaErrorInvalidValue for an unsupported cs).
 extern "C" int rdf_coarse_block_scores(const void* tier, const void* q,
                                        const void* table, const void* start,

@@ -17,7 +17,50 @@
 // version (`flat_groupmax_plain`) bit for bit; bf16 dots accumulate in f32.
 // The [B, Npad] scores never reach device memory.
 //
-// Design: the product runs on the tensor cores through mma.sync
+// Bound: operations. At the Deep-8M shape (Npad 8,003,584, D 96, B 1024,
+// int8) a call does 1.57e12 int8 operations (0.80 ms at 1,979 TOPS) and
+// moves 768 MB of sketch and 512 MB of output (0.38 ms at 3.35 TB/s).
+//
+// Two forms, chosen by shape in `rdf_flat_groupmax`:
+//
+// The wgmma form (int8, D up to kWgMaxD = 192). A persistent grid, one CTA
+// per SM, of five warpgroups: four consumers and a producer. Each CTA keeps
+// a chunk of up to qc queries resident in shared memory (all 1,024 at D
+// 96) and walks every gridDim.x-th 512-row sketch block; one producer thread
+// keeps the next block in flight by TMA through a two-stage mbarrier ring,
+// so the sketch is read from memory once per query chunk and the query
+// batch once per CTA. Both operands land in wgmma's 32-byte swizzle: one
+// TMA box of 32 bytes x 256 rows per k-step, a tile stored as [D/32][rows]
+// [32] planes (descriptor: swizzle 32B, 256 bytes between 8-row groups).
+// A consumer warpgroup scores 64 queries (the M operand) against a block's
+// rows in four 128-row subtiles, each D/32 m64n128k32 s8 wgmma products
+// issued back to back (k-steps a compile-time constant); the four consumers
+// take every fourth 64-query tile, so while some wait on the tensor cores
+// the others run their epilogues. A thread's accumulators hold two query
+// rows x (2 columns of each n8 block), so a group max is a max over
+// registers and a quad exchange: a packed key is one IMAD (score * G, G
+// read at run time so the multiply lands on the FMA pipe and not on the
+// integer pipe that runs the max tree, plus the member's compile-time
+// offset; the thread's own offset 2 * (lane % 4) is added once after the
+// max, as it is common to all its keys), then a tree of two-input maxima:
+// about one IMAD and one max per packed score. The quad reduce-scatters the
+// span's group maxima (a span: the subtiles that make at least 8 groups, or
+// the whole block), so each lane holds consecutive groups and a quad
+// writes 32 bytes or more of each query row per store (512 / G groups for
+// G >= 128). The supergroup tier reduces within a lane and across the quad
+// before its order-free atomicMax. No scratch round trip and no CTA barrier
+// sit in the epilogue.
+// Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit (chip_smoke.py,
+// flat_8m's real operands, B 1024 x 8,003,584 x 96, G 64): 1.31 ms packed
+// (61% of the 0.795 ms bound), 1.06 ms unpacked, 1.44 ms with the
+// supergroup tier, from 3.4-3.7 ms on mma.sync. What holds it: the epilogue
+// (one IMAD and one max per score on the integer and FMA pipes, about as
+// much issue as the products take on the tensor cores) overlaps the other
+// warpgroups' products only in part; two warpgroups, a strict turnstile
+// between them, or three-way maxima were each slower.
+//
+// The mma.sync form (bf16, and int8 past D 192): the product runs on the
+// tensor cores through mma.sync
 // (m16n8k32 s8 -> s32, or m16n8k16 bf16 -> f32: both take a 32-byte slice
 // of a row per step, so the fragments load alike), with the queries as the
 // M operand and the sketch rows as N. A CTA of `nw` warps owns 64*nw
@@ -39,17 +82,13 @@
 // of those queries in turn, and the accumulators stay in registers across
 // slices, so any D works, at the cost of reading the sketch tile again for
 // every 32 queries.
+// mma.sync reaches only part of the tensor-core peak, and its operands
+// pass through ldmatrix for every 32 queries.
 // The TPU kernels' strided (halved) sketch copy, nsub pipelining, in-kernel
 // transpose and lane-reduction variant were Mosaic layout tactics and have
 // no counterpart.
-//
-// Bound: operations. At the Deep-8M shape (Npad 8,003,584, D 96, B 1024,
-// int8) a call does 1.57e12 int8 operations (0.80 ms at 1,979 TOPS) and
-// moves 768 MB of sketch and 512 MB of output (0.38 ms at 3.35 TB/s).
-// mma.sync reaches only part of the wgmma peak, and at D 96 each score
-// takes 3 mma steps against a fixed epilogue per score; wgmma, TMA and a
-// persistent grid are left for a later tuning pass.
 
+#include <cuda.h>   // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -379,6 +418,497 @@ int dispatch(const void* sk, const void* q, void* out, void* sgout, int npad, in
   }
 }
 
+// ---------------------------------------------------------------------------
+// The wgmma form (int8, D <= kWgMaxD); see the head of the file.
+
+constexpr int kWgMaxD = 192;               // widest D: two stages and 128 queries fit
+constexpr int kRB = 512;                   // sketch rows per ring stage (one block)
+constexpr int kN = 128;                    // sketch rows per wgmma (N)
+constexpr int kSubs = kRB / kN;            // subtiles per block
+constexpr int kWgStages = 2;               // ring depth: a block serves every query tile
+constexpr int kM = 64;                     // queries per wgmma (M)
+constexpr int kConsumers = 4;              // consumer warpgroups (one more produces)
+constexpr int kWgThreads = (kConsumers + 1) * 128;
+constexpr int kProducerRegs = 40;          // setmaxnreg: the producer gives registers back
+constexpr int kConsumerRegs = 104;         // and the consumers take them
+constexpr int kBoxRows = 256;              // rows of a sketch TMA box (the TMA maximum)
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// a phase that never completes is a fault: trap (the launch then fails)
+// rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  uint32_t done = 0;
+  for (unsigned polls = 0;; ++polls) {
+    if (polls == (1u << 26)) asm volatile("trap;");
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// one 2-D TMA box (x = byte column, y = row) into shared memory; rows past
+// the tensor are zero-filled, and the box's bytes complete on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile in the 32-byte swizzle: rows of one
+// 32-byte k-step, 256 bytes (8 rows) between 8-row groups; the tile starts
+// on a 256-byte swizzle atom
+__device__ __forceinline__ uint64_t wg_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(256 >> 4) << 32) | ((uint64_t)3 << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until at most N committed wgmma groups are pending
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// d (+)= A[64 x 32] * B[128 x 32]^T in int8 -> int32; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]),
+        "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]),
+        "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]),
+        "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),
+        "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]),
+        "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]),
+        "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]),
+        "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// max of N registers, as a tree of two-input maxima
+template <int N>
+__device__ __forceinline__ int max_all(const int (&v)[N]) {
+  if constexpr (N == 1) {
+    return v[0];
+  } else {
+    constexpr int M = (N + 1) / 2;
+    int w[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) w[j] = 2 * j + 1 < N ? max(v[2 * j], v[2 * j + 1]) : v[2 * j];
+    return max_all<M>(w);
+  }
+}
+
+// the epilogue's shape for group width G
+template <int G>
+struct Span {
+  static constexpr int U = G < 64 ? G : 64;                 // columns per reduction unit
+  static constexpr int NU = kN / U;                         // units per subtile
+  static constexpr int SS = G <= 16 ? 1 : (G == 32 ? 2 : kSubs);   // subtiles per span
+  static constexpr int V = G <= 64 ? SS * kN / G : kRB / G; // groups per span
+  static constexpr int W = V >= 4 ? V / 4 : 1;              // groups a lane holds
+};
+
+// what a consumer thread needs to place its results
+struct Site {
+  int* out;
+  int* sgout;
+  int B, ng, nsg, esg_shift;   // esg_shift < 0: no supergroup tier
+  int group;                   // G, at run time
+  int lane, tig, row;          // the lane, lane % 4, the query row of h = 0 (h = 1: + 8)
+};
+
+// pins the accumulators in place: the compiler sees the registers change
+// here, so it moves no read of them above a wgmma wait, nor any write of them
+// below a product's issue
+__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// one 128-row subtile: d = query tile * sketch subtile^T over KS 32-byte
+// k-steps, as one committed wgmma group. KS is a compile-time constant: a
+// branch between the products would make the compiler wait for each one.
+template <int KS>
+__device__ __forceinline__ void issue_subtile(int (&d)[64], uint64_t da, uint64_t db, int qc) {
+  fence_acc(d);
+  wg_fence();
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {   // k-step k is plane k of both tiles
+    wgmma_s8(d, da + (uint64_t)((k * qc * 32) >> 4), db + (uint64_t)((k * kRB * 32) >> 4), k);
+  }
+  wg_commit();
+}
+
+// the span is complete: reduce-scatter its group maxima over the quad, then
+// store them (and fold the supergroup tier); grp0 is the span's first group
+template <int G, bool PACK>
+__device__ __forceinline__ void flush_span(int (&span)[2][Span<G>::V], int grp0,
+                                           const Site& s) {
+  using S = Span<G>;
+  constexpr int V = S::V, W = S::W;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int v[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) v[j] = span[h][j];
+    // lane tig keeps groups [tig * W, tig * W + W) (V >= 4); with V == 2
+    // every lane ends with group tig / 2, with V == 1 with group 0
+    if constexpr (V >= 2) {
+      constexpr int H = V / 2;
+      const bool hi = s.tig & 2;
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const int keep = hi ? v[j + H] : v[j];
+        const int send = hi ? v[j] : v[j + H];
+        v[j] = max(keep, __shfl_xor_sync(kFull, send, 2));
+      }
+    } else {
+      v[0] = max(v[0], __shfl_xor_sync(kFull, v[0], 2));
+    }
+    if constexpr (V >= 4) {
+      constexpr int H = V / 4;
+      const bool hi = s.tig & 1;
+#pragma unroll
+      for (int j = 0; j < H; ++j) {
+        const int keep = hi ? v[j + H] : v[j];
+        const int send = hi ? v[j] : v[j + H];
+        v[j] = max(keep, __shfl_xor_sync(kFull, send, 1));
+      }
+    } else {
+      v[0] = max(v[0], __shfl_xor_sync(kFull, v[0], 1));
+    }
+    const int g0 = grp0 + (V >= 4 ? s.tig * W : (V == 2 ? s.tig >> 1 : 0));
+    const bool writer = V >= 4 || (V == 2 ? !(s.tig & 1) : s.tig == 0);
+    const int q = s.row + 8 * h;
+    const bool row_ok = q < s.B;
+    if (writer && row_ok) {
+      int* o = s.out + (size_t)q * s.ng + g0;
+      int w[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j) w[j] = PACK ? v[j] : __float_as_int((float)v[j]);
+      if (W == 4 && (s.ng & 3) == 0 && g0 + 4 <= s.ng) {
+        *reinterpret_cast<int4*>(o) = make_int4(w[0], w[1], w[2], w[3]);
+      } else if (W == 2 && (s.ng & 1) == 0 && g0 + 2 <= s.ng) {
+        *reinterpret_cast<int2*>(o) = make_int2(w[0], w[1]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < W; ++j)
+          if (g0 + j < s.ng) o[j] = w[j];
+      }
+    }
+    if constexpr (PACK) {
+      if (s.esg_shift >= 0) {   // supergroups of esg groups: within the lane, then the quad
+        const int esg = 1 << s.esg_shift;
+        constexpr int kMin = -2147483647 - 1;
+#pragma unroll
+        for (int j = 0; j < W; ++j)
+          if (g0 + j >= s.ng) v[j] = kMin;
+        int* so = s.sgout + (size_t)q * s.nsg;
+        if (V >= 4 && esg <= W) {
+#pragma unroll
+          for (int j = 0; j < W; ++j) {
+            if (j & (esg - 1)) continue;
+            int m = v[j];
+#pragma unroll
+            for (int t = 1; j + t < W; ++t)
+              if (t < esg) m = max(m, v[j + t]);
+            if (row_ok && g0 + j < s.ng) atomicMax(so + ((g0 + j) >> s.esg_shift), m);
+          }
+        } else {
+          // the supergroup spans lanes: W consecutive groups per lane
+          // (V >= 4), or one group on lanes 0 and 2 (V == 2)
+          int m = v[0];
+#pragma unroll
+          for (int j = 1; j < W; ++j) m = max(m, v[j]);
+          int lanes = 1;
+          if constexpr (V >= 4) {
+            lanes = min(esg / W, 4);
+            if (lanes >= 2) m = max(m, __shfl_xor_sync(kFull, m, 1));
+            if (lanes >= 4) m = max(m, __shfl_xor_sync(kFull, m, 2));
+          } else if constexpr (V == 2) {
+            if (esg >= 2) {
+              m = max(m, __shfl_xor_sync(kFull, m, 2));
+              lanes = 4;
+            }
+          }
+          if (writer && row_ok && (s.tig & (lanes - 1)) == 0 && g0 < s.ng)
+            atomicMax(so + (g0 >> s.esg_shift), m);
+        }
+      }
+    }
+  }
+}
+
+// the epilogue of subtile SUB of a 512-row block: unit maxima of the
+// thread's two rows into the span, and the span's flush when it is complete
+template <int G, bool PACK, int SUB>
+__device__ __forceinline__ void subtile_epilogue(const int (&acc)[64], int (&span)[2][Span<G>::V],
+                                                 int rb, const Site& s) {
+  using S = Span<G>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int u = 0; u < S::NU; ++u) {
+      // acc[4i + 2h + e] is column 8i + 2 tig + e of row h
+      constexpr int kVals = S::U / 4;
+      int v[kVals];
+#pragma unroll
+      for (int j = 0; j < kVals; ++j) {
+        const int i = u * (S::U / 8) + (j >> 1), e = j & 1;
+        const int sc = acc[4 * i + 2 * h + e];
+        // the member's offset within the unit; the thread's 2 tig and the
+        // unit's place in its group are added after the max. The multiplier
+        // G is read at run time, so the key is one IMAD on the FMA pipe
+        // rather than a shift-add on the integer pipe that runs the max tree.
+        v[j] = PACK ? (int)((unsigned)sc * (unsigned)s.group + (unsigned)(8 * (j >> 1) + e)) : sc;
+      }
+      int m = max_all<kVals>(v);
+      const int col = SUB * kN + u * S::U;   // the unit's first column in the block
+      if constexpr (PACK) m += (col & (G - 1)) + 2 * s.tig;
+      if constexpr (G > 64) {
+        if (col % G) m = max(span[h][col / G], m);
+      }
+      // a value that outlives the next product passes through a shuffle
+      // with the thread's own lane: the compiler cannot recompute it from
+      // the accumulators, which that product overwrites (it was seen to)
+      if constexpr (SUB % S::SS != S::SS - 1) m = __shfl_sync(kFull, m, s.lane);
+      span[h][G <= 64 ? (SUB % S::SS) * S::NU + u : col / G] = m;
+    }
+  }
+  if constexpr (SUB % S::SS == S::SS - 1)
+    flush_span<G, PACK>(span, rb * (kRB / G) + (G <= 64 ? (SUB / S::SS) * S::V : 0), s);
+}
+
+template <int G, bool PACK, int KS>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flat_groupmax_wgmma(const __grid_constant__ CUtensorMap sk_map,
+                    const __grid_constant__ CUtensorMap q_map, int* __restrict__ out,
+                    int* __restrict__ sgout, int npad, int B, int D, int group, int esg,
+                    int qc) {
+  extern __shared__ __align__(1024) uint8_t wsmem[];
+  uint8_t* base = wsmem + ((1024 - (smem_addr(wsmem) & 1023)) & 1023);
+  const int stage_bytes = kRB * D;
+  uint8_t* qs = base + kWgStages * stage_bytes;                  // [D/32][qc][32], swizzled
+  uint64_t* full = reinterpret_cast<uint64_t*>(qs + (size_t)qc * D);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* qbar = empty + kWgStages;
+  const int nrb = (npad + kRB - 1) / kRB;
+  const int q0 = blockIdx.y * qc;
+  const int nmt = (min(qc, B - q0) + kM - 1) / kM;                // query tiles of this chunk
+  const int planes = D >> 5;                                      // one per k-step
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * kConsumers);                        // the consumer warps
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * kConsumers) {   // producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+    if (threadIdx.x != 128 * kConsumers) return;
+    mbar_expect_tx(qbar, (unsigned)(nmt * kM * D));
+    for (int p = 0; p < planes; ++p)
+      for (int t = 0; t < nmt; ++t)
+        tma_load(qs + ((size_t)p * qc + t * kM) * 32, &q_map, p * 32, q0 + t * kM, qbar);
+    int st = 0;
+    unsigned phase = 0;
+    for (int rb = blockIdx.x; rb < nrb; rb += gridDim.x) {
+      mbar_wait(&empty[st], phase ^ 1);
+      mbar_expect_tx(&full[st], (unsigned)stage_bytes);
+      uint8_t* dst = base + st * stage_bytes;
+      for (int p = 0; p < planes; ++p)
+        for (int h = 0; h < kRB / kBoxRows; ++h)
+          tma_load(dst + ((size_t)p * kRB + h * kBoxRows) * 32, &sk_map, p * 32,
+                   rb * kRB + h * kBoxRows, &full[st]);
+      if (++st == kWgStages) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg takes query tiles wg, wg + 2, ...; warp w of it
+  // rows 16w + (lane / 4) and + 8 of a tile. Two accumulator sets: the next
+  // subtile's product runs while this one's epilogue does.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+  const int wg = threadIdx.x >> 7;
+  const int lane = threadIdx.x & 31;
+  Site site{out, sgout, B, npad / G, esg ? npad / G / esg : 0, esg ? __ffs(esg) - 1 : -1,
+            group, lane, lane & 3, 0};
+  const int row_in_tile = ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  mbar_wait(qbar, 0);
+  int st = 0;
+  unsigned phase = 0;
+  int acc[64];
+  int span[2][Span<G>::V];
+  for (int rb = blockIdx.x; rb < nrb; rb += gridDim.x) {
+    mbar_wait(&full[st], phase);
+    const uint8_t* stage = base + st * stage_bytes;
+    auto da_of = [&](int mt) { return wg_desc(qs + (size_t)mt * kM * 32); };
+    auto db_of = [&](int sub) { return wg_desc(stage + (size_t)sub * kN * 32); };
+    for (int mt = wg; mt < nmt; mt += kConsumers) {
+      const uint64_t da = da_of(mt);
+      site.row = q0 + mt * kM + row_in_tile;
+#define RDF_SUBTILE(SUB)                                      \
+      issue_subtile<KS>(acc, da, db_of(SUB), qc);             \
+      wg_wait<0>();                                           \
+      fence_acc(acc);                                         \
+      subtile_epilogue<G, PACK, SUB>(acc, span, rb, site);
+      RDF_SUBTILE(0)
+      RDF_SUBTILE(1)
+      RDF_SUBTILE(2)
+      RDF_SUBTILE(3)
+#undef RDF_SUBTILE
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+    if (++st == kWgStages) {
+      st = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from libcuda, reached through the runtime so the
+// library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p,
+                                                             12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// a 2-D map of an int8 [rows, D] matrix in boxes of 32 bytes x box_rows,
+// written to shared memory in the 32-byte swizzle
+bool make_map(CUtensorMap* map, const void* ptr, long long rows, int D, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+size_t wg_smem(int D, int qc) {
+  return 1024 + (size_t)kWgStages * kRB * D + (size_t)qc * D + (2 * kWgStages + 1) * 8;
+}
+
+template <int G, bool PACK>
+int launch_wgmma(const void* sk, const void* q, void* out, void* sgout, int npad, int B, int D,
+                 int esg, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // query chunks: as few as shared memory allows, more while the sketch has
+  // fewer blocks than the card has SMs (each chunk keeps at least 128 queries)
+  const long long qc_max =
+      ((long long)kMaxSmem - (long long)wg_smem(D, 0)) / D / kM * kM;
+  if (qc_max < kM) return (int)cudaErrorInvalidValue;
+  const int nrb = (npad + kRB - 1) / kRB;
+  int nch = (int)((B + qc_max - 1) / qc_max);
+  nch = max(nch, min((B + 127) / 128, sms / nrb));
+  const int qc = ((B + nch - 1) / nch + kM - 1) / kM * kM;
+  nch = (B + qc - 1) / qc;
+  const int gx = min(nrb, max(1, sms / nch));
+  CUtensorMap sk_map, q_map;
+  if (!make_map(&sk_map, sk, npad, D, kBoxRows) || !make_map(&q_map, q, B, D, kM))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wg_smem(D, qc);
+  void (*kern)(CUtensorMap, CUtensorMap, int*, int*, int, int, int, int, int, int) = nullptr;
+  switch (D >> 5) {   // k-steps: the widths the wgmma form takes
+    case 1: kern = flat_groupmax_wgmma<G, PACK, 1>; break;
+    case 2: kern = flat_groupmax_wgmma<G, PACK, 2>; break;
+    case 3: kern = flat_groupmax_wgmma<G, PACK, 3>; break;
+    case 4: kern = flat_groupmax_wgmma<G, PACK, 4>; break;
+    case 5: kern = flat_groupmax_wgmma<G, PACK, 5>; break;
+    case 6: kern = flat_groupmax_wgmma<G, PACK, 6>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<dim3(gx, nch), kWgThreads, smem, stream>>>(sk_map, q_map, static_cast<int*>(out),
+                                                    static_cast<int*>(sgout), npad, B, D, G,
+                                                    esg, qc);
+  return (int)cudaGetLastError();
+}
+
+template <bool PACK>
+int dispatch_wgmma(const void* sk, const void* q, void* out, void* sgout, int npad, int B, int D,
+                   int group, int esg, cudaStream_t st) {
+  switch (group) {
+    case 8: return launch_wgmma<8, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 16: return launch_wgmma<16, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 32: return launch_wgmma<32, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 64: return launch_wgmma<64, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 128: return launch_wgmma<128, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 256: return launch_wgmma<256, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 512: return launch_wgmma<512, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // sketch [npad, D] and q [B, D], both int8 (bf16 = 0) or both bf16 (bf16 =
@@ -398,6 +928,10 @@ extern "C" int rdf_flat_groupmax(const void* sk, const void* q, void* out, void*
     return (int)cudaErrorInvalidValue;
   const int dbytes = bf16 ? 2 * D : D;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (!bf16 && D <= kWgMaxD) {   // the wgmma form; by shape, never as a fallback
+    if (pack) return dispatch_wgmma<true>(sk, q, out, sgout, npad, B, D, group, esg, st);
+    return dispatch_wgmma<false>(sk, q, out, sgout, npad, B, D, group, esg, st);
+  }
   if (bf16) return dispatch<true, false>(sk, q, out, sgout, npad, B, dbytes, group, esg, st);
   if (pack) return dispatch<false, true>(sk, q, out, sgout, npad, B, dbytes, group, esg, st);
   return dispatch<false, false>(sk, q, out, sgout, npad, B, dbytes, group, esg, st);

@@ -40,6 +40,7 @@ from ..ops.bitops import clz, to_key
 from ..ops.hashing import hash_dense, hash_dense_with_margins
 from ..ops.kernels.coarse_fold import I32_DEAD, coarse_rowmax_kernel
 from ..ops.kernels.coarse_gather import coarse_block_scores_kernel, coarse_window_scores_kernel
+from ..ops.precision import full_f32
 from ..vectors import DenseBatch
 from .bucket_table import KEY_PAD, BucketTables, KeyLayout, build_tables, composite_keys, lookup_ranges
 from .partitioner import generate_partition_projections, partition_of_hash, stepwise_patterns
@@ -139,7 +140,8 @@ def _coarse_projection(d: int, cd: int, seed: int, mode: str = "random") -> np.n
 def _coarse_low(corpus: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
     """Project and quantize the corpus once, with one global scale:
     [Npad, D] → i8[Npad, cs]. Rounding is half-to-even, as in the reference."""
-    low = corpus @ proj
+    with full_f32():
+        low = corpus @ proj
     scale = 127.0 / torch.clamp(low.abs().max(), min=1e-20)
     return torch.clamp(torch.round(low * scale), -127, 127).to(torch.int8)
 
@@ -421,7 +423,8 @@ def _coarse_block_scores(tier: torch.Tensor, coarse_proj: torch.Tensor,
     dev = base_b.device
     mb = torch.arange(mb_cap, device=dev)
     blk_start = base_b if abs_starts else base_b + mb * bs
-    q_low = (queries @ coarse_proj).to(torch.bfloat16).contiguous()
+    with full_f32():
+        q_low = (queries @ coarse_proj).to(torch.bfloat16).contiguous()
     if start_b is None:
         scores = coarse_block_scores_kernel(tier, q_low, _i32(table_b), _i32(blk_start), bs)
         pos = blk_start[..., None] + torch.arange(bs, device=dev)
@@ -552,7 +555,8 @@ def _query_dense_coarse(state: ForestState, queries, query_ids, layout: KeyLayou
     prune = (window_keep > 0 and win > 0 and state.coarse_head is not None
              and head_pool > 0 and win % head_pool == 0 and window_keep < m_cap // win)
     if prune:
-        q_low = (queries @ state.coarse_proj).to(torch.bfloat16)
+        with full_f32():
+            q_low = (queries @ state.coarse_proj).to(torch.bfloat16)
         base_b, table_b, start_b, end_b = _prune_windows(
             state.coarse_head, head_pool, q_low, base_b, table_b, start_b, end_b, win,
             window_keep)
@@ -581,7 +585,8 @@ def query_int8(queries: torch.Tensor, coarse_proj: torch.Tensor) -> torch.Tensor
     """The folded path's coarse query i8[B, cs]: each query's projection
     quantized with its own scale (any positive scale keeps its order),
     rounding half to even as the JAX package does."""
-    q_low = queries @ coarse_proj
+    with full_f32():
+        q_low = queries @ coarse_proj
     qscale = 127.0 / torch.clamp(q_low.abs().amax(dim=1, keepdim=True), min=1e-20)
     return torch.clamp(torch.round(q_low * qscale), -127, 127).to(torch.int8).contiguous()
 

@@ -17,6 +17,7 @@ import torch
 from ..config import RDFConfig, partition_config
 from ..models.families import Device, generate_angle_model, resolve_device
 from ..ops.bitops import bits_of
+from ..ops.precision import full_f32
 
 
 def generate_partition_projections(conf: RDFConfig, seed: Optional[int] = None,
@@ -40,7 +41,8 @@ def partition_of_hash(hashes: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     component i (LSB first); the chain's signs pack MSB-first, so the id is
     sum_j sign_j << (pbits-1-j)."""
     bits = bits_of(hashes).to(torch.float32)                    # [B, L, 32]
-    dots = torch.einsum("blk,lpk->blp", bits, q)                # [B, L, pbits]
+    with full_f32():
+        dots = torch.einsum("blk,lpk->blp", bits, q)            # [B, L, pbits]
     pbits = q.shape[1]
     weights = 1 << torch.arange(pbits - 1, -1, -1, device=hashes.device)
     return ((dots > 0).to(torch.int64) * weights).sum(dim=-1)

@@ -54,8 +54,16 @@ def from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
                    device: Device = None) -> ForestState:
     """The port's `ForestState` from the JAX package's state arrays (see
     `FIELDS`; `OPTIONAL_FIELDS` may be absent), on `device` (default: the
-    first CUDA card)."""
+    first CUDA card). Raises NotImplementedError for a bf16-rerank state."""
     device = resolve_device(device)
+    # the bf16 two-stage rerank reads `corpus_lp`, which the port does not
+    # carry yet: taking such a state would rerank it in f32 without a word
+    if conf.rerank_dtype != "float32" or arrays.get("corpus_lp") is not None:
+        raise NotImplementedError(
+            "from_jax_state: a bf16-rerank state (rerank_dtype="
+            f"{conf.rerank_dtype!r}, corpus_lp present: {arrays.get('corpus_lp') is not None}) "
+            "needs the bf16 two-stage rerank, which the port does not have yet "
+            "(ROADMAP.md Queue 1 item 2)")
     missing = [f for f in FIELDS if f not in arrays]
     if missing:
         raise KeyError(f"from_jax_state: missing arrays {missing}")

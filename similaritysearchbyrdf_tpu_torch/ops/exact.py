@@ -2,7 +2,8 @@
 
 Counterpart of `similaritysearchbyrdf_tpu/ops/exact.py`: the corpus is
 streamed in chunks with a running top-k, so peak memory is chunk x B scores.
-A plain f32 `torch.matmul` (callers keep TF32 off) and `torch.topk`.
+A full-f32 `torch.matmul` (TF32 off for the product, `ops/precision.py`)
+and a stable top-k.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from ..models.families import Device, resolve_device
+from .precision import full_f32
 from .rerank import top_sorted
 
 
@@ -30,7 +32,8 @@ def exact_topk(corpus: torch.Tensor, queries: torch.Tensor, k: int,
     qidx = torch.arange(b, device=dev)[:, None]
     for c0 in range(0, n, chunk):
         rows = corpus[c0:c0 + chunk]
-        scores = (q @ rows.T).to(torch.float32)                   # [B, chunk]
+        with full_f32():
+            scores = (q @ rows.T).to(torch.float32)               # [B, chunk]
         ids = torch.arange(c0, c0 + rows.shape[0], device=dev)[None, :]
         if exclude_diag_offset is not None:
             scores = torch.where(ids == qidx + exclude_diag_offset, float("-inf"), scores)

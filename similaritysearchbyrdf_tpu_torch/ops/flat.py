@@ -38,6 +38,7 @@ from ..models.families import Device, resolve_device
 from ..vectors import DenseBatch
 from .kernels.coarse_gather import coarse_window_scores_kernel
 from .kernels.flat_groupmax import flat_groupmax_kernel
+from .precision import full_f32
 from .rerank import top_sorted
 
 NEG_INF = float("-inf")
@@ -46,6 +47,7 @@ _GROUP = 64                # rows per group == re-score window rows
 _NPAD_MULTIPLE = 8192      # row padding of the grouped paths: sets NG and the group numbering
 _ARGPACK_MIN_ROWS = 1 << 20
 _SKETCH_COLS = 32          # sketch column padding: the int8 mma depth
+_LANES = 128               # the reference's sketch column padding (select-mode test only)
 _QUANT_CHUNK = 1 << 20     # corpus rows quantized at once
 _ARGPACK_L2 = "sort"
 
@@ -59,7 +61,11 @@ def _default_select_sg(mode: str) -> int:
 def _resolve_select_mode(mode: str, sketch_dtype: torch.dtype, nrows: int, d: int = 0) -> str:
     """"auto" is argpack for an int8 sketch of at least 1M rows whose packed
     key fits int32, else exact2; an explicit "argpack" that cannot pack
-    falls back to exact2."""
+    falls back to exact2. `d` is the sketch's width, which the test takes
+    rounded up to a multiple of 128 as the reference's lane-padded sketch
+    has it (`ops/flat.py:114,155` of the JAX package), so both packages pick
+    the same mode for D 2049-2080."""
+    d = _round_up(d, _LANES)
     pack_ok = sketch_dtype == torch.int8 and d * 127 * 127 * _GROUP < 2**31
     if mode != "auto":
         return "exact2" if mode == "argpack" and not pack_ok else mode
@@ -128,11 +134,12 @@ def _quantize_queries(queries: torch.Tensor, sketch: torch.Tensor) -> torch.Tens
 def _exact_refine(corpus, row_ids, queries, cand, pre_valid, query_ids, k, exclude_self):
     """Exact f32 re-score of the candidate rows + final top-k → (ids i32[B,
     k] with -1 padding, scores f32[B, k]). A bf16 corpus widens to f32
-    before the dot; callers keep TF32 off."""
+    before the dot, which runs in full f32 whatever the TF32 setting."""
     n = row_ids.shape[0]
     safe = cand.clamp(0, n - 1).to(torch.int64)
     rows = corpus[safe].to(torch.float32)                           # [B, R, D]
-    exact = torch.bmm(rows, queries[:, :, None].to(torch.float32))[..., 0]
+    with full_f32():
+        exact = torch.bmm(rows, queries[:, :, None].to(torch.float32))[..., 0]
     uid = row_ids[safe]
     valid = pre_valid & (uid >= 0)
     if exclude_self:

@@ -18,13 +18,15 @@ from ..models.families import HashModel
 from ..models.transforms import apply_type_of_index
 from .bitops import java_bytes_hash_of_ints
 from .kernels.hash_kernel import hash_dense_kernel
+from .precision import full_f32
 
 
 def _hash_pstable(model: HashModel, x: torch.Tensor) -> torch.Tensor:
     """H(v) = ((a.v + b) / w).toInt per function, truncated toward zero like
     scala's Double.toInt, then byte-packed and Arrays.hashCode'd per chain
     (`PStableHashFamily.scala:122-177`). → int64[B, T*P]."""
-    dots = torch.einsum("bd,tcd->btc", x, model.proj)
+    with full_f32():
+        dots = torch.einsum("bd,tcd->btc", x, model.proj)
     vals = ((dots + model.b[None]) / float(model.w)).to(torch.int32)
     idx = model.perm.to(torch.int64)[None].expand(x.shape[0], -1, -1, -1)
     permuted = torch.gather(vals[:, :, None, :].expand(-1, -1, idx.shape[2], -1), 3, idx)

@@ -28,11 +28,11 @@ from . import build
 
 LAUNCHES = 0          # K2 launches since the last reset (plain runs never count)
 WINDOW_LAUNCHES = 0   # K2b launches since the last reset
-MAX_CS = 2048         # tier row width (columns) the kernels take: any multiple of 8 up to this
 
 
 def _cs_ok(cs: int) -> bool:
-    return 0 < cs <= MAX_CS and cs % 8 == 0
+    """The kernels take a tier row of any width that is a multiple of 8."""
+    return cs > 0 and cs % 8 == 0
 
 
 def coarse_block_scores_plain(tier: torch.Tensor, q_low: torch.Tensor,
@@ -69,8 +69,7 @@ def coarse_block_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
             or not 0 < bs <= caprows):
         raise ValueError(f"coarse_block_scores_kernel: shapes tier {tuple(tier.shape)}, "
                          f"q_low {tuple(q_low.shape)}, table {tuple(table.shape)}, "
-                         f"blk_start {tuple(blk_start.shape)}, bs {bs}; cs a multiple of 8 "
-                         f"up to {MAX_CS}")
+                         f"blk_start {tuple(blk_start.shape)}, bs {bs}; cs a multiple of 8")
     build.check_operands("coarse_block_scores_kernel", tier.device, ("tier", "q_low"),
                          tier=tier, q_low=q_low, table=table, blk_start=blk_start)
     out = torch.empty((b, mb, bs), dtype=torch.float32, device=tier.device)
@@ -123,7 +122,7 @@ def coarse_window_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
             or win % 8 or any(a.shape != (b, mb) for a in (blk_start, start, end, live))):
         raise ValueError(f"coarse_window_scores_kernel: shapes tier {tuple(tier.shape)}, "
                          f"q_low {tuple(q_low.shape)}, table {tuple(table.shape)}, "
-                         f"win {win} (a multiple of 8); cs a multiple of 8 up to {MAX_CS}")
+                         f"win {win} (a multiple of 8); cs a multiple of 8")
     build.check_operands("coarse_window_scores_kernel", tier.device, ("tier", "q_low"),
                          tier=tier, q_low=q_low, table=table, blk_start=blk_start,
                          start=start, end=end, live=live)

@@ -8,9 +8,11 @@ with its fused supergroup tier `emit_sg`). For a sketch [Npad, D] and queries
 `group` consecutive rows' scores, [B, Npad/group], without writing the
 [B, Npad] scores: f32, or with `pack_arg` (int8 only) the int32 key
 `(score << log2 group) | member` of each group's best row. On the H100 it is
-bound by operations (int8 tensor-core products, `csrc/flat_groupmax.cu`).
-int8 dots are exact, so kernel and plain version agree bit for bit; bf16
-dots accumulate in f32 and agree within the f32 summation bound.
+bound by operations (int8 tensor-core products, `csrc/flat_groupmax.cu`):
+int8 up to D 192 runs a TMA-fed, warp-specialised wgmma kernel, bf16 and
+wider int8 the mma.sync form (`kernel_form`). int8 dots are exact, so
+kernel and plain version agree bit for bit; bf16 dots accumulate in f32 and
+agree within the f32 summation bound.
 
 `flat_groupmax_kernel` launches the kernel for CUDA tensors and runs
 `flat_groupmax_plain` for CPU tensors; a CUDA tensor never takes the plain
@@ -27,6 +29,7 @@ from . import build
 
 LAUNCHES = 0     # kernel launches since the last reset (plain runs never count)
 MAX_GROUP = 512  # the kernel's CTA holds at most 512 rows, so a group at most that
+WGMMA_MAX_D = 192   # int8 widths the wgmma form takes (`kWgMaxD` in the source)
 _PLAIN_CHUNK = 1 << 26   # score elements the plain version makes at once
 GroupMax = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -52,6 +55,14 @@ def _check_args(sketch: torch.Tensor, q: torch.Tensor, group: int, pack_arg: boo
         if emit_sg & (emit_sg - 1) or (npad // group) % emit_sg:
             raise ValueError(f"flat_groupmax: emit_sg {emit_sg} must be a power of two "
                              f"dividing {npad // group} groups")
+
+
+def kernel_form(dtype: torch.dtype, d: int) -> str:
+    """Which form of the kernel a call takes, as `rdf_flat_groupmax`
+    chooses by shape: the wgmma form for int8 up to `WGMMA_MAX_D`, else
+    the mma.sync form (which stages D in slices where whole rows do not
+    fit: int8 past D 416, bf16 past 192)."""
+    return "wgmma" if dtype == torch.int8 and d <= WGMMA_MAX_D else "mma.sync"
 
 
 def flat_groupmax_plain(sketch: torch.Tensor, q: torch.Tensor, group: int = 64,

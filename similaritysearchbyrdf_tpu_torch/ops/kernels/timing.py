@@ -14,10 +14,15 @@ folded_8m's (10 tables of 2^20 folded rows of 128 lanes, cs 16, B 64 x 128
 live windows of 512 rows, each query's windows consecutive from one random
 row of one table, as the folded query lays them out; with and without the
 second output), and K4 int8 at flat_20k's (unpacked, B 1024 x 24,576 x 128)
-and flat_8m's (packed, B 1024 x 8,003,584 x 96). `--only K3` times only the
-entries whose names start with one of the given prefixes. Prints the card's
-name and power limit, then one JSON line of medians of `--reps` CUDA-event
-timings (ms) after 3 warm-up calls.
+and flat_8m's (B 1024 x 8,003,584 x 96: packed, unpacked, and packed with
+the supergroup tier of 16 groups). `flat_8m_query` times the whole flat
+engine at flat_8m's shape instead: `FlatIndex()` at its defaults fitted on
+8,000,000 x 96 unit vectors around 50,000 seeded centres (made on the card),
+1,024 of them as queries, host clock around `query_device` and a sync (its
+qps is 1,024 / that time). `--only K3` times only the entries whose names
+start with one of the given prefixes. Prints the card's name and power
+limit, then one JSON line of medians of `--reps` timings (ms) after 3
+warm-up calls.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -115,10 +121,35 @@ def main() -> int:
         if wanted("K4_flat_20k_unpacked"):
             q8 = i8(1024, 128)
             out["K4_flat_20k_unpacked"] = median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, 64))
-    if wanted("K4_flat_8m_packed"):
+    k4_8m = {"K4_flat_8m_packed": dict(pack_arg=True), "K4_flat_8m_unpacked": {},
+             "K4_flat_8m_emit16": dict(pack_arg=True, emit_sg=16)}
+    if wanted(*k4_8m):
         sk, q8 = i8(8_003_584, 96), i8(1024, 96)
-        out["K4_flat_8m_packed"] = median_ms(
-            lambda: K4.flat_groupmax_kernel(sk, q8, 64, pack_arg=True))
+        for name, kw in k4_8m.items():
+            if wanted(name):
+                out[name] = median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, 64, **kw))
+    if wanted("flat_8m_query"):
+        from ...ops.flat import FlatIndex
+        from ...vectors import DenseBatch
+
+        n, d = 8_000_000, 96
+        centres = torch.randn((50_000, d), generator=gen, device=dev)
+        pick = torch.randint(0, 50_000, (n,), generator=gen, device=dev)
+        x = centres[pick] / centres[pick].norm(dim=1, keepdim=True)
+        x += 0.05 * torch.randn((n, d), generator=gen, device=dev)
+        x /= x.norm(dim=1, keepdim=True)
+        del centres, pick
+        flat = FlatIndex(device=dev).fit(DenseBatch(np.arange(n, dtype=np.int32), x))
+        queries, qids = x[:1024].clone(), np.arange(1024, dtype=np.int32)
+        del x
+        times = []
+        for i in range(3 + args.reps):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            flat.query_device(queries, k=10, query_ids=qids)
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["flat_8m_query"] = float(np.median(times[3:]))
     print(json.dumps({"checkout": os.getcwd(), "reps": args.reps, "ms": out}), flush=True)
     return 0
 

@@ -4,7 +4,8 @@ Counterpart of `similaritysearchbyrdf_tpu/ops/rerank.py` (the reference's
 `argsort(dataMatrix * queryVec)` re-rank, `DensevectorRDFInit.scala:487-490`):
 gather, dot, select, narrow dedup, top-k, with inner-product scores. Every
 selection is a stable sort, so ties fall as on the reference's CPU sorts
-(input order first). Scores are full f32: callers keep TF32 off.
+(input order first). Scores are full f32, whatever the caller's TF32
+setting (`ops/precision.py`).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from .precision import full_f32
 
 NEG_INF = float("-inf")
 _SENTINEL = 2**31 - 1
@@ -23,7 +26,8 @@ def score_candidates(corpus: torch.Tensor, cand: torch.Tensor,
     in full f32."""
     valid = cand >= 0
     vecs = corpus[cand.clamp(min=0).to(torch.int64)]                      # [B, M, D]
-    scores = torch.bmm(vecs, queries[:, :, None])[..., 0]
+    with full_f32():
+        scores = torch.bmm(vecs, queries[:, :, None])[..., 0]
     return torch.where(valid, scores, NEG_INF)
 
 

@@ -108,6 +108,33 @@ def test_window_kernel_matches_plain(dev, win, cs, tier_dtype):
                        got)
 
 
+@pytest.mark.parametrize("tier_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("cs", [2056, 4096])
+def test_window_kernel_past_2048_columns_bit_equal(dev, cs, tier_dtype):
+    """Past 2048 columns each lane walks its chunks and reads the query
+    through L1. The queries are small integers (|q| <= 16) and the tier int8
+    (or its exact bf16 copy), so every partial sum is an integer below 2^24,
+    exact in f32 in any order: kernel and plain version agree bit for bit."""
+    rng = np.random.default_rng(cs)
+    l, caprows, b, mb, win = 2, 400, 5, 12, 64
+    tier = torch.as_tensor(rng.integers(-127, 128, size=(l, caprows, cs)).astype(np.int8),
+                           device=dev).to(tier_dtype)
+    q = torch.as_tensor(rng.integers(-16, 17, size=(b, cs)).astype(np.float32), device=dev)
+    q = q.to(torch.bfloat16)
+    blk = rng.integers(0, (caprows - win) // 8, size=(b, mb)) * 8
+    start = blk + rng.integers(-8, win, size=(b, mb))
+    end = start + rng.integers(0, 2 * win, (b, mb))
+    args = [torch.as_tensor(a.astype(np.int32), device=dev) for a in
+            (rng.integers(0, l, size=(b, mb)), blk, start, end)]
+    live = torch.as_tensor(rng.random((b, mb)) < 0.8, device=dev)
+    got = K2.coarse_window_scores_kernel(tier, q, *args, live, win)
+    want = K2.coarse_window_scores_plain(tier, q, *args, live, win)
+    assert torch.isfinite(want).any() and torch.equal(got, want)
+    if tier_dtype == torch.int8:   # K2 takes the same path past 2048 columns
+        assert torch.equal(K2.coarse_block_scores_kernel(tier, q, args[0], args[1], 8),
+                           K2.coarse_block_scores_plain(tier, q, args[0], args[1], 8))
+
+
 # (cs, lanes, wpr, rpg, B, MB, layout): every width of the kernel, windows
 # shorter than one 16 KB ring stage (wpr 8), whole stages (64, 512 at fold
 # 8) and a partial last stage (520); "mixed" has dead windows and windows
@@ -231,25 +258,17 @@ def test_window_and_folded_on_card_match_cpu(dev, layout, extra):
     assert (gpu == cpu).all(axis=1).mean() >= 0.99
 
 
-@pytest.mark.parametrize("npad", [2816, 3072])
-@pytest.mark.parametrize("group", [16, 64, 256])
-@pytest.mark.parametrize("d", [32, 96, 128, 224, 800, 1056])
-@pytest.mark.parametrize("b", [1, 45, 100])
-def test_groupmax_kernel_int8_matches_plain(dev, npad, group, d, b):
-    """int8 dots are exact: K4 equals its plain version bit for bit, unpacked,
-    packed and with the supergroup tier, at ragged B and N (2816 rows is not
-    a multiple of the kernel's 512-row CTA; at 3072 a supergroup spans
-    CTAs). D 800 and 1056 take the kernel's sliced form (D staged in
-    256-byte slices, the last one partial); at 1056 query 0's score on row 3
-    passes 2^24 and is odd, so unpacked it is rounded once to f32 on both
-    sides. Packing is checked where the key fits int32."""
+def _check_groupmax_int8(dev, npad, group, d, b, esg_max=16):
+    """K4 against its plain version, bit for bit, unpacked, packed and packed
+    with the supergroup tier (where the key fits int32), on seeded random
+    int8 operands with tied rows inside and across groups."""
     rng = np.random.default_rng(npad + group + d + b)
     sk = torch.as_tensor(rng.integers(-127, 128, (npad, d), dtype=np.int8), device=dev)
     q = torch.as_tensor(rng.integers(-127, 128, (b, d), dtype=np.int8), device=dev)
     sk[7::97] = sk[5]                                   # tied rows inside and across groups
     q[0], sk[3], sk[3, 0] = 127, 127, 126               # score 127^2 * d - 127
     ng = npad // group
-    esg = min(16, ng & -ng)                             # a power of two dividing NG
+    esg = min(esg_max, ng & -ng)                        # a power of two dividing NG
     packs = ((True, 0), (True, esg)) if d * 127 * 127 * group < 2**31 else ()
     for pack, emit in ((False, 0), *packs):
         before = K4.LAUNCHES
@@ -258,6 +277,41 @@ def test_groupmax_kernel_int8_matches_plain(dev, npad, group, d, b):
         want = K4.flat_groupmax_plain(sk, q, group, pack_arg=pack, emit_sg=emit)
         for g, w in zip(got if emit else (got,), want if emit else (want,)):
             assert g.dtype == w.dtype and torch.equal(g, w), (pack, emit)
+
+
+@pytest.mark.parametrize("npad", [2816, 3072])
+@pytest.mark.parametrize("group", [16, 64, 256])
+@pytest.mark.parametrize("d", [32, 96, 128, 224, 800, 1056])
+@pytest.mark.parametrize("b", [1, 45, 64, 100, 128, 1024])
+def test_groupmax_kernel_int8_matches_plain(dev, npad, group, d, b):
+    """int8 dots are exact: K4 equals its plain version bit for bit, at
+    ragged B and N (2816 rows end in a half 512-row block; at 3072 a
+    supergroup spans blocks). D up to 128 takes the wgmma form (B 64 and 128
+    fill one and two 64-query tiles; 1024 is the flat engine's batch), 224
+    the mma.sync form, 800 and 1056 its sliced form (D staged in 256-byte
+    slices, the last one partial); at 1056 query 0's score on row 3 passes
+    2^24 and is odd, so unpacked it is rounded once to f32 on both sides."""
+    _check_groupmax_int8(dev, npad, group, d, b)
+
+
+@pytest.mark.parametrize("group", [8, 16, 32, 64])
+@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("b", [1, 100, 1024])
+def test_groupmax_kernel_int8_partial_tail(dev, group, d, b):
+    """2624 rows: the last 512-row block holds 64 rows, half of one 128-row
+    wgmma subtile; the zero-filled rest must reach no output word."""
+    _check_groupmax_int8(dev, 2624, group, d, b)
+
+
+@pytest.mark.parametrize("group", [8, 16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("b", [45, 1024])
+def test_groupmax_kernel_every_group_emit16(dev, group, d, b):
+    """Every G of the kernel at flat_8m's and flat_20k's widths, packed with
+    the supergroup tier of 16 groups (groups of 128 to 512 rows span wgmma
+    subtiles and, at 512, a whole block), plus one more block of 16 G rows."""
+    npad = 16 * group * (-(-8192 // (16 * group)) + 1)
+    _check_groupmax_int8(dev, npad, group, d, b)
 
 
 @pytest.mark.parametrize("d", [32, 96, 128, 224, 800])
@@ -304,8 +358,10 @@ def _flat_corpus(n, d, seed):
 @pytest.mark.parametrize("mode,d,dtype", [("grouped", 96, "int8"), ("grouped", 100, "int8"),
                                           ("grouped", 100, "bfloat16"), ("scan", 100, "int8"),
                                           ("grouped", 200, "int8"), ("grouped", 784, "int8"),
-                                          ("grouped", 784, "bfloat16")])
+                                          ("grouped", 784, "bfloat16"), ("grouped", 2100, "int8")])
 def test_flat_index_on_card_matches_cpu(dev, mode, d, dtype):
+    """D 2100 (a 2112-column sketch): exact2, whose K2b re-score reads rows
+    wider than 2048 columns."""
     x = _flat_corpus(6000, d, 2)
     ids = np.arange(6000, dtype=np.int32)
     kw = dict(refine=64, block=2048, mode=mode, sketch_dtype=dtype)
@@ -334,6 +390,50 @@ def test_argpack_on_card_matches_cpu(dev, emit):
         assert (K4.LAUNCHES > k4) == (where.type == "cuda")
         out[where.type] = got.cpu().numpy()
     assert (out["cuda"] == out["cpu"]).all(axis=1).mean() >= 0.99
+
+
+def test_exact_tiers_ignore_global_tf32(dev):
+    """With TF32 switched on for the whole process, the bench config's
+    forest, the ground truth and flat_20k's two legs give the ids they give
+    in full f32: the port pins full f32 at its exact products
+    (`ops/precision.py`), and the caller's setting survives."""
+    from bench import make_data
+
+    from similaritysearchbyrdf_tpu_torch import flat_topk
+    from similaritysearchbyrdf_tpu_torch.ops import flat as FL
+
+    x = make_data(seed=42)
+    ids = np.arange(len(x), dtype=np.int32)
+    conf = RDFConfig(vector_dim=100, table_num=10, permutation_num=3, family_size=100,
+                     partition_bits=3,
+                     lsh_table=TableConfig(chain_length=32, bucket_overflow=500),
+                     query_batch_size=1024, max_candidates=4096, top_k=10, seed=31258,
+                     coarse_dim=32, coarse_dtype="int8", coarse_refine=384,
+                     use_pallas_hash=True)
+    qkw = dict(query_ids=ids[:1000], probe_mode="margin", probe_budget=16, steps=0)
+    xd = torch.as_tensor(x, device=dev)
+    rid = torch.as_tensor(ids, device=dev)
+    q, qi = xd[:1024], rid[:1024]
+
+    def run():
+        forest = RDFForest(conf, device=dev).fit(DenseBatch(ids, x))
+        sketch, _ = FL.build_flat_sketch(xd, "int8")
+        return {"forest": forest.query(x[:1000], **qkw)[0],
+                "exact": exact_search(x, x[:1000], 10, exclude_self=True, device=dev)[0],
+                "flat_grouped": FlatIndex(device=dev).fit(DenseBatch(ids, x)).query(
+                    x[:1000], k=10, query_ids=ids[:1000])[0],
+                "flat_scan": flat_topk(sketch, xd, rid, q, qi, 10, refine=128)[0].cpu().numpy()}
+
+    want = run()
+    torch.set_float32_matmul_precision("high")
+    try:
+        assert torch.backends.cuda.matmul.allow_tf32
+        got = run()
+        assert torch.backends.cuda.matmul.allow_tf32       # the caller's setting is back
+    finally:
+        torch.set_float32_matmul_precision("highest")
+    for name in want:
+        assert np.array_equal(got[name], want[name]), name
 
 
 def test_entry_points_default_to_the_card(dev):

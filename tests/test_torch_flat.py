@@ -256,6 +256,19 @@ def test_select_mode_resolution_matches_jax(mode, dtype, nrows, d):
         mode, jdt, nrows, d)
 
 
+@pytest.mark.parametrize("mode", ["auto", "argpack"])
+@pytest.mark.parametrize("nrows", [1 << 20, 1 << 21])
+def test_select_mode_past_2048_columns_matches_jax(mode, nrows):
+    """Each package is given its own padded width, as its FlatIndex stores
+    the sketch: the port's multiple of 32, the reference's multiple of 128.
+    At D 2049-2080 the port's 32-padded key would still fit int32, but the
+    reference's 2176 lanes do not: both must pick exact2 there."""
+    for d in range(2040, 2101):
+        port = tflat._resolve_select_mode(mode, torch.int8, nrows, -(-d // 32) * 32)
+        ref = jflat._resolve_select_mode(mode, jnp.int8, nrows, -(-d // 128) * 128)
+        assert port == ref, d
+
+
 @pytest.mark.parametrize("nq", [1, 31, 33, 500, 1024, 5000])
 def test_effective_query_batch_matches_jax(nq):
     assert tflat.effective_query_batch(nq, 1024) == jflat.effective_query_batch(nq, 1024)

@@ -62,6 +62,8 @@ def jax_state_arrays(state):
         out["coarse_head"] = np.asarray(state.coarse_head, dtype=np.float32)
     if state.coarse_folded is not None:
         out.update({"coarse_proj": state.coarse_proj, "coarse_folded": state.coarse_folded})
+    if state.corpus_lp is not None:                 # bf16: widened to f32, as above
+        out["corpus_lp"] = np.asarray(state.corpus_lp, dtype=np.float32)
     return {k: np.asarray(v) for k, v in out.items()}
 
 
@@ -105,6 +107,25 @@ def test_fit_matches_jax(world, coarse):
         assert diff.max() <= 1 and (diff > 0).mean() < 1e-3       # .5 quantization ties
     else:
         assert ts.coarse_tier is None and js.coarse_by_table is None
+
+
+@pytest.mark.parametrize("port_rerank", ["bfloat16", "float32"])
+def test_from_jax_state_refuses_a_bf16_rerank_state(world, port_rerank):
+    """A JAX state fitted with rerank_dtype="bfloat16" carries `corpus_lp`
+    for its two-stage rerank, which the port does not have: the state is
+    refused whether the port's config says bf16 or f32, never reranked in
+    f32 without a word."""
+    jc, tc, _, _ = world[False]
+    js = jforest.fit_dense(jc.replace(rerank_dtype="bfloat16"),
+                           JBatch(world["ids"][:500], world["x"][:500]))
+    arrays = jax_state_arrays(js)
+    assert "corpus_lp" in arrays
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+        from_jax_state(arrays, tc.replace(rerank_dtype=port_rerank), device="cpu")
+    # the config alone refuses too, with the f32 state's arrays
+    with pytest.raises(NotImplementedError):
+        from_jax_state(jax_state_arrays(world[False][2].state),
+                       tc.replace(rerank_dtype="bfloat16"), device="cpu")
 
 
 @pytest.mark.parametrize("coarse", [True, False])
