@@ -18,7 +18,9 @@ device is present:
      same index config (plus a head tier): fit, 1,000 queries, recall,
      peak device memory;
   4. kernels_window: K2b (window scores) against its plain version at the
-     window-mode query's shapes on the 1M fit (B 128 x 1024 windows of 64);
+     window-mode query's shapes on the 1M fit (B 128 x 1024 windows of 64),
+     with the tier bytes it gathers beside the distinct ones, its achieved
+     rate and its share of the bound;
   5. window_1m: the 1M forest in window mode (`scripts/bench_large.py`'s
      config 2: m_cap 65536, refine 1024, batch 128), without and with
      window pruning: recall, qps, the kernels' launch counts;
@@ -32,7 +34,8 @@ device is present:
      K2b) on the bench corpus: recall against the JAX package's on the
      CPU, qps, launches, agreement with the port's CPU path, and K4 (int8,
      and bf16 on bf16 copies of the same values) and K2b against their
-     plain versions on the operands the grouped leg gave them;
+     plain versions on the operands the grouped leg gave them (K2b with
+     its bytes, rate and bound share as in phase 4);
   8. kernels_flat: K4 (flat group-max) against its plain version at the
      Deep-8M flat query's shapes (int8 packed, unpacked, packed with the
      supergroup tier: the wgmma form), and its sliced mma.sync form at
@@ -42,7 +45,11 @@ device is present:
      corpus and ground truth: fit, 1,024 queries, recall, qps, bytes,
      peak device memory.
 
-Each phase prints one JSON line. Then come the kernel summary line
+Each phase prints one JSON line. A kernel's `ms` is its device time: CUDA
+events around one call, the card first held busy by a ~1 ms spin so that
+the wrapper's host work overlaps it; `launch_ms` beside it times one call
+on an idle card, the wrapper's host time included. Then come the kernel
+summary line
 `{"kernels": [...]}`, with each kernel's least possible time on the card
 (`bound_ms`: the larger of its bytes over the memory rate and its
 operations over the peak rate for their type, counted from this run's
@@ -83,6 +90,7 @@ TPU_FLAT8M_RECALL = 1.0
 FLAT8M_RECALL_MIN = 0.995
 # published H100 SXM peaks (dense): memory bytes/s and operations/s by type
 PEAK = {"bytes": 3.35e12, "f32": 67e12, "bf16": 989e12, "int8": 1979e12}
+BUSY_CYCLES = 2_000_000     # a device spin of about 1 ms at the H100's 1.98 GHz
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -187,6 +195,25 @@ def timed_s(fn, sync, reps: int) -> float:
     return float(np.median(times))
 
 
+def kernel_times(fn, median_ms) -> dict:
+    """A kernel's `ms` (device time) and `launch_ms` (idle card, host time
+    included), as the module docstring defines them."""
+    return {"ms": median_ms(fn), "launch_ms": median_ms(fn, busy=False)}
+
+
+def gather_rates(gathered: int, distinct: int, rec: dict) -> dict:
+    """A gather kernel's bytes and achieved rates over its `ms`: the tier
+    bytes of every valid slot as it reads them (`gathered`) beside the
+    distinct ones the bound counts; `achieved_gb_per_s` counts what it
+    moves, the gathered bytes plus the small inputs and the output;
+    `bound_share` is bound_ms / ms."""
+    moved = rec["bound_bytes"] - distinct + gathered
+    return {"gathered_bytes": gathered, "distinct_bytes": distinct,
+            "achieved_gb_per_s": moved / rec["ms"] / 1e6,
+            "gathered_gb_per_s": gathered / rec["ms"] / 1e6,
+            "bound_share": rec["bound_ms"] / rec["ms"]}
+
+
 def window_kernel_phase(big, xq, sync, median_ms) -> dict:
     """K2b against its plain version on the window-mode query's real blocks:
     128 queries of the 1M corpus, m_cap 65536, 64-slot windows."""
@@ -231,10 +258,11 @@ def window_kernel_phase(big, xq, sync, median_ms) -> dict:
            "max_abs_err": float(err.max()),
            "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score; -inf slots equal",
            **k2b_bound,
-           "ms": median_ms(lambda: K2.coarse_window_scores_kernel(tier, q_low, *args, live,
-                                                                  win)),
+           **kernel_times(lambda: K2.coarse_window_scores_kernel(tier, q_low, *args, live, win),
+                          median_ms),
            "plain_ms": median_ms(lambda: K2.coarse_window_scores_plain(tier, q_low, *args,
                                                                        live, win))}
+    out.update(gather_rates(int(fin.sum()) * cs, rows_read * cs, out))
     emit({"phase": "kernels_window", "K2b": out})
     return out
 
@@ -367,8 +395,9 @@ def folded_phase(dev, sync, median_ms):
           "gathered_bytes": gathered, "distinct_bytes": rows_read * lanes}
     for emit2 in (False, True):
         sfx = "_emit2" if emit2 else ""
-        k3["ms" + sfx] = median_ms(lambda: K3.coarse_rowmax_kernel(
-            folded, qi8, table, rs, wpr, rpg, mshift, emit2))
+        t = kernel_times(lambda: K3.coarse_rowmax_kernel(
+            folded, qi8, table, rs, wpr, rpg, mshift, emit2), median_ms)
+        k3["ms" + sfx], k3["launch_ms" + sfx] = t["ms"], t["launch_ms"]
         k3["plain_ms" + sfx] = median_ms(lambda: K3.coarse_rowmax_plain(
             folded, qi8, table, rs, wpr, rpg, mshift, emit2))
         # achieved rates over the kernel's time, GB/s
@@ -490,7 +519,7 @@ def flat_20k_kernels(calls, sync, median_ms) -> dict:
                        "form": K4.kernel_form(sk.dtype, dk), "mismatched_words": bad,
                        "max_abs_err": float((got - want).abs().max()),
                        **bound(nbytes(sk, q8, got), 2.0 * b * npad * dk, "int8"),
-                       "ms": median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, group)),
+                       **kernel_times(lambda: K4.flat_groupmax_kernel(sk, q8, group), median_ms),
                        "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk, q8, group))}}
     s16, q16 = sk.to(torch.bfloat16), q8.to(torch.bfloat16)
     got16 = K4.flat_groupmax_kernel(s16, q16, group)
@@ -504,7 +533,7 @@ def flat_20k_kernels(calls, sync, median_ms) -> dict:
     out["K4_bf16"] = {"form": K4.kernel_form(s16.dtype, dk), "max_abs_err": float(err.max()),
                       "words_unequal_to_int8": vs_int8,
                       **bound(nbytes(s16, q16, got16), 2.0 * b * npad * dk, "bf16"),
-                      "ms": median_ms(lambda: K4.flat_groupmax_kernel(s16, q16, group)),
+                      **kernel_times(lambda: K4.flat_groupmax_kernel(s16, q16, group), median_ms),
                       "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(s16, q16, group))}
     del got, want, got16, want16, lim, err
 
@@ -523,15 +552,17 @@ def flat_20k_kernels(calls, sync, median_ms) -> dict:
           f"K2b on flat_20k exceeds the f32 bound: max err {float(err.max())}")
     pos = blk_start.long()[..., None] + torch.arange(win, device=tier.device)
     rows_read = int(torch.unique(pos[fin]).numel())
+    row_bytes = tier.shape[2] * tier.element_size()
     out["K2b"] = {"shape": {"B": q_low.shape[0], "MB": blk_start.shape[1], "win": win,
                             "cs": tier.shape[2], "tier": str(tier.dtype)},
                   "valid_slot_share": float(fin.float().mean()),
                   "max_abs_err": float(err.max()),
-                  **bound(rows_read * tier.shape[2] * tier.element_size()
+                  **bound(rows_read * row_bytes
                           + nbytes(q_low, table, blk_start, start, end, live, got),
                           2.0 * int(fin.sum()) * tier.shape[2], "bf16"),
-                  "ms": median_ms(lambda: K2.coarse_window_scores_kernel(*args)),
+                  **kernel_times(lambda: K2.coarse_window_scores_kernel(*args), median_ms),
                   "plain_ms": median_ms(lambda: K2.coarse_window_scores_plain(*args))}
+    out["K2b"].update(gather_rates(int(fin.sum()) * row_bytes, rows_read * row_bytes, out["K2b"]))
     out["tolerance"] = ("K4 int8: bit for bit; K4 bf16 and K2b: |err| <= "
                         "2*D*2^-24*sum|s*q| per value, K2b's -inf slots equal")
     return out
@@ -640,7 +671,7 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
         k4[name] = {"form": K4.kernel_form(sk.dtype, dk), "mismatched_words": bad,
                     "max_abs_err": err,
                     **bound(nbytes(sk, q8) + out_bytes, 2.0 * nq * npad * dk, "int8"),
-                    "ms": median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, 64, **kw)),
+                    **kernel_times(lambda: K4.flat_groupmax_kernel(sk, q8, 64, **kw), median_ms),
                     "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk, q8, 64, **kw))}
         k4[name]["bound_share"] = k4[name]["bound_ms"] / k4[name]["ms"]
     # the sliced form (D staged in 256-byte slices) at the JAX package's
@@ -659,7 +690,7 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
         "form": K4.kernel_form(sk_hd.dtype, 800) + ", D in slices",
         "mismatched_words": bad, "max_abs_err": float((got - want).abs().max()),
         **bound(nbytes(sk_hd, q_hd, got), 2.0 * nq * sk_hd.shape[0] * 800, "int8"),
-        "ms": median_ms(lambda: K4.flat_groupmax_kernel(sk_hd, q_hd, 64)),
+        **kernel_times(lambda: K4.flat_groupmax_kernel(sk_hd, q_hd, 64), median_ms),
         "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk_hd, q_hd, 64))}
     k4["int8_sliced_200k_d800"]["bound_share"] = (k4["int8_sliced_200k_d800"]["bound_ms"]
                                                   / k4["int8_sliced_200k_d800"]["ms"])
@@ -741,7 +772,11 @@ def main() -> int:
     def sync():
         torch.cuda.synchronize(dev)
 
-    def median_ms(fn, reps=20, warm=3):
+    def median_ms(fn, reps=20, warm=3, busy=True):
+        """Median CUDA-event time of one call of `fn`. With `busy` the card
+        first spins (about 1 ms) so the host's work in `fn` overlaps the
+        spin and the events time the device alone; without, the start
+        event fires on an idle card and the wrapper's host time counts."""
         for _ in range(warm):
             fn()
         sync()
@@ -749,6 +784,8 @@ def main() -> int:
         for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if busy:
+                torch.cuda._sleep(BUSY_CYCLES)
             start.record()
             fn()
             end.record()
@@ -801,7 +838,7 @@ def main() -> int:
     t_, c_, d_ = model.proj.shape
     k1_bound = bound(nbytes(xb, model.proj, model.perm, hk, mk),
                      2.0 * xb.shape[0] * t_ * c_ * d_, "f32")
-    k1_ms = median_ms(lambda: K1.hash_dense_kernel(xb, model.proj, model.perm, True))
+    k1_t = kernel_times(lambda: K1.hash_dense_kernel(xb, model.proj, model.perm, True), median_ms)
     k1_plain_ms = median_ms(lambda: K1.hash_dense_plain(xb, model.proj, model.perm, True))
     xf = xd[:8192].contiguous()
     k1_fit_ms = median_ms(lambda: K1.hash_dense_kernel(xf, model.proj, model.perm))
@@ -833,20 +870,21 @@ def main() -> int:
     k2_bound = bound(int(torch.unique(blk_rows).numel()) * tier.shape[2]
                      + nbytes(q_low, table_i, blk_start, sk), 2.0 * sk.numel() * tier.shape[2],
                      "bf16")
-    k2_ms = median_ms(lambda: K2.coarse_block_scores_kernel(tier, q_low, table_i, blk_start, bs))
+    k2_t = kernel_times(lambda: K2.coarse_block_scores_kernel(tier, q_low, table_i, blk_start, bs),
+                        median_ms)
     k2_plain_ms = median_ms(lambda: K2.coarse_block_scores_plain(tier, q_low, table_i,
                                                                  blk_start, bs))
     emit({"phase": "kernels", "build_s": build_s,
           "K1": {"shape": {"B": 1024, "D": 100, "T": 10, "P": 3, "C": 32},
                  "far_mismatch_words": far_mismatch, "near_zero_bit_flips": near_flips,
                  "max_margin_err": float(m_err.max()), **k1_bound,
-                 "ms": k1_ms, "plain_ms": k1_plain_ms,
+                 **k1_t, "plain_ms": k1_plain_ms,
                  "fit_shape_B": 8192, "fit_ms": k1_fit_ms, "fit_plain_ms": k1_fit_plain_ms},
           "K2": {"shape": {"B": 1024, "MB": mb, "bs": bs, "L": tier.shape[0],
                            "caprows": tier.shape[1], "cs": tier.shape[2]},
                  "max_abs_err": float(s_err.max()),
                  "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score", **k2_bound,
-                 "ms": k2_ms, "plain_ms": k2_plain_ms}})
+                 **k2_t, "plain_ms": k2_plain_ms}})
 
     # ---- phase 2: the bench config, end to end ------------------------------
     gt, _ = exact_search(x, x[:N_QUERY], 10, exclude_self=True, device=dev)
@@ -966,13 +1004,13 @@ def main() -> int:
          "source": "similaritysearchbyrdf_tpu_torch/csrc/hash_kernel.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/hash_kernel.py:103",
          "launches": launches["hash_dense_kernel"], "max_abs_err": float(m_err.max()),
-         "ms": k1_ms, "plain_ms": k1_plain_ms, "bound_ms": k1_bound["bound_ms"],
+         "ms": k1_t["ms"], "plain_ms": k1_plain_ms, "bound_ms": k1_bound["bound_ms"],
          "bound_by": k1_bound["bound_by"], **lib},
         {"name": "coarse_block_scores_kernel", "route": "cuda",
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py:107",
          "launches": launches["coarse_block_scores_kernel"],
-         "max_abs_err": float(s_err.max()), "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "max_abs_err": float(s_err.max()), "ms": k2_t["ms"], "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"], **lib},
         {"name": "coarse_window_scores_kernel", "route": "cuda",
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",

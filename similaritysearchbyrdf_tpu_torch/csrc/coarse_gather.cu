@@ -170,7 +170,9 @@ coarse_block_scores_kernel(const int8_t* __restrict__ tier,
 // of tier rows, less by the dead windows and masked slots it skips; the
 // fused mask saves the caller two elementwise passes over the scores. The
 // tier may also be bf16 (the flat engine's bf16 sketch as a one-table
-// tier): a chunk is then one 16-byte load per lane.
+// tier): a chunk is then one 16-byte load per lane. This generic kernel
+// serves every shape but the main path's (int8, 64-slot windows, 32 or 128
+// columns), which take window_scores_w64_kernel below.
 template <int LPR, int CPL, typename TierT>
 __global__ void __launch_bounds__(kThreads)
 coarse_window_scores_kernel(const TierT* __restrict__ tier,
@@ -218,6 +220,187 @@ coarse_window_scores_kernel(const TierT* __restrict__ tier,
   }
 }
 
+// K2b at the main path's shapes: an int8 tier, 64-slot windows, rows of CS
+// = 32 columns (window mode, IVF) or 128 (the flat engine's exact2
+// re-score). A window is CS * 64 contiguous bytes; a warp reads it with
+// kLoads 16-byte loads per lane, load k covering chunks 32k..32k+31, so each
+// is one coalesced 512-byte access and lane l always holds the same 16
+// columns (16 * (l % kLpr)) of rows k * kRowsPerLoad + l / kLpr.
+//
+// What held the generic kernel back here: one 8-byte load per lane in
+// flight, a chain of dependent index loads before every window, and 32
+// I2F conversions per score at cs 32. This kernel runs a persistent grid
+// whose CTAs take steps of 32 consecutive windows grid-stride; a step's
+// small inputs are loaded one per lane a step ahead and broadcast by
+// shuffle. Each warp takes four consecutive windows of a step, one at a
+// time, and issues every 16-byte load of a window's valid slots before its
+// first FMA (masked slots and dead windows load nothing). int8 becomes f32
+// by byte permute and one FADD (i8_to_f32), and each row's partial dots are
+// folded over its lanes so that every lane ends with two rows, written as
+// two 128-byte stores. On an NVIDIA H100 80GB HBM3 at a 700 W power limit
+// it takes 0.048 ms of device time on chip_smoke.py's kernels_window (the
+// 1M fit's windows, B 128 x MB 1024, 28.8% of slots valid) against a bound
+// of 0.032 ms; on timing.py's seeded operands 0.056 ms at K2b_window_1m
+// where the generic kernel takes 0.087, and 0.055 ms at the flat engine's
+// re-score (cs 128, every window live) where it takes 0.092, gathering
+// 252 MB from L2 at 4.6 TB/s.
+template <int CS>
+struct Win64 {
+  static constexpr int kWin = 64;
+  static constexpr int kLpr = CS / 16;                   // lanes per row
+  static constexpr int kRowsPerLoad = 32 / kLpr;         // rows of one warp-wide load
+  static constexpr int kLoads = kWin / kRowsPerLoad;     // loads per lane and window
+  static constexpr int kStep = 32;                       // windows a CTA takes at a time
+  static constexpr int kPerWarp = kStep / (kThreads / 32);  // consecutive windows per warp
+  // resident CTAs per SM: at cs 32 a window's loads take 16 registers, and
+  // four CTAs of warps loading one window at a time were as fast as three
+  // loading two and faster than two loading four
+  static constexpr int kMinCtas = CS == 32 ? 4 : 2;
+};
+
+// float(x) for the int8 x in byte k of a word, exactly and off the
+// conversion pipe: given the word with every byte xor 0x80 (x + 128), one
+// byte permute puts x + 128 under the exponent byte 0x4b, the float 2^23 +
+// x + 128, and one FADD removes the 2^23 + 128.
+__device__ __forceinline__ float i8_to_f32(uint32_t biased, int k) {
+  return __uint_as_float(__byte_perm(biased, 0x4bu, 0x4550u | (unsigned)k)) - 8388736.f;
+}
+
+// the dot of 16 int8 tier columns with the lane's 16 query columns, in
+// column order
+__device__ __forceinline__ float dot16_i8(const uint4 v, const float* q) {
+  const uint32_t w[4] = {v.x ^ 0x80808080u, v.y ^ 0x80808080u, v.z ^ 0x80808080u,
+                         v.w ^ 0x80808080u};
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc = fmaf(i8_to_f32(w[j], k), q[4 * j + k], acc);
+  }
+  return acc;
+}
+
+// Sum each row's partial dots over its LPR lanes (xor masks 1 .. LPR/2).
+// Each level halves the N values a lane holds: of every pair the lane keeps
+// one row and sends its partner the other, so lane l ends with two full
+// dots, of the rows held at index LPR * j + (l % LPR), j = 0, 1.
+template <int N, int MASK, int LPR>
+__device__ __forceinline__ void fold_rows(float* p, int lane) {
+  if constexpr (MASK < LPR) {
+    const bool upper = lane & MASK;
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) {
+      const float keep = upper ? p[2 * j + 1] : p[2 * j];
+      const float send = upper ? p[2 * j] : p[2 * j + 1];
+      p[j] = keep + __shfl_xor_sync(kFull, send, MASK);
+    }
+    fold_rows<N / 2, MASK * 2, LPR>(p, lane);
+  }
+}
+
+// a window's small inputs as one lane holds them: the byte offset of its
+// first (clipped) row, and its valid slots [lo, hi) relative to blk_start,
+// clipped to [0, 64) and empty for a dead window, packed as lo | hi << 8
+struct WinMeta {
+  long long row0;
+  int range;
+  int b;
+};
+
+template <int CS>
+__global__ void __launch_bounds__(kThreads, Win64<CS>::kMinCtas)
+window_scores_w64_kernel(const int8_t* __restrict__ tier, const __nv_bfloat16* __restrict__ q,
+                         const int* __restrict__ table, const int* __restrict__ blk_start,
+                         const int* __restrict__ start, const int* __restrict__ end,
+                         const uint8_t* __restrict__ live, float* __restrict__ out, int L,
+                         int caprows, int n, int MB) {
+  using S = Win64<CS>;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int col0 = 16 * (lane % S::kLpr);
+  // the CTA takes every gridDim.x-th step of kStep consecutive windows: a
+  // query's live windows come first among its MB, so a contiguous split of
+  // the windows would leave some CTAs only dead ones
+  const int n_steps = (n + S::kStep - 1) / S::kStep;
+
+  // the raw small inputs of window step + lane, loaded one step ahead
+  int r_t = 0, r_p0 = 0, r_lo = 0, r_hi = 0, r_live = 0;
+  auto prefetch = [&](int i) {
+    if (i < n) {
+      r_t = table[i];
+      r_p0 = blk_start[i];
+      r_lo = start[i];
+      r_hi = end[i];
+      r_live = live[i];
+    }
+  };
+  if (blockIdx.x < n_steps) prefetch(blockIdx.x * S::kStep + lane);
+
+  float qf[16];
+  int cur_b = -1;
+  for (int st = blockIdx.x; st < n_steps; st += gridDim.x) {
+    const int step = st * S::kStep;
+    WinMeta m = {0, 0, 0};
+    if (step + lane < n) {
+      const int t = min(max(r_t, 0), L - 1);
+      const int s = min(max(r_p0, 0), caprows - S::kWin);
+      m.row0 = ((long long)t * caprows + s) * CS;
+      const int lo = (int)min(max((long long)r_lo - r_p0, 0LL), (long long)S::kWin);
+      const int hi = r_live ? (int)min(max((long long)r_hi - r_p0, 0LL), (long long)S::kWin) : 0;
+      m.range = lo | (hi << 8);
+      m.b = (step + lane) / MB;
+    }
+    if (st + (int)gridDim.x < n_steps) prefetch((st + gridDim.x) * S::kStep + lane);
+
+#pragma unroll 1
+    for (int w = 0; w < S::kPerWarp; ++w) {     // the warp's windows, one at a time
+      const int src = warp * S::kPerWarp + w;   // the lane holding its small inputs
+      const int i = step + src;
+      const long long row0 = __shfl_sync(kFull, m.row0, src);
+      const int range = __shfl_sync(kFull, m.range, src);
+      const int b = __shfl_sync(kFull, m.b, src);
+      if (i >= n) break;                        // warp-uniform
+      const int lo = range & 0xff, hi = range >> 8;
+      float* o = out + (size_t)i * S::kWin;
+      if (lo >= hi) {                           // no valid slot: 16-byte -inf stores
+        if (lane < S::kWin / 4)
+          reinterpret_cast<float4*>(o)[lane] =
+              make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+        continue;
+      }
+      // every 16-byte load of the window's valid slots before the first FMA
+      const uint4* base = reinterpret_cast<const uint4*>(tier + row0);
+      uint4 v[S::kLoads];
+#pragma unroll
+      for (int k = 0; k < S::kLoads; ++k) {
+        const int r = k * S::kRowsPerLoad + lane / S::kLpr;
+        v[k] = make_uint4(0u, 0u, 0u, 0u);
+        if (r >= lo && r < hi) v[k] = __ldg(base + k * 32 + lane);
+      }
+      if (b != cur_b) {                         // warp-uniform: another step or query
+        const uint4* qp = reinterpret_cast<const uint4*>(q + (size_t)b * CS + col0);
+        const uint4 qa = __ldg(qp), qb = __ldg(qp + 1);
+        const uint32_t qw[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          qf[2 * j] = __uint_as_float(qw[j] << 16);
+          qf[2 * j + 1] = __uint_as_float(qw[j] & 0xffff0000u);
+        }
+        cur_b = b;
+      }
+      float p[S::kLoads];
+#pragma unroll
+      for (int k = 0; k < S::kLoads; ++k) p[k] = dot16_i8(v[k], qf);
+      fold_rows<S::kLoads, 1, S::kLpr>(p, lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {             // two coalesced 128-byte stores
+        const int r = 32 * j + (lane % S::kLpr) * S::kRowsPerLoad + lane / S::kLpr;
+        o[r] = (r >= lo && r < hi) ? p[j] : -INFINITY;
+      }
+    }
+  }
+}
+
 int grid_for(long long n_items) {
   const long long warps_per_cta = kThreads / 32;
   const long long ctas = (n_items + warps_per_cta - 1) / warps_per_cta;
@@ -256,6 +439,33 @@ int launch_window(const void* tier, const void* q, const void* table, const void
         static_cast<const int8_t*>(tier), qb, ti, bi, si, ei, li, o, L, caprows, cs, B, MB,
         win);
   }
+  return (int)cudaGetLastError();
+}
+
+// the specialised K2b on a persistent grid: as many CTAs as fit on the card
+template <int CS>
+int launch_window_w64(const void* tier, const void* q, const void* table, const void* blk_start,
+                      const void* start, const void* end, const void* live, void* out, int L,
+                      int caprows, int n, int MB, cudaStream_t stream) {
+  static int ctas = 0;   // SMs x resident CTAs per SM, queried once
+  if (ctas == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_scores_w64_kernel<CS>,
+                                                          kThreads, 0);
+    if (err != cudaSuccess) return (int)err;
+    ctas = sms * per_sm;
+  }
+  const long long steps = ((long long)n + Win64<CS>::kStep - 1) / Win64<CS>::kStep;
+  const int grid = (int)(steps < ctas ? steps : ctas);
+  window_scores_w64_kernel<CS><<<grid, kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(tier), static_cast<const __nv_bfloat16*>(q),
+      static_cast<const int*>(table), static_cast<const int*>(blk_start),
+      static_cast<const int*>(start), static_cast<const int*>(end),
+      static_cast<const uint8_t*>(live), static_cast<float*>(out), L, caprows, n, MB);
   return (int)cudaGetLastError();
 }
 
@@ -306,7 +516,17 @@ extern "C" int rdf_coarse_window_scores(const void* tier, const void* q, const v
   if ((long long)B * MB == 0) return 0;
   if (cs <= 0 || cs % 8) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-#define RDF_WIN(LPR, CPL)                                                                 \
+  // the main path's shapes take the specialised kernel (a window count that
+  // fits an int: at 256 bytes of scores a window, any that fits on a card)
+  if (!tier_bf16 && win == 64 && (long long)B * MB < (1LL << 31) - 64) {
+    if (cs == 32)
+      return launch_window_w64<32>(tier, q, table, blk_start, start, end, live, out, L, caprows,
+                                   B * MB, MB, st);
+    if (cs == 128)
+      return launch_window_w64<128>(tier, q, table, blk_start, start, end, live, out, L,
+                                    caprows, B * MB, MB, st);
+  }
+#define RDF_WIN(LPR, CPL)                                                              \
   launch_window<LPR, CPL>(tier, q, table, blk_start, start, end, live, out, L, caprows, cs, \
                           B, MB, win, tier_bf16, st)
   RDF_BY_WIDTH(cs, RDF_WIN)

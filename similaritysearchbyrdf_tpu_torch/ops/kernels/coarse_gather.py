@@ -7,13 +7,26 @@ mode) and K2b `pallas_coarse_scores_aligned` (`_kernel_aligned*`, aligned
 windows, window mode). Both kernels (`csrc/coarse_gather.cu`) score
 contiguous rows of the per-table int8 coarse tier against each query's bf16
 coarse vector with f32 accumulation. On the H100 they are bound by bytes
-read (2 flops per tier byte); the design reads each row chunk with one
-coalesced 8-byte load per lane and keeps the query in registers, so the
+read (2 flops per tier byte). The generic design reads each row chunk with
+one coalesced 8-byte load per lane and keeps the query in registers, so the
 dependent table/start-then-rows loads of many warps overlap. K2b also takes
 the window mode's validity: a dead window loads nothing, and a slot outside
 its range's [start, end) scores -inf, so the caller needs no masking pass.
 K2b also takes a bf16 tier: the flat engine's bf16 sketch, re-scored as a
 one-table tier (`ops/flat.py`).
+
+K2b's main-path shapes, an int8 tier with 64-slot windows of 32 columns
+(window mode) or 128 (the flat engine's exact2 re-score), take a kernel of
+their own, chosen by shape inside `rdf_coarse_window_scores`: a persistent
+grid in which each CTA takes steps of 32 consecutive windows (every
+grid-th step, so the queries' live windows, which come first among each
+query's, spread over all CTAs), the small inputs of its next step loaded
+ahead (one coalesced load per lane) and broadcast by shuffle; a warp issues
+every 16-byte load of a window's valid slots before its first FMA, converts
+int8 to f32 exactly by byte permute and one FADD (no `I2F`), and writes the
+window's scores as two coalesced 128-byte stores, a dead window's as
+16-byte stores. Other shapes (bf16 tiers, other widths and window sizes)
+keep the generic kernel.
 
 `coarse_block_scores_kernel` and `coarse_window_scores_kernel` launch their
 kernels for CUDA tensors and run the plain versions for CPU tensors; a CUDA

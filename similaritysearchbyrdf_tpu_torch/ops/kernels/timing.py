@@ -8,7 +8,10 @@ current directory, so two checkouts can be compared on one card):
 Seeded random operands at the shapes `chip_smoke.py` gives the kernels:
 K2 at the bench config (B 1024 x 512 blocks of 8 rows, cs 32, 30 tables of
 20,000 rows), K2b at window_1m's (B 128 x 1024 windows of 64, cs 32, 10
-tables of 2^20 rows, 38% of windows live) and at flat_20k's re-score
+tables of 2^20 rows, 38% of windows live; `K2b_window_1m` with every slot of
+a live window valid, `K2b_window_1m_ragged` laid out as the 1M fit's query
+lays them out, each query's live windows a prefix of its 1024, 28.8% of
+all slots valid, ranges cutting live windows) and at flat_20k's re-score
 (B 1024 x 30 windows of 64, cs 128, the int8 sketch as one table), K3 at
 folded_8m's (10 tables of 2^20 folded rows of 128 lanes, cs 16, B 64 x 128
 live windows of 512 rows, each query's windows consecutive from one random
@@ -22,7 +25,11 @@ engine at flat_8m's shape instead: `FlatIndex()` at its defaults fitted on
 qps is 1,024 / that time). `--only K3` times only the entries whose names
 start with one of the given prefixes. Prints the card's name and power
 limit, then one JSON line of medians of `--reps` timings (ms) after 3
-warm-up calls.
+warm-up calls: `ms`, the device time of one call, timed by CUDA events with
+the card first held busy (a spin of about 1 ms) so that the wrapper's host
+work overlaps it; and `launch_ms`, the same events around one call on an
+idle card, which adds the wrapper's host time (its Python checks, the
+output allocation and the launch) to any kernel shorter than that.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import time
 
 import numpy as np
 import torch
+
+BUSY_CYCLES = 2_000_000   # about 1 ms of device spin at the H100's 1.98 GHz
 
 
 def main() -> int:
@@ -65,13 +74,19 @@ def main() -> int:
     def bf16(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    def median_ms(fn):
+    def median_ms(fn, busy: bool = True):
+        """Median event time of one call. With `busy` the card first spins
+        for about a millisecond, so the host's work in the wrapper overlaps
+        it and the events time the device alone; without, the start event
+        fires on an idle card and the time includes the wrapper's host time."""
         for _ in range(3):
             fn()
         torch.cuda.synchronize(dev)
         times = []
         for _ in range(args.reps):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            if busy:
+                torch.cuda._sleep(BUSY_CYCLES)
             start.record()
             fn()
             end.record()
@@ -82,19 +97,43 @@ def main() -> int:
     def wanted(*names):
         return not args.only or any(n.startswith(p) for n in names for p in args.only)
 
-    out = {}
+    out, launch = {}, {}
+
+    def timed(name, fn):
+        out[name] = median_ms(fn)
+        launch[name] = median_ms(fn, busy=False)
     if wanted("K2_bench"):
         tier, q = i8(30, 20_000, 32), bf16(1024, 32)
         table, blk = ints(0, 30, (1024, 512)), ints(0, 20_000 - 8, (1024, 512))
-        out["K2_bench"] = median_ms(lambda: K2.coarse_block_scores_kernel(tier, q, table, blk, 8))
+        timed("K2_bench", lambda: K2.coarse_block_scores_kernel(tier, q, table, blk, 8))
 
-    if wanted("K2b_window_1m"):
+    if wanted("K2b_window_1m", "K2b_window_1m_ragged"):
         tier, q = i8(10, 1 << 20, 32), bf16(128, 32)
         table, blk = ints(0, 10, (128, 1024)), ints(0, ((1 << 20) - 64) // 8, (128, 1024)) * 8
         live = torch.rand((128, 1024), generator=gen, device=dev) < 0.38
         end = blk + 64
-        out["K2b_window_1m"] = median_ms(lambda: K2.coarse_window_scores_kernel(
-            tier, q, table, blk, blk, end, live, 64))
+        if wanted("K2b_window_1m"):
+            timed("K2b_window_1m", lambda: K2.coarse_window_scores_kernel(
+                tier, q, table, blk, blk, end, live, 64))
+        if wanted("K2b_window_1m_ragged"):
+            # the 1M fit's layout and shares: a query's live windows are a
+            # prefix of its 1024 (its share drawn uniformly from 18-58%, 38%
+            # on average), and a live window is cut with probability 0.4842
+            # by 1-63 slots (uniform) at its start or its end, leaving 75.8%
+            # of its slots valid on average, 28.8% of all slots; a dead
+            # window's range is empty. Its own generator keeps the other
+            # entries' operands as before.
+            rgen = torch.Generator(device=dev).manual_seed(8)
+            share = torch.rand((128, 1), generator=rgen, device=dev) * 0.40 + 0.18
+            r_live = torch.arange(1024, device=dev) < (share * 1024).round()
+            cut = torch.where(torch.rand((128, 1024), generator=rgen, device=dev) < 0.4842,
+                              torch.randint(1, 64, (128, 1024), generator=rgen, device=dev,
+                                            dtype=torch.int32), 0)
+            at_end = torch.rand((128, 1024), generator=rgen, device=dev) < 0.5
+            r_start = torch.where(r_live & ~at_end, blk + cut, blk)
+            r_end = torch.where(r_live, torch.where(at_end, end - cut, end), blk)
+            timed("K2b_window_1m_ragged", lambda: K2.coarse_window_scores_kernel(
+                tier, q, table, blk, r_start, r_end, r_live, 64))
 
     if wanted("K3_folded_8m", "K3_folded_8m_emit2"):
         b, mb, wpr, capf = 64, 128, 512, 1 << 20
@@ -104,7 +143,7 @@ def main() -> int:
               + torch.arange(mb, device=dev, dtype=torch.int32) * wpr).contiguous()
         for name, emit2 in (("K3_folded_8m", False), ("K3_folded_8m_emit2", True)):
             if wanted(name):
-                out[name] = median_ms(lambda: K3.coarse_rowmax_kernel(
+                timed(name, lambda: K3.coarse_rowmax_kernel(
                     folded, qi8, table, rs, wpr, 8, 6, emit2))
         del folded
 
@@ -116,18 +155,18 @@ def main() -> int:
         blk = ints(0, 20_000 // 64, (1024, 30)) * 64
         n_end, live = torch.full_like(zeros, 20_000), torch.ones_like(zeros, dtype=torch.bool)
         if wanted("K2b_flat_20k"):
-            out["K2b_flat_20k"] = median_ms(lambda: K2.coarse_window_scores_kernel(
+            timed("K2b_flat_20k", lambda: K2.coarse_window_scores_kernel(
                 sk[None], q, zeros, blk, zeros, n_end, live, 64))
         if wanted("K4_flat_20k_unpacked"):
             q8 = i8(1024, 128)
-            out["K4_flat_20k_unpacked"] = median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, 64))
+            timed("K4_flat_20k_unpacked", lambda: K4.flat_groupmax_kernel(sk, q8, 64))
     k4_8m = {"K4_flat_8m_packed": dict(pack_arg=True), "K4_flat_8m_unpacked": {},
              "K4_flat_8m_emit16": dict(pack_arg=True, emit_sg=16)}
     if wanted(*k4_8m):
         sk, q8 = i8(8_003_584, 96), i8(1024, 96)
         for name, kw in k4_8m.items():
             if wanted(name):
-                out[name] = median_ms(lambda: K4.flat_groupmax_kernel(sk, q8, 64, **kw))
+                timed(name, lambda: K4.flat_groupmax_kernel(sk, q8, 64, **kw))
     if wanted("flat_8m_query"):
         from ...ops.flat import FlatIndex
         from ...vectors import DenseBatch
@@ -150,7 +189,8 @@ def main() -> int:
             torch.cuda.synchronize(dev)
             times.append((time.perf_counter() - t0) * 1e3)
         out["flat_8m_query"] = float(np.median(times[3:]))
-    print(json.dumps({"checkout": os.getcwd(), "reps": args.reps, "ms": out}), flush=True)
+    print(json.dumps({"checkout": os.getcwd(), "reps": args.reps, "ms": out,
+                      "launch_ms": launch}), flush=True)
     return 0
 
 

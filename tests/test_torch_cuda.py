@@ -135,6 +135,51 @@ def test_window_kernel_past_2048_columns_bit_equal(dev, cs, tier_dtype):
                            K2.coarse_block_scores_plain(tier, q, args[0], args[1], 8))
 
 
+@pytest.mark.parametrize("b,mb", [(1, 1), (1, 256), (7, 1), (3, 7), (128, 256), (37, 301),
+                                  (131, 257)])
+@pytest.mark.parametrize("tier_dtype", [torch.int8, torch.bfloat16])
+@pytest.mark.parametrize("cs", [32, 128])
+def test_window_kernel_main_shapes_bit_equal(dev, cs, tier_dtype, b, mb):
+    """K2b at the main path's shapes, 64-slot windows at cs 32 (window mode)
+    and 128 (the flat engine's re-score); int8 takes the specialised kernel.
+    The queries are small integers (|q| <= 16), so every partial sum is an
+    integer below 2^24 and kernel and plain version agree bit for bit. Table
+    ids out of range, windows clipped at caprows - 64, ranges that cut a
+    window at one or both ends or miss it, dead windows, the first query's
+    windows all dead, B 1, MB 1, window counts that end mid-step (21, 11,137,
+    33,667) and the pruned shape (MB 256)."""
+    rng = np.random.default_rng(cs * 1000 + b * mb)
+    l, caprows, win = 3, 4096, 64
+    tier = torch.as_tensor(rng.integers(-128, 128, size=(l, caprows, cs)).astype(np.int8),
+                           device=dev).to(tier_dtype)
+    q = torch.as_tensor(rng.integers(-16, 17, size=(b, cs)).astype(np.float32), device=dev)
+    q = q.to(torch.bfloat16)
+    blk = rng.integers(-2, (caprows + 16) // 8, size=(b, mb)) * 8
+    cut_lo, cut_hi = rng.integers(1, 32, size=(2, b, mb))
+    kind = rng.integers(0, 5, size=(b, mb))
+    live_np = rng.random((b, mb)) < 0.7
+    if b > 1:
+        live_np[0] = False
+    kind[-1, -1], live_np[-1, -1] = 1, True    # finite and -inf slots at every shape
+    # 0 whole, 1 cut at both ends, 2 at the start, 3 at the end, 4 missed
+    start = np.choose(kind, [blk - 3, blk + cut_lo, blk + cut_lo, blk - 3, blk + win])
+    end = np.choose(kind, [blk + win + 3, blk + win - cut_hi, blk + win + 3, blk + win - cut_hi,
+                           blk + win + 16])
+    args = [torch.as_tensor(a.astype(np.int32), device=dev) for a in
+            (rng.integers(-2, l + 2, size=(b, mb)), blk, start, end)]
+    live = torch.as_tensor(live_np, device=dev)
+    before = K2.WINDOW_LAUNCHES
+    got = K2.coarse_window_scores_kernel(tier, q, *args, live, win)
+    assert K2.WINDOW_LAUNCHES == before + 1
+    want = K2.coarse_window_scores_plain(tier, q, *args, live, win)
+    assert torch.isfinite(want).any() and torch.isneginf(want).any()
+    assert torch.equal(got, want)
+    assert torch.equal(K2.coarse_window_scores_kernel(tier, q, *args, live.to(torch.uint8), win),
+                       got)
+    if b > 1:
+        assert torch.isneginf(got[0]).all()
+
+
 # (cs, lanes, wpr, rpg, B, MB, layout): every width of the kernel, windows
 # shorter than one 16 KB ring stage (wpr 8), whole stages (64, 512 at fold
 # 8) and a partial last stage (520); "mixed" has dead windows and windows
