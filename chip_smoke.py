@@ -45,11 +45,12 @@ device is present:
      corpus and ground truth: fit, 1,024 queries, recall, qps, bytes,
      peak device memory.
 
-Each phase prints one JSON line. A kernel's `ms` is its device time: CUDA
-events around one call, the card first held busy by a ~1 ms spin so that
-the wrapper's host work overlaps it; `launch_ms` beside it times one call
-on an idle card, the wrapper's host time included. Then come the kernel
-summary line
+Each phase prints one JSON line. A kernel's `ms` is CUDA events around one
+call on an idle card, the wrapper's host time included; `device_ms` beside
+it is the same with the card first held busy by a ~1 ms spin, so that the
+host's work overlaps the spin and the events time the device alone
+(`ops/kernels/timing.py`'s `median_event_ms`). Then come the kernel summary
+line
 `{"kernels": [...]}`, with each kernel's least possible time on the card
 (`bound_ms`: the larger of its bytes over the memory rate and its
 operations over the peak rate for their type, counted from this run's
@@ -90,7 +91,6 @@ TPU_FLAT8M_RECALL = 1.0
 FLAT8M_RECALL_MIN = 0.995
 # published H100 SXM peaks (dense): memory bytes/s and operations/s by type
 PEAK = {"bytes": 3.35e12, "f32": 67e12, "bf16": 989e12, "int8": 1979e12}
-BUSY_CYCLES = 2_000_000     # a device spin of about 1 ms at the H100's 1.98 GHz
 
 
 def bound(nbytes: float, ops: float, kind: str) -> dict:
@@ -195,23 +195,29 @@ def timed_s(fn, sync, reps: int) -> float:
     return float(np.median(times))
 
 
-def kernel_times(fn, median_ms) -> dict:
-    """A kernel's `ms` (device time) and `launch_ms` (idle card, host time
-    included), as the module docstring defines them."""
-    return {"ms": median_ms(fn), "launch_ms": median_ms(fn, busy=False)}
+def kernel_times(fn) -> dict:
+    """A kernel's `ms` and `device_ms` over 20 calls, as the module docstring
+    defines them."""
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import timing
+
+    return timing.kernel_times(fn, reps=20)
 
 
 def gather_rates(gathered: int, distinct: int, rec: dict) -> dict:
-    """A gather kernel's bytes and achieved rates over its `ms`: the tier
-    bytes of every valid slot as it reads them (`gathered`) beside the
-    distinct ones the bound counts; `achieved_gb_per_s` counts what it
-    moves, the gathered bytes plus the small inputs and the output;
-    `bound_share` is bound_ms / ms."""
+    """A gather kernel's bytes and achieved rates: the tier bytes of every
+    valid slot as it reads them (`gathered`) beside the distinct ones the
+    bound counts; `achieved_gb_per_s` counts what it moves, the gathered
+    bytes plus the small inputs and the output, over `ms`;
+    `gathered_gb_per_s` the gathered bytes over `ms`; `bound_share` is
+    bound_ms / ms; the `device_` keys are the same over `device_ms`."""
     moved = rec["bound_bytes"] - distinct + gathered
-    return {"gathered_bytes": gathered, "distinct_bytes": distinct,
-            "achieved_gb_per_s": moved / rec["ms"] / 1e6,
-            "gathered_gb_per_s": gathered / rec["ms"] / 1e6,
-            "bound_share": rec["bound_ms"] / rec["ms"]}
+    out = {"gathered_bytes": gathered, "distinct_bytes": distinct}
+    for pre in ("", "device_"):
+        t = rec[pre + "ms"]
+        out.update({pre + "achieved_gb_per_s": moved / t / 1e6,
+                    pre + "gathered_gb_per_s": gathered / t / 1e6,
+                    pre + "bound_share": rec["bound_ms"] / t})
+    return out
 
 
 def window_kernel_phase(big, xq, sync, median_ms) -> dict:
@@ -219,21 +225,12 @@ def window_kernel_phase(big, xq, sync, median_ms) -> dict:
     128 queries of the 1M corpus, m_cap 65536, 64-slot windows."""
     import torch
 
-    from similaritysearchbyrdf_tpu_torch.index import forest as F
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import timing
 
-    state, layout = big.state, big.layout
-    h, margins = F.hash_dense_with_margins(state.model, xq)
-    probes, pvalid = F._probe_hashes_margin(h, margins, layout, QUERY_KW["probe_budget"])
-    home = F.partition_of_hash(h, state.part_proj)
-    base, table, start, end, _, win = F.gather_blocks(
-        state.tables, h, home, layout, 0, WINDOW_M_CAP, True, probes, pvalid, window=64)
-    tier = state.coarse_tier
-    mb = base.shape[1]
-    blk = torch.clamp(base + torch.arange(mb, device=xq.device) * win, max=tier.shape[1] - win)
-    live = ((blk < end) & (blk + win > start)).contiguous()
-    args = [a.to(torch.int32).contiguous() for a in (table, blk, start, end)]
-    q_low = (xq @ state.coarse_proj).to(torch.bfloat16).contiguous()
+    tier, q_low, *args, live, win = timing.window_operands(big, xq, WINDOW_M_CAP,
+                                                           QUERY_KW["probe_budget"])
+    mb = args[0].shape[1]
     sk = K2.coarse_window_scores_kernel(tier, q_low, *args, live, win)
     sp = K2.coarse_window_scores_plain(tier, q_low, *args, live, win)
     sync()
@@ -258,8 +255,7 @@ def window_kernel_phase(big, xq, sync, median_ms) -> dict:
            "max_abs_err": float(err.max()),
            "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score; -inf slots equal",
            **k2b_bound,
-           **kernel_times(lambda: K2.coarse_window_scores_kernel(tier, q_low, *args, live, win),
-                          median_ms),
+           **kernel_times(lambda: K2.coarse_window_scores_kernel(tier, q_low, *args, live, win)),
            "plain_ms": median_ms(lambda: K2.coarse_window_scores_plain(tier, q_low, *args,
                                                                        live, win))}
     out.update(gather_rates(int(fin.sum()) * cs, rows_read * cs, out))
@@ -396,8 +392,8 @@ def folded_phase(dev, sync, median_ms):
     for emit2 in (False, True):
         sfx = "_emit2" if emit2 else ""
         t = kernel_times(lambda: K3.coarse_rowmax_kernel(
-            folded, qi8, table, rs, wpr, rpg, mshift, emit2), median_ms)
-        k3["ms" + sfx], k3["launch_ms" + sfx] = t["ms"], t["launch_ms"]
+            folded, qi8, table, rs, wpr, rpg, mshift, emit2))
+        k3["ms" + sfx], k3["device_ms" + sfx] = t["ms"], t["device_ms"]
         k3["plain_ms" + sfx] = median_ms(lambda: K3.coarse_rowmax_plain(
             folded, qi8, table, rs, wpr, rpg, mshift, emit2))
         # achieved rates over the kernel's time, GB/s
@@ -519,7 +515,7 @@ def flat_20k_kernels(calls, sync, median_ms) -> dict:
                        "form": K4.kernel_form(sk.dtype, dk), "mismatched_words": bad,
                        "max_abs_err": float((got - want).abs().max()),
                        **bound(nbytes(sk, q8, got), 2.0 * b * npad * dk, "int8"),
-                       **kernel_times(lambda: K4.flat_groupmax_kernel(sk, q8, group), median_ms),
+                       **kernel_times(lambda: K4.flat_groupmax_kernel(sk, q8, group)),
                        "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk, q8, group))}}
     s16, q16 = sk.to(torch.bfloat16), q8.to(torch.bfloat16)
     got16 = K4.flat_groupmax_kernel(s16, q16, group)
@@ -533,7 +529,7 @@ def flat_20k_kernels(calls, sync, median_ms) -> dict:
     out["K4_bf16"] = {"form": K4.kernel_form(s16.dtype, dk), "max_abs_err": float(err.max()),
                       "words_unequal_to_int8": vs_int8,
                       **bound(nbytes(s16, q16, got16), 2.0 * b * npad * dk, "bf16"),
-                      **kernel_times(lambda: K4.flat_groupmax_kernel(s16, q16, group), median_ms),
+                      **kernel_times(lambda: K4.flat_groupmax_kernel(s16, q16, group)),
                       "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(s16, q16, group))}
     del got, want, got16, want16, lim, err
 
@@ -560,7 +556,7 @@ def flat_20k_kernels(calls, sync, median_ms) -> dict:
                   **bound(rows_read * row_bytes
                           + nbytes(q_low, table, blk_start, start, end, live, got),
                           2.0 * int(fin.sum()) * tier.shape[2], "bf16"),
-                  **kernel_times(lambda: K2.coarse_window_scores_kernel(*args), median_ms),
+                  **kernel_times(lambda: K2.coarse_window_scores_kernel(*args)),
                   "plain_ms": median_ms(lambda: K2.coarse_window_scores_plain(*args))}
     out["K2b"].update(gather_rates(int(fin.sum()) * row_bytes, rows_read * row_bytes, out["K2b"]))
     out["tolerance"] = ("K4 int8: bit for bit; K4 bf16 and K2b: |err| <= "
@@ -671,7 +667,7 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
         k4[name] = {"form": K4.kernel_form(sk.dtype, dk), "mismatched_words": bad,
                     "max_abs_err": err,
                     **bound(nbytes(sk, q8) + out_bytes, 2.0 * nq * npad * dk, "int8"),
-                    **kernel_times(lambda: K4.flat_groupmax_kernel(sk, q8, 64, **kw), median_ms),
+                    **kernel_times(lambda: K4.flat_groupmax_kernel(sk, q8, 64, **kw)),
                     "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk, q8, 64, **kw))}
         k4[name]["bound_share"] = k4[name]["bound_ms"] / k4[name]["ms"]
     # the sliced form (D staged in 256-byte slices) at the JAX package's
@@ -690,7 +686,7 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
         "form": K4.kernel_form(sk_hd.dtype, 800) + ", D in slices",
         "mismatched_words": bad, "max_abs_err": float((got - want).abs().max()),
         **bound(nbytes(sk_hd, q_hd, got), 2.0 * nq * sk_hd.shape[0] * 800, "int8"),
-        **kernel_times(lambda: K4.flat_groupmax_kernel(sk_hd, q_hd, 64), median_ms),
+        **kernel_times(lambda: K4.flat_groupmax_kernel(sk_hd, q_hd, 64)),
         "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk_hd, q_hd, 64))}
     k4["int8_sliced_200k_d800"]["bound_share"] = (k4["int8_sliced_200k_d800"]["bound_ms"]
                                                   / k4["int8_sliced_200k_d800"]["ms"])
@@ -758,6 +754,7 @@ def main() -> int:
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_fold as K3
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
     from similaritysearchbyrdf_tpu_torch.ops.kernels import hash_kernel as K1
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import timing
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -772,26 +769,8 @@ def main() -> int:
     def sync():
         torch.cuda.synchronize(dev)
 
-    def median_ms(fn, reps=20, warm=3, busy=True):
-        """Median CUDA-event time of one call of `fn`. With `busy` the card
-        first spins (about 1 ms) so the host's work in `fn` overlaps the
-        spin and the events time the device alone; without, the start
-        event fires on an idle card and the wrapper's host time counts."""
-        for _ in range(warm):
-            fn()
-        sync()
-        times = []
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            if busy:
-                torch.cuda._sleep(BUSY_CYCLES)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return float(np.median(times))
+    def median_ms(fn, reps=20, warm=3):
+        return timing.median_event_ms(fn, reps, warm)
 
     conf = bench_conf(RDFConfig, TableConfig)
     x = make_data(seed=42)
@@ -838,7 +817,7 @@ def main() -> int:
     t_, c_, d_ = model.proj.shape
     k1_bound = bound(nbytes(xb, model.proj, model.perm, hk, mk),
                      2.0 * xb.shape[0] * t_ * c_ * d_, "f32")
-    k1_t = kernel_times(lambda: K1.hash_dense_kernel(xb, model.proj, model.perm, True), median_ms)
+    k1_t = kernel_times(lambda: K1.hash_dense_kernel(xb, model.proj, model.perm, True))
     k1_plain_ms = median_ms(lambda: K1.hash_dense_plain(xb, model.proj, model.perm, True))
     xf = xd[:8192].contiguous()
     k1_fit_ms = median_ms(lambda: K1.hash_dense_kernel(xf, model.proj, model.perm))
@@ -870,8 +849,7 @@ def main() -> int:
     k2_bound = bound(int(torch.unique(blk_rows).numel()) * tier.shape[2]
                      + nbytes(q_low, table_i, blk_start, sk), 2.0 * sk.numel() * tier.shape[2],
                      "bf16")
-    k2_t = kernel_times(lambda: K2.coarse_block_scores_kernel(tier, q_low, table_i, blk_start, bs),
-                        median_ms)
+    k2_t = kernel_times(lambda: K2.coarse_block_scores_kernel(tier, q_low, table_i, blk_start, bs))
     k2_plain_ms = median_ms(lambda: K2.coarse_block_scores_plain(tier, q_low, table_i,
                                                                  blk_start, bs))
     emit({"phase": "kernels", "build_s": build_s,
@@ -1004,31 +982,35 @@ def main() -> int:
          "source": "similaritysearchbyrdf_tpu_torch/csrc/hash_kernel.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/hash_kernel.py:103",
          "launches": launches["hash_dense_kernel"], "max_abs_err": float(m_err.max()),
-         "ms": k1_t["ms"], "plain_ms": k1_plain_ms, "bound_ms": k1_bound["bound_ms"],
+         "ms": k1_t["ms"], "device_ms": k1_t["device_ms"], "plain_ms": k1_plain_ms, "bound_ms": k1_bound["bound_ms"],
          "bound_by": k1_bound["bound_by"], **lib},
         {"name": "coarse_block_scores_kernel", "route": "cuda",
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py:107",
          "launches": launches["coarse_block_scores_kernel"],
-         "max_abs_err": float(s_err.max()), "ms": k2_t["ms"], "plain_ms": k2_plain_ms,
+         "max_abs_err": float(s_err.max()), "ms": k2_t["ms"],
+         "device_ms": k2_t["device_ms"], "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"], **lib},
         {"name": "coarse_window_scores_kernel", "route": "cuda",
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py:544,569,590,626,647",
          "launches": win["launches"]["coarse_window_scores_kernel"],
-         "max_abs_err": k2b["max_abs_err"], "ms": k2b["ms"], "plain_ms": k2b["plain_ms"],
+         "max_abs_err": k2b["max_abs_err"], "ms": k2b["ms"],
+         "device_ms": k2b["device_ms"], "plain_ms": k2b["plain_ms"],
          "bound_ms": k2b["bound_ms"], "bound_by": k2b["bound_by"], **lib},
         {"name": "coarse_rowmax_kernel", "route": "cuda",
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_fold.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_fold.py:253",
          "launches": launches_f["coarse_rowmax_kernel"],
-         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
+         "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], **lib},
         {"name": "flat_groupmax_kernel", "route": "cuda",
          "source": "similaritysearchbyrdf_tpu_torch/csrc/flat_groupmax.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/flat_groupmax.py:191,247,401",
          "launches": launches_flat["flat_groupmax_kernel"], "max_abs_err": k4p["max_abs_err"],
-         "ms": k4p["ms"], "plain_ms": k4p["plain_ms"], "bound_ms": k4p["bound_ms"],
+         "ms": k4p["ms"], "device_ms": k4p["device_ms"], "plain_ms": k4p["plain_ms"],
+         "bound_ms": k4p["bound_ms"],
          "bound_by": k4p["bound_by"], **lib},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

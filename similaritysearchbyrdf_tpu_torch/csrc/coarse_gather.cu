@@ -41,6 +41,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -442,22 +444,29 @@ int launch_window(const void* tier, const void* q, const void* table, const void
   return (int)cudaGetLastError();
 }
 
+constexpr int kMaxDevices = 64;   // devices whose grid size is cached
+
 // the specialised K2b on a persistent grid: as many CTAs as fit on the card
 template <int CS>
 int launch_window_w64(const void* tier, const void* q, const void* table, const void* blk_start,
                       const void* start, const void* end, const void* live, void* out, int L,
                       int caprows, int n, int MB, cudaStream_t stream) {
-  static int ctas = 0;   // SMs x resident CTAs per SM, queried once
+  // SMs x resident CTAs per SM, by device: queried on a device's first
+  // launch (threads that race there store the same value)
+  static std::atomic<int> ctas_of[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  int ctas = dev < kMaxDevices ? ctas_of[dev].load(std::memory_order_relaxed) : 0;
   if (ctas == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_scores_w64_kernel<CS>,
                                                           kThreads, 0);
     if (err != cudaSuccess) return (int)err;
     ctas = sms * per_sm;
+    if (dev < kMaxDevices) ctas_of[dev].store(ctas, std::memory_order_relaxed);
   }
   const long long steps = ((long long)n + Win64<CS>::kStep - 1) / Win64<CS>::kStep;
   const int grid = (int)(steps < ctas ? steps : ctas);

@@ -18,18 +18,22 @@ live windows of 512 rows, each query's windows consecutive from one random
 row of one table, as the folded query lays them out; with and without the
 second output), and K4 int8 at flat_20k's (unpacked, B 1024 x 24,576 x 128)
 and flat_8m's (B 1024 x 8,003,584 x 96: packed, unpacked, and packed with
-the supergroup tier of 16 groups). `flat_8m_query` times the whole flat
-engine at flat_8m's shape instead: `FlatIndex()` at its defaults fitted on
-8,000,000 x 96 unit vectors around 50,000 seeded centres (made on the card),
-1,024 of them as queries, host clock around `query_device` and a sync (its
-qps is 1,024 / that time). `--only K3` times only the entries whose names
-start with one of the given prefixes. Prints the card's name and power
-limit, then one JSON line of medians of `--reps` timings (ms) after 3
-warm-up calls: `ms`, the device time of one call, timed by CUDA events with
-the card first held busy (a spin of about 1 ms) so that the wrapper's host
-work overlaps it; and `launch_ms`, the same events around one call on an
-idle card, which adds the wrapper's host time (its Python checks, the
-output allocation and the launch) to any kernel shorter than that.
+the supergroup tier of 16 groups). `K2b_window_1m_fit` times K2b on the
+operands of `chip_smoke.py`'s kernels_window instead: the same 1M corpus,
+fit and 128 queries' windows, made by the checkout's own forest (its
+`operands` entry counts them, so two checkouts can be shown to time the
+same ones). `flat_8m_query` times the whole flat engine at flat_8m's shape:
+`FlatIndex()` at its defaults fitted on 8,000,000 x 96 unit vectors around
+50,000 seeded centres (made on the card), 1,024 of them as queries, host
+clock around `query_device` and a sync (its qps is 1,024 / that time).
+`--only K3` times only the entries whose names start with one of the given
+prefixes. Prints the card's name and power limit, then one JSON line of
+medians of `--reps` timings (ms) after 3 warm-up calls, two per kernel
+(`median_event_ms`): `ms`, CUDA events around one call on an idle card,
+which counts the wrapper's host time (its Python checks, the output
+allocation and the launch) in any kernel shorter than that; and
+`device_ms`, the same with the card first held busy, which times the
+device alone.
 """
 
 from __future__ import annotations
@@ -45,6 +49,87 @@ import numpy as np
 import torch
 
 BUSY_CYCLES = 2_000_000   # about 1 ms of device spin at the H100's 1.98 GHz
+
+
+def median_event_ms(fn, reps: int, warm: int = 3, busy: bool = False) -> float:
+    """Median CUDA-event time of one call of `fn` on the current device,
+    after `warm` calls. Without `busy` the start event fires on an idle card,
+    so the time counts the host's work in `fn` until its kernel is enqueued
+    (a kernel's `ms`). With `busy` the card first spins for about a
+    millisecond, the host's work overlaps the spin, and the events time the
+    device alone (a kernel's `device_ms`)."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if busy:
+            torch.cuda._sleep(BUSY_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def kernel_times(fn, reps: int) -> dict:
+    """A kernel's `ms` and `device_ms` (`median_event_ms`)."""
+    return {"ms": median_event_ms(fn, reps), "device_ms": median_event_ms(fn, reps, busy=True)}
+
+
+def window_operands(big, xq, m_cap: int, probe_budget: int) -> tuple:
+    """K2b's arguments (tier, q_low, table, blk_start, start, end, live, win)
+    for the window-mode query of the rows `xq` on the fitted forest `big`:
+    margin probes, then the aligned 64-slot windows of up to `m_cap` slots,
+    as the query lays them out."""
+    from ...index import forest as F
+
+    state, layout = big.state, big.layout
+    h, margins = F.hash_dense_with_margins(state.model, xq)
+    probes, pvalid = F._probe_hashes_margin(h, margins, layout, probe_budget)
+    home = F.partition_of_hash(h, state.part_proj)
+    base, table, start, end, _, win = F.gather_blocks(
+        state.tables, h, home, layout, 0, m_cap, True, probes, pvalid, window=64)
+    tier = state.coarse_tier
+    blk = torch.clamp(base + torch.arange(base.shape[1], device=xq.device) * win,
+                      max=tier.shape[1] - win)
+    live = ((blk < end) & (blk + win > start)).contiguous()
+    args = [a.to(torch.int32).contiguous() for a in (table, blk, start, end)]
+    q_low = (xq @ state.coarse_proj).to(torch.bfloat16).contiguous()
+    return (tier, q_low, *args, live, win)
+
+
+def window_fit_operands(dev) -> tuple:
+    """K2b's operands in `chip_smoke.py`'s kernels_window: the 1M x 100
+    clustered corpus (seed 7, 20,000 centres, noise 0.05), the bench config
+    with a head tier, and the windows of the first 128 queries at m_cap
+    65536 (probe budget 16). Returns the kernel's arguments and a count of
+    them."""
+    from ... import DenseBatch, RDFConfig, RDFForest, TableConfig
+
+    n, d = 1_000_000, 100
+    rng = np.random.default_rng(7)
+    centers = rng.normal(size=(20_000, d))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    x = centers[rng.integers(0, 20_000, n)] + 0.05 * rng.normal(size=(n, d))
+    x = torch.as_tensor((x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32),
+                        device=dev)
+    conf = RDFConfig(
+        vector_dim=d, table_num=10, permutation_num=3, family_size=100, partition_bits=3,
+        lsh_table=TableConfig(chain_length=32, bucket_overflow=500), query_batch_size=1024,
+        max_candidates=4096, top_k=10, seed=31258, coarse_dim=32, coarse_dtype="int8",
+        coarse_refine=384, use_pallas_hash=True, coarse_head_pool=64)
+    big = RDFForest(conf, device=dev).fit(DenseBatch(np.arange(n, dtype=np.int32), x))
+    ops = window_operands(big, x[:128].contiguous(), 65536, 16)
+    tier, q_low, table, blk, start, end, live, win = ops
+    pos = blk.long()[..., None] + torch.arange(win, device=dev)
+    valid = live[..., None] & (pos >= start[..., None]) & (pos < end[..., None])
+    count = {"live_windows": int(live.sum()), "valid_slots": int(valid.sum()),
+             "index_sum": int(sum(a.long().sum() for a in (table, blk, start, end))),
+             "tier_sum": int(tier.long().sum()), "query_sum": float(q_low.float().sum())}
+    return ops, count
 
 
 def main() -> int:
@@ -74,34 +159,14 @@ def main() -> int:
     def bf16(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    def median_ms(fn, busy: bool = True):
-        """Median event time of one call. With `busy` the card first spins
-        for about a millisecond, so the host's work in the wrapper overlaps
-        it and the events time the device alone; without, the start event
-        fires on an idle card and the time includes the wrapper's host time."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize(dev)
-        times = []
-        for _ in range(args.reps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            if busy:
-                torch.cuda._sleep(BUSY_CYCLES)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return float(np.median(times))
-
     def wanted(*names):
         return not args.only or any(n.startswith(p) for n in names for p in args.only)
 
-    out, launch = {}, {}
+    out, device, info = {}, {}, {}
 
     def timed(name, fn):
-        out[name] = median_ms(fn)
-        launch[name] = median_ms(fn, busy=False)
+        t = kernel_times(fn, args.reps)
+        out[name], device[name] = t["ms"], t["device_ms"]
     if wanted("K2_bench"):
         tier, q = i8(30, 20_000, 32), bf16(1024, 32)
         table, blk = ints(0, 30, (1024, 512)), ints(0, 20_000 - 8, (1024, 512))
@@ -160,6 +225,11 @@ def main() -> int:
         if wanted("K4_flat_20k_unpacked"):
             q8 = i8(1024, 128)
             timed("K4_flat_20k_unpacked", lambda: K4.flat_groupmax_kernel(sk, q8, 64))
+    if wanted("K2b_window_1m_fit"):
+        fit_args, info["K2b_window_1m_fit_operands"] = window_fit_operands(dev)
+        timed("K2b_window_1m_fit", lambda: K2.coarse_window_scores_kernel(*fit_args))
+        del fit_args
+        torch.cuda.empty_cache()
     k4_8m = {"K4_flat_8m_packed": dict(pack_arg=True), "K4_flat_8m_unpacked": {},
              "K4_flat_8m_emit16": dict(pack_arg=True, emit_sg=16)}
     if wanted(*k4_8m):
@@ -190,7 +260,7 @@ def main() -> int:
             times.append((time.perf_counter() - t0) * 1e3)
         out["flat_8m_query"] = float(np.median(times[3:]))
     print(json.dumps({"checkout": os.getcwd(), "reps": args.reps, "ms": out,
-                      "launch_ms": launch}), flush=True)
+                      "device_ms": device, **info}), flush=True)
     return 0
 
 
