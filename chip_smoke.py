@@ -8,8 +8,11 @@ non-zero exit and no result line — on any error, mismatch, or when no CUDA
 device is present:
 
   1. kernels: each kernel against its plain PyTorch version on the card, at
-     the bench config's shapes (K1 hash at B 1024, K2 coarse scores at
-     B 1024 x 512 blocks of 8 rows of a real fit's tier), with timings;
+     the bench config's shapes (K1 hash at B 1024 with margins, timed also
+     at the fit's B 8192 without; K2 coarse scores at B 1024 x 512 blocks
+     of 8 rows of a real fit's tier, with the tier bytes it gathers beside
+     the distinct ones, its achieved rate and its share of the bound), with
+     timings;
   2. bench_20k: the bench config (`bench.py`) on the bench corpus: fit, warm
      fit, query, recall@10 against exact ground truth, the kernels' launch
      counts over that main path, and agreement with the port's CPU path
@@ -115,15 +118,6 @@ def check(cond, msg: str) -> None:
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def bench_conf(RDFConfig, TableConfig):
-    return RDFConfig(
-        vector_dim=100, table_num=10, permutation_num=3, family_size=100,
-        partition_bits=3, lsh_table=TableConfig(chain_length=32, bucket_overflow=500),
-        query_batch_size=1024, max_candidates=4096, top_k=10, seed=31258,
-        coarse_dim=32, coarse_dtype="int8", coarse_refine=384, use_pallas_hash=True,
-    )
 
 
 QUERY_KW = dict(steps=0, probe_mode="margin", probe_budget=16)
@@ -746,7 +740,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one", file=sys.stderr)
         return 2
     from bench import make_data
-    from similaritysearchbyrdf_tpu_torch import DenseBatch, RDFConfig, RDFForest, TableConfig
+    from similaritysearchbyrdf_tpu_torch import DenseBatch, RDFForest
     from similaritysearchbyrdf_tpu_torch.index import forest as F
     from similaritysearchbyrdf_tpu_torch.ops.bitops import pack_bits_msb_first, popcount
     from similaritysearchbyrdf_tpu_torch.ops.exact import exact_search
@@ -772,7 +766,7 @@ def main() -> int:
     def median_ms(fn, reps=20, warm=3):
         return timing.median_event_ms(fn, reps, warm)
 
-    conf = bench_conf(RDFConfig, TableConfig)
+    conf = timing.bench_config()
     x = make_data(seed=42)
     n = x.shape[0]
     ids = np.arange(n, dtype=np.int32)
@@ -788,8 +782,7 @@ def main() -> int:
         print(build.last_build_log, file=sys.stderr, flush=True)
 
     forest = RDFForest(conf, device=dev).fit(DenseBatch(ids, xd))
-    state, layout = forest.state, forest.layout
-    model = state.model
+    model = forest.state.model
     xb = xd[:1024].contiguous()
     hk, mk = K1.hash_dense_kernel(xb, model.proj, model.perm, emit_margins=True)
     hp, mp = K1.hash_dense_plain(xb, model.proj, model.perm, emit_margins=True)
@@ -819,21 +812,14 @@ def main() -> int:
                      2.0 * xb.shape[0] * t_ * c_ * d_, "f32")
     k1_t = kernel_times(lambda: K1.hash_dense_kernel(xb, model.proj, model.perm, True))
     k1_plain_ms = median_ms(lambda: K1.hash_dense_plain(xb, model.proj, model.perm, True))
-    xf = xd[:8192].contiguous()
-    k1_fit_ms = median_ms(lambda: K1.hash_dense_kernel(xf, model.proj, model.perm))
+    # the fit's shape: chunks of fit_batch_size rows, no margins
+    xf = xd[:conf.fit_batch_size].contiguous()
+    k1_fit = kernel_times(lambda: K1.hash_dense_kernel(xf, model.proj, model.perm))
     k1_fit_plain_ms = median_ms(lambda: K1.hash_dense_plain(xf, model.proj, model.perm))
 
     # K2 on the real query path's blocks (B 1024, MB 512, bs 8) and tier
-    h, margins = F.hash_dense_with_margins(model, xb)
-    probes, pvalid = F._probe_hashes_margin(h, margins, layout, QUERY_KW["probe_budget"])
-    home = F.partition_of_hash(h, state.part_proj)
-    base_b, table_b, _, end_b, _, bs = F.gather_blocks(
-        state.tables, h, home, layout, 0, conf.max_candidates, True, probes, pvalid)
-    mb = base_b.shape[1]
-    tier = state.coarse_tier
-    blk_start = (base_b + torch.arange(mb, device=dev) * bs).to(torch.int32).contiguous()
-    table_i = table_b.to(torch.int32).contiguous()
-    q_low = (xb @ state.coarse_proj).to(torch.bfloat16).contiguous()
+    tier, q_low, table_i, blk_start, bs = timing.block_operands(forest, xb)
+    mb = table_i.shape[1]
     sk = K2.coarse_block_scores_kernel(tier, q_low, table_i, blk_start, bs)
     sp = K2.coarse_block_scores_plain(tier, q_low, table_i, blk_start, bs)
     sync()
@@ -846,23 +832,28 @@ def main() -> int:
     blk_rows = (table_i.long().clamp(0, tier.shape[0] - 1)[..., None] * caprows
                 + blk_start.long().clamp(0, caprows - bs)[..., None]
                 + torch.arange(bs, device=dev))
-    k2_bound = bound(int(torch.unique(blk_rows).numel()) * tier.shape[2]
-                     + nbytes(q_low, table_i, blk_start, sk), 2.0 * sk.numel() * tier.shape[2],
-                     "bf16")
-    k2_t = kernel_times(lambda: K2.coarse_block_scores_kernel(tier, q_low, table_i, blk_start, bs))
-    k2_plain_ms = median_ms(lambda: K2.coarse_block_scores_plain(tier, q_low, table_i,
-                                                                 blk_start, bs))
+    distinct = int(torch.unique(blk_rows).numel()) * tier.shape[2]
+    k2 = {"shape": {"B": 1024, "MB": mb, "bs": bs, "L": tier.shape[0],
+                    "caprows": tier.shape[1], "cs": tier.shape[2]},
+          "form": K2.block_kernel_form(tier.shape[2], bs, 1024, mb),
+          "max_abs_err": float(s_err.max()),
+          "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score",
+          **bound(distinct + nbytes(q_low, table_i, blk_start, sk),
+                  2.0 * sk.numel() * tier.shape[2], "bf16"),
+          **kernel_times(lambda: K2.coarse_block_scores_kernel(tier, q_low, table_i,
+                                                               blk_start, bs)),
+          "plain_ms": median_ms(lambda: K2.coarse_block_scores_plain(tier, q_low, table_i,
+                                                                     blk_start, bs))}
+    # every block is read whole: gathered bytes are B * MB * bs rows of cs
+    k2.update(gather_rates(sk.numel() * tier.shape[2], distinct, k2))
     emit({"phase": "kernels", "build_s": build_s,
           "K1": {"shape": {"B": 1024, "D": 100, "T": 10, "P": 3, "C": 32},
                  "far_mismatch_words": far_mismatch, "near_zero_bit_flips": near_flips,
                  "max_margin_err": float(m_err.max()), **k1_bound,
                  **k1_t, "plain_ms": k1_plain_ms,
-                 "fit_shape_B": 8192, "fit_ms": k1_fit_ms, "fit_plain_ms": k1_fit_plain_ms},
-          "K2": {"shape": {"B": 1024, "MB": mb, "bs": bs, "L": tier.shape[0],
-                           "caprows": tier.shape[1], "cs": tier.shape[2]},
-                 "max_abs_err": float(s_err.max()),
-                 "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score", **k2_bound,
-                 **k2_t, "plain_ms": k2_plain_ms}})
+                 "fit_shape_B": xf.shape[0], "fit_ms": k1_fit["ms"],
+                 "fit_device_ms": k1_fit["device_ms"], "fit_plain_ms": k1_fit_plain_ms},
+          "K2": k2})
 
     # ---- phase 2: the bench config, end to end ------------------------------
     gt, _ = exact_search(x, x[:N_QUERY], 10, exclude_self=True, device=dev)
@@ -988,9 +979,9 @@ def main() -> int:
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py:107",
          "launches": launches["coarse_block_scores_kernel"],
-         "max_abs_err": float(s_err.max()), "ms": k2_t["ms"],
-         "device_ms": k2_t["device_ms"], "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound["bound_ms"], "bound_by": k2_bound["bound_by"], **lib},
+         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
+         "device_ms": k2["device_ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], **lib},
         {"name": "coarse_window_scores_kernel", "route": "cuda",
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py:544,569,590,626,647",

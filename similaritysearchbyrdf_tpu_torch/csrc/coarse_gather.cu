@@ -14,8 +14,9 @@
 // Every int8 x bf16 product is exact in f32; only the summation order
 // differs from the reference.
 //
-// Design: one warp per (query, block), looping grid-stride over all B*MB
-// blocks. A row of cs bytes is cs/8 8-column chunks; it takes LPR lanes,
+// Generic design (every shape but the two main paths', which take kernels
+// of their own below): one warp per (query, block), looping grid-stride over
+// all B*MB blocks. A row of cs bytes is cs/8 8-column chunks; it takes LPR lanes,
 // the next power of two of its chunks up to 32, so a warp pass covers 32/LPR
 // rows (8 rows at cs 32: the whole 256-byte block in one coalesced 8-byte
 // load per lane). A lane keeps the query columns of its chunks in registers,
@@ -32,8 +33,10 @@
 //
 // Bound: bytes read. At the bench shapes (B 1024, MB 512, bs 8, cs 32) a
 // call reads 134 MB of tier rows and writes 16.8 MB of scores, with 2 flops
-// per byte read; each iteration waits on two dependent loads (table/start,
-// then the rows), so enough warps must be in flight to hide the latency.
+// per byte read. In the generic kernel each iteration waits on two dependent
+// loads (table/start, then the rows), so enough warps must be in flight to
+// hide the latency; that shape, the block-mode main path's, takes
+// block_scores_b8_kernel below instead (chosen by rdf_coarse_block_form).
 // wgmma and TMA are not needed for a byte-bound gather of 256-byte blocks.
 
 #include <cuda_bf16.h>
@@ -403,6 +406,119 @@ window_scores_w64_kernel(const int8_t* __restrict__ tier, const __nv_bfloat16* _
   }
 }
 
+// K2 at the block-mode main shape: an int8 tier of CS 32 columns read in
+// blocks of 8 rows (the bench config's B 1024 x MB 512). A block is 256
+// contiguous bytes, 16 lanes x 16 bytes, so one warp-wide 16-byte load
+// covers two blocks: lanes 0-15 the first, 16-31 the second, lane l holding
+// columns 16 (l % 2) .. +15 of row (l % 16) / 2.
+//
+// What held the generic kernel back here: one (query, block) per warp and
+// iteration, each behind a 64-bit divide and the dependent table/start and
+// query loads, one 8-byte load per lane in flight, 32 I2F conversions per
+// score and a 4-level shuffle reduction. This kernel follows K2b's
+// window_scores_w64_kernel: a persistent grid whose CTAs take grid-stride
+// steps of 32 consecutive blocks; a step's table ids and starts are loaded
+// one per lane a step ahead, clipped, and broadcast by shuffle. A CTA is
+// two warps; each takes 16 consecutive blocks of a step and issues all 8 of
+// their 16-byte loads per lane before its first FMA; a lane keeps its 16
+// query columns in
+// registers while its blocks' query stays the same (a whole step at MB 512);
+// int8 becomes f32 by byte permute and one FADD (i8_to_f32); one shuffle
+// level folds each row's two halves, leaving every lane four scores, which
+// the warp writes as four coalesced 128-byte stores of four consecutive
+// blocks each. Two warps of 16 blocks were faster than four of 8 (0.037
+// against 0.043 ms on chip_smoke.py's operands) and as fast as one of 32.
+// On an NVIDIA H100 80GB HBM3 at a 700 W power limit it takes 0.0370 ms of
+// device time on those operands (134 MB gathered, mostly from L2, against
+// a bound of 0.0121 ms), where the generic kernel takes 0.1046.
+struct Blk8 {
+  static constexpr int kBs = 8;
+  static constexpr int kCs = 32;
+  static constexpr int kLpr = kCs / 16;                     // lanes per row
+  static constexpr int kThreads = 64;
+  static constexpr int kStep = 32;   // blocks a CTA takes at a time: one's small inputs a lane
+  static constexpr int kPerWarp = kStep / (kThreads / 32);  // consecutive blocks per warp
+  static constexpr int kLoads = kPerWarp / 2;               // warp-wide loads, two blocks each
+  static constexpr int kMinCtas = 8;   // launch bound: at most 128 registers a thread
+};
+
+// the 16 bf16 query columns at src as f32
+__device__ __forceinline__ void load_query16(const __nv_bfloat16* src, float* qf) {
+  const uint4* qp = reinterpret_cast<const uint4*>(src);
+  const uint4 qa = __ldg(qp), qb = __ldg(qp + 1);
+  const uint32_t qw[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    qf[2 * j] = __uint_as_float(qw[j] << 16);
+    qf[2 * j + 1] = __uint_as_float(qw[j] & 0xffff0000u);
+  }
+}
+
+__global__ void __launch_bounds__(Blk8::kThreads, Blk8::kMinCtas)
+block_scores_b8_kernel(const int8_t* __restrict__ tier, const __nv_bfloat16* __restrict__ q,
+                       const int* __restrict__ table, const int* __restrict__ start,
+                       float* __restrict__ out, int L, int caprows, int n, int MB) {
+  using S = Blk8;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int half = lane >> 4;                     // which block of a load's pair
+  const int col0 = 16 * (lane % S::kLpr);
+  const int n_steps = (n + S::kStep - 1) / S::kStep;
+
+  // the raw small inputs of block step + lane, loaded one step ahead
+  int r_t = 0, r_s = 0;
+  auto prefetch = [&](int i) {
+    if (i < n) {
+      r_t = table[i];
+      r_s = start[i];
+    }
+  };
+  if ((int)blockIdx.x < n_steps) prefetch(blockIdx.x * S::kStep + lane);
+
+  float qf[16];
+  int cur_b = -1;                                 // the query whose columns qf holds
+  for (int st = blockIdx.x; st < n_steps; st += gridDim.x) {
+    const int step = st * S::kStep;
+    long long row0 = 0;                           // lane's block: byte offset of its first row
+    int bq = 0;                                   // and its query
+    if (step + lane < n) {
+      const int t = min(max(r_t, 0), L - 1);
+      const int s = min(max(r_s, 0), caprows - S::kBs);
+      row0 = ((long long)t * caprows + s) * S::kCs;
+      bq = (step + lane) / MB;
+    }
+    if (st + (int)gridDim.x < n_steps) prefetch((st + gridDim.x) * S::kStep + lane);
+
+    const int first = warp * S::kPerWarp;         // the warp's blocks within the step
+    uint4 v[S::kLoads];
+    int vq[S::kLoads];
+#pragma unroll
+    for (int k = 0; k < S::kLoads; ++k) {         // every 16-byte load before the first FMA
+      const int src = first + 2 * k + half;       // the lane holding this block's inputs
+      const long long r0 = __shfl_sync(kFull, row0, src);
+      vq[k] = __shfl_sync(kFull, bq, src);
+      v[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (step + src < n) v[k] = __ldg(reinterpret_cast<const uint4*>(tier + r0) + (lane & 15));
+    }
+    float p[S::kLoads];
+#pragma unroll
+    for (int k = 0; k < S::kLoads; ++k) {
+      if (vq[k] != cur_b) {                       // another query: reload this lane's columns
+        load_query16(q + (size_t)vq[k] * S::kCs + col0, qf);
+        cur_b = vq[k];
+      }
+      p[k] = dot16_i8(v[k], qf);
+    }
+    fold_rows<S::kLoads, 1, S::kLpr>(p, lane);
+    // lane l holds row (l % 16) / 2 of blocks 4j + 2 (l % 2) + l / 16, j = 0, 1, ...
+#pragma unroll
+    for (int j = 0; j < S::kLoads / S::kLpr; ++j) {
+      const int blk = step + first + 4 * j + 2 * (lane % S::kLpr) + half;
+      if (blk < n) out[(size_t)blk * S::kBs + ((lane & 15) >> 1)] = p[j];
+    }
+  }
+}
+
 int grid_for(long long n_items) {
   const long long warps_per_cta = kThreads / 32;
   const long long ctas = (n_items + warps_per_cta - 1) / warps_per_cta;
@@ -446,28 +562,36 @@ int launch_window(const void* tier, const void* q, const void* table, const void
 
 constexpr int kMaxDevices = 64;   // devices whose grid size is cached
 
+// SMs x resident CTAs per SM of `kernel` on the current device: queried on a
+// device's first launch and kept in `cache` (threads that race there store
+// the same value); 0 and an error on failure
+template <typename Kernel>
+cudaError_t resident_ctas(Kernel kernel, int threads, std::atomic<int>* cache, int* ctas) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  *ctas = dev < kMaxDevices ? cache[dev].load(std::memory_order_relaxed) : 0;
+  if (*ctas == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+    if (err != cudaSuccess) return err;
+    *ctas = sms * per_sm;
+    if (dev < kMaxDevices) cache[dev].store(*ctas, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
 // the specialised K2b on a persistent grid: as many CTAs as fit on the card
 template <int CS>
 int launch_window_w64(const void* tier, const void* q, const void* table, const void* blk_start,
                       const void* start, const void* end, const void* live, void* out, int L,
                       int caprows, int n, int MB, cudaStream_t stream) {
-  // SMs x resident CTAs per SM, by device: queried on a device's first
-  // launch (threads that race there store the same value)
   static std::atomic<int> ctas_of[kMaxDevices];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  int ctas = 0;
+  const cudaError_t err = resident_ctas(window_scores_w64_kernel<CS>, kThreads, ctas_of, &ctas);
   if (err != cudaSuccess) return (int)err;
-  int ctas = dev < kMaxDevices ? ctas_of[dev].load(std::memory_order_relaxed) : 0;
-  if (ctas == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, window_scores_w64_kernel<CS>,
-                                                          kThreads, 0);
-    if (err != cudaSuccess) return (int)err;
-    ctas = sms * per_sm;
-    if (dev < kMaxDevices) ctas_of[dev].store(ctas, std::memory_order_relaxed);
-  }
   const long long steps = ((long long)n + Win64<CS>::kStep - 1) / Win64<CS>::kStep;
   const int grid = (int)(steps < ctas ? steps : ctas);
   window_scores_w64_kernel<CS><<<grid, kThreads, 0, stream>>>(
@@ -475,6 +599,22 @@ int launch_window_w64(const void* tier, const void* q, const void* table, const 
       static_cast<const int*>(table), static_cast<const int*>(blk_start),
       static_cast<const int*>(start), static_cast<const int*>(end),
       static_cast<const uint8_t*>(live), static_cast<float*>(out), L, caprows, n, MB);
+  return (int)cudaGetLastError();
+}
+
+// the specialised K2 on a persistent grid, as K2b's
+int launch_block_b8(const void* tier, const void* q, const void* table, const void* start,
+                    void* out, int L, int caprows, int n, int MB, cudaStream_t stream) {
+  static std::atomic<int> ctas_of[kMaxDevices];
+  int ctas = 0;
+  const cudaError_t err = resident_ctas(block_scores_b8_kernel, Blk8::kThreads, ctas_of, &ctas);
+  if (err != cudaSuccess) return (int)err;
+  const long long steps = ((long long)n + Blk8::kStep - 1) / Blk8::kStep;
+  const int grid = (int)(steps < ctas ? steps : ctas);
+  block_scores_b8_kernel<<<grid, Blk8::kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(tier), static_cast<const __nv_bfloat16*>(q),
+      static_cast<const int*>(table), static_cast<const int*>(start), static_cast<float*>(out),
+      L, caprows, n, MB);
   return (int)cudaGetLastError();
 }
 
@@ -494,6 +634,13 @@ int launch_window_w64(const void* tier, const void* q, const void* table, const 
 
 }  // namespace
 
+// Which kernel K2 takes for a shape: 1, the specialised kernel, for the
+// block-mode main shape (32 columns, 8-slot blocks, a block count that fits
+// an int); 0, the generic kernel, for every other shape.
+extern "C" int rdf_coarse_block_form(int cs, int bs, int B, int MB) {
+  return cs == Blk8::kCs && bs == Blk8::kBs && (long long)B * MB < (1LL << 31) - Blk8::kStep;
+}
+
 // tier i8[L, caprows, cs], q bf16[B, cs], table and start i32[B, MB] (all
 // contiguous, 16-byte aligned); out f32[B, MB, bs]. cs is a multiple of 8
 // and caprows >= bs. Launches on `stream`; returns the
@@ -505,6 +652,8 @@ extern "C" int rdf_coarse_block_scores(const void* tier, const void* q,
   if ((long long)B * MB == 0) return 0;
   if (cs <= 0 || cs % 8) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (rdf_coarse_block_form(cs, bs, B, MB))
+    return launch_block_b8(tier, q, table, start, out, L, caprows, B * MB, MB, st);
 #define RDF_BLOCK(LPR, CPL) \
   launch<LPR, CPL>(tier, q, table, start, out, L, caprows, cs, B, MB, bs, st)
   RDF_BY_WIDTH(cs, RDF_BLOCK)

@@ -20,6 +20,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -86,6 +88,8 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
+    if _lib is not None:      # loaded: no lock on the launch path
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -94,6 +98,8 @@ def library() -> ctypes.CDLL:
             lib.rdf_hash_dense.restype = i
             lib.rdf_coarse_block_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
             lib.rdf_coarse_block_scores.restype = i
+            lib.rdf_coarse_block_form.argtypes = [i] * 4
+            lib.rdf_coarse_block_form.restype = i
             lib.rdf_coarse_window_scores.argtypes = [p] * 8 + [i] * 7 + [p]
             lib.rdf_coarse_window_scores.restype = i
             lib.rdf_coarse_rowmax.argtypes = [p] * 6 + [i] * 9 + [p]
@@ -104,15 +110,23 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def check_operands(kernel: str, device, aligned=(), **operands) -> None:
+def check_operands(kernel: str, device: torch.device, aligned=(), **operands) -> None:
     """Raise ValueError unless every operand (a tensor) lies contiguous on
-    `device`, and those named in `aligned` start 16-byte aligned, as the
-    kernels' vector loads need."""
+    the CUDA `device`, and those named in `aligned` start 16-byte aligned,
+    as the kernels' vector loads need."""
+    index = device.index
     for name, a in operands.items():
-        if a.device != device or not a.is_contiguous():
+        if not (a.is_cuda and a.get_device() == index and a.is_contiguous()):
             raise ValueError(f"{kernel}: {name} must be contiguous on {device}")
         if name in aligned and a.data_ptr() % 16:
             raise ValueError(f"{kernel}: {name} must be 16-byte aligned")
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of the CUDA `device`'s current stream, for a launch:
+    what `torch.cuda.current_stream(device).cuda_stream` gives, without
+    making a `Stream` object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(err: int, name: str) -> None:

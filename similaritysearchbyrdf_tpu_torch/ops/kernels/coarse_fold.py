@@ -104,7 +104,7 @@ def coarse_rowmax_kernel(folded: torch.Tensor, qi8: torch.Tensor, table: torch.T
     err = build.library().rdf_coarse_rowmax(
         folded.data_ptr(), qi8.data_ptr(), table.data_ptr(), row_start.data_ptr(),
         out.data_ptr(), out2.data_ptr() if emit2 else None, l, capf, lanes, cs, b, mb,
-        wpr, rpg, mshift, torch.cuda.current_stream(folded.device).cuda_stream,
+        wpr, rpg, mshift, build.stream(folded.device),
     )
     build.check(err, "rdf_coarse_rowmax")
     LAUNCHES += 1

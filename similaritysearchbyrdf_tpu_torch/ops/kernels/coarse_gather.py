@@ -15,6 +15,12 @@ its range's [start, end) scores -inf, so the caller needs no masking pass.
 K2b also takes a bf16 tier: the flat engine's bf16 sketch, re-scored as a
 one-table tier (`ops/flat.py`).
 
+K2's main-path shape, 8-slot blocks of 32 columns (block mode), takes a
+kernel of its own, chosen by shape inside `rdf_coarse_block_scores`
+(`block_kernel_form`): K2b's design below, with steps of 32 blocks, 16
+consecutive blocks to a warp and each 16-byte load covering two blocks;
+every other shape keeps the generic kernel.
+
 K2b's main-path shapes, an int8 tier with 64-slot windows of 32 columns
 (window mode) or 128 (the flat engine's exact2 re-score), take a kernel of
 their own, chosen by shape inside `rdf_coarse_window_scores`: a persistent
@@ -48,6 +54,13 @@ def _cs_ok(cs: int) -> bool:
     return cs > 0 and cs % 8 == 0
 
 
+def block_kernel_form(cs: int, bs: int, b: int, mb: int) -> str:
+    """Which kernel K2 takes for a shape on the card, as
+    `rdf_coarse_block_scores` chooses it (`rdf_coarse_block_form`): "b8",
+    the block-mode main shape's kernel, or "generic"."""
+    return "b8" if build.library().rdf_coarse_block_form(cs, bs, b, mb) else "generic"
+
+
 def coarse_block_scores_plain(tier: torch.Tensor, q_low: torch.Tensor,
                               table: torch.Tensor, blk_start: torch.Tensor,
                               bs: int) -> torch.Tensor:
@@ -68,9 +81,9 @@ def coarse_block_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
     """K2 on CUDA tensors, its plain version on CPU tensors. Same contract
     as `coarse_block_scores_plain`."""
     global LAUNCHES
-    if tier.device.type == "cpu":
-        return coarse_block_scores_plain(tier, q_low, table, blk_start, bs)
-    if tier.device.type != "cuda":
+    if not tier.is_cuda:
+        if tier.device.type == "cpu":
+            return coarse_block_scores_plain(tier, q_low, table, blk_start, bs)
         raise ValueError(f"coarse_block_scores_kernel: unsupported device {tier.device}")
     if (tier.dtype != torch.int8 or q_low.dtype != torch.bfloat16
             or table.dtype != torch.int32 or blk_start.dtype != torch.int32):
@@ -83,16 +96,15 @@ def coarse_block_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
         raise ValueError(f"coarse_block_scores_kernel: shapes tier {tuple(tier.shape)}, "
                          f"q_low {tuple(q_low.shape)}, table {tuple(table.shape)}, "
                          f"blk_start {tuple(blk_start.shape)}, bs {bs}; cs a multiple of 8")
-    build.check_operands("coarse_block_scores_kernel", tier.device, ("tier", "q_low"),
+    dev = tier.device
+    build.check_operands("coarse_block_scores_kernel", dev, ("tier", "q_low"),
                          tier=tier, q_low=q_low, table=table, blk_start=blk_start)
-    out = torch.empty((b, mb, bs), dtype=torch.float32, device=tier.device)
+    out = torch.empty((b, mb, bs), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     err = build.library().rdf_coarse_block_scores(
         tier.data_ptr(), q_low.data_ptr(), table.data_ptr(), blk_start.data_ptr(),
-        out.data_ptr(), l, caprows, cs, b, mb, bs,
-        torch.cuda.current_stream(tier.device).cuda_stream,
-    )
+        out.data_ptr(), l, caprows, cs, b, mb, bs, build.stream(dev))
     build.check(err, "rdf_coarse_block_scores")
     LAUNCHES += 1
     return out
@@ -146,7 +158,7 @@ def coarse_window_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
         tier.data_ptr(), q_low.data_ptr(), table.data_ptr(), blk_start.data_ptr(),
         start.data_ptr(), end.data_ptr(), live.data_ptr(), out.data_ptr(),
         l, caprows, cs, b, mb, win, int(tier.dtype == torch.bfloat16),
-        torch.cuda.current_stream(tier.device).cuda_stream,
+        build.stream(tier.device),
     )
     build.check(err, "rdf_coarse_window_scores")
     WINDOW_LAUNCHES += 1

@@ -132,7 +132,7 @@ def flat_groupmax_kernel(sketch: torch.Tensor, q: torch.Tensor, group: int = 64,
         sketch.data_ptr(), q.data_ptr(), out.data_ptr(),
         sgout.data_ptr() if emit_sg else None, npad, b, d,
         int(sketch.dtype == torch.bfloat16), group, int(pack_arg), emit_sg,
-        torch.cuda.current_stream(sketch.device).cuda_stream,
+        build.stream(sketch.device),
     )
     build.check(err, "rdf_flat_groupmax")
     LAUNCHES += 1

@@ -1,4 +1,4 @@
-"""Time the PyTorch port's coarse-score and group-max kernels on one GPU.
+"""Time the PyTorch port's kernels on one GPU.
 
 Run from the root of a checkout of the repo (`-m` imports the port from the
 current directory, so two checkouts can be compared on one card):
@@ -6,8 +6,11 @@ current directory, so two checkouts can be compared on one card):
     python3 -m similaritysearchbyrdf_tpu_torch.ops.kernels.timing [--reps 50]
 
 Seeded random operands at the shapes `chip_smoke.py` gives the kernels:
-K2 at the bench config (B 1024 x 512 blocks of 8 rows, cs 32, 30 tables of
-20,000 rows), K2b at window_1m's (B 128 x 1024 windows of 64, cs 32, 10
+K1 at the bench config's D 100, T 10, C 32, P 3 (`K1_bench_query`: B 1024
+with margins, as the query hashes; `K1_fit`: B 8192 without, the fit's
+chunk of `fit_batch_size` rows), K2 at the bench config (B 1024 x 512
+blocks of 8 rows, cs 32, 30 tables of 20,000 rows), K2b at window_1m's
+(B 128 x 1024 windows of 64, cs 32, 10
 tables of 2^20 rows, 38% of windows live; `K2b_window_1m` with every slot of
 a live window valid, `K2b_window_1m_ragged` laid out as the 1M fit's query
 lays them out, each query's live windows a prefix of its 1024, 28.8% of
@@ -18,14 +21,21 @@ live windows of 512 rows, each query's windows consecutive from one random
 row of one table, as the folded query lays them out; with and without the
 second output), and K4 int8 at flat_20k's (unpacked, B 1024 x 24,576 x 128)
 and flat_8m's (B 1024 x 8,003,584 x 96: packed, unpacked, and packed with
-the supergroup tier of 16 groups). `K2b_window_1m_fit` times K2b on the
-operands of `chip_smoke.py`'s kernels_window instead: the same 1M corpus,
-fit and 128 queries' windows, made by the checkout's own forest (its
-`operands` entry counts them, so two checkouts can be shown to time the
+the supergroup tier of 16 groups). `K2_bench_fit` times K2 on the operands
+of `chip_smoke.py`'s kernels phase instead: the bench corpus
+(`bench.make_data(seed=42)`), the bench config's fit and the blocks of its
+first 1,024 queries, made by the checkout's own forest; `K2b_window_1m_fit`
+times K2b on the operands of its kernels_window: the same 1M corpus,
+fit and 128 queries' windows, made by the checkout's own forest (each
+`*_operands` entry counts them, so two checkouts can be shown to time the
 same ones). `flat_8m_query` times the whole flat engine at flat_8m's shape:
 `FlatIndex()` at its defaults fitted on 8,000,000 x 96 unit vectors around
 50,000 seeded centres (made on the card), 1,024 of them as queries, host
 clock around `query_device` and a sync (its qps is 1,024 / that time).
+`K1_one_row` times K1 on one row (B 1, margins) and `floor_one_block` K2 on
+one block: what a launch costs whatever its work. `host` times the K1 and
+K2 wrappers' host work step by step on the host clock (`wrapper_host_us`),
+at K1_bench_query's and K2_bench's operands.
 `--only K3` times only the entries whose names start with one of the given
 prefixes. Prints the card's name and power limit, then one JSON line of
 medians of `--reps` timings (ms) after 3 warm-up calls, two per kernel
@@ -79,6 +89,97 @@ def kernel_times(fn, reps: int) -> dict:
     return {"ms": median_event_ms(fn, reps), "device_ms": median_event_ms(fn, reps, busy=True)}
 
 
+def host_us(fn, reps: int, sync_every: int = 64) -> float:
+    """Median host-clock µs of one call of `fn`, after 3 warm-up calls. No
+    sync falls inside a timed call: the card is synchronised every
+    `sync_every` calls, between them, so launches never fill the queue."""
+    times = []
+    for i in range(reps + 3):
+        if i % sync_every == 0:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times[3:])) * 1e6
+
+
+def wrapper_host_us(wrapper, lib_call, out_shapes, check_operands, reps: int) -> dict:
+    """A kernel wrapper's host work, step by step (`host_us` each): the
+    whole `wrapper` call (its kernel enqueued, not waited for), its operand
+    check (`check_operands`), the allocation of its outputs (`out_shapes`:
+    (shape, dtype) pairs), `build.library()`, the current stream through
+    `torch.cuda.current_stream` and as the raw handle, and the ctypes launch
+    with its argument conversion (`lib_call(lib, stream)` on preallocated
+    outputs). What the wrapper takes beyond the steps it runs is its own
+    Python: shape and type checks, bookkeeping."""
+    from . import build
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    steps = {
+        "wrapper": wrapper,
+        "check_operands": check_operands,
+        "alloc": lambda: [torch.empty(sh, dtype=dt, device=dev) for sh, dt in out_shapes],
+        "library": build.library,
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "ctypes_launch": lambda: lib_call(lib, stream),
+    }
+    return {name: host_us(fn, reps) for name, fn in steps.items()}
+
+
+def bench_config(**kw):
+    """`bench.py`'s index config (`bench.py:88-118`, with
+    use_pallas_hash=True) as the port's `RDFConfig`, with `kw` replaced."""
+    from ... import RDFConfig, TableConfig
+
+    return RDFConfig(
+        vector_dim=100, table_num=10, permutation_num=3, family_size=100, partition_bits=3,
+        lsh_table=TableConfig(chain_length=32, bucket_overflow=500), query_batch_size=1024,
+        max_candidates=4096, top_k=10, seed=31258, coarse_dim=32, coarse_dtype="int8",
+        coarse_refine=384, use_pallas_hash=True).replace(**kw)
+
+
+def block_operands(forest, xb) -> tuple:
+    """K2's arguments (tier, q_low, table, blk_start, bs) for the block-mode
+    query of the rows `xb` on the fitted `forest`: margin probes (budget 16,
+    the bench query's), then the 8-slot blocks of up to the config's m_cap
+    slots, as the query lays them out."""
+    from ...index import forest as F
+
+    state, layout = forest.state, forest.layout
+    h, margins = F.hash_dense_with_margins(state.model, xb)
+    probes, pvalid = F._probe_hashes_margin(h, margins, layout, 16)
+    home = F.partition_of_hash(h, state.part_proj)
+    base, table, _, _, _, bs = F.gather_blocks(
+        state.tables, h, home, layout, 0, forest.conf.max_candidates, True, probes, pvalid)
+    blk_start = base + torch.arange(base.shape[1], device=xb.device) * bs
+    q_low = (xb @ state.coarse_proj).to(torch.bfloat16).contiguous()
+    return (state.coarse_tier, q_low, table.to(torch.int32).contiguous(),
+            blk_start.to(torch.int32).contiguous(), bs)
+
+
+def block_fit_operands(dev) -> tuple:
+    """K2's operands in `chip_smoke.py`'s kernels phase: the bench config
+    fitted on the bench corpus (`bench.make_data(seed=42)`, from the
+    checkout's root), and the blocks of its first 1,024 rows as queries.
+    Returns the kernel's arguments and a count of them."""
+    from bench import make_data
+
+    from ... import DenseBatch, RDFForest
+
+    x = torch.as_tensor(make_data(seed=42), device=dev)
+    forest = RDFForest(bench_config(), device=dev).fit(
+        DenseBatch(np.arange(x.shape[0], dtype=np.int32), x))
+    ops = block_operands(forest, x[:1024].contiguous())
+    tier, q_low, table, blk, _ = ops
+    count = {"blocks": table.numel(), "index_sum": int(table.long().sum() + blk.long().sum()),
+             "tier_sum": int(tier.long().sum()), "query_sum": float(q_low.float().sum())}
+    return ops, count
+
+
 def window_operands(big, xq, m_cap: int, probe_budget: int) -> tuple:
     """K2b's arguments (tier, q_low, table, blk_start, start, end, live, win)
     for the window-mode query of the rows `xq` on the fitted forest `big`:
@@ -107,7 +208,7 @@ def window_fit_operands(dev) -> tuple:
     with a head tier, and the windows of the first 128 queries at m_cap
     65536 (probe budget 16). Returns the kernel's arguments and a count of
     them."""
-    from ... import DenseBatch, RDFConfig, RDFForest, TableConfig
+    from ... import DenseBatch, RDFForest
 
     n, d = 1_000_000, 100
     rng = np.random.default_rng(7)
@@ -116,12 +217,8 @@ def window_fit_operands(dev) -> tuple:
     x = centers[rng.integers(0, 20_000, n)] + 0.05 * rng.normal(size=(n, d))
     x = torch.as_tensor((x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32),
                         device=dev)
-    conf = RDFConfig(
-        vector_dim=d, table_num=10, permutation_num=3, family_size=100, partition_bits=3,
-        lsh_table=TableConfig(chain_length=32, bucket_overflow=500), query_batch_size=1024,
-        max_candidates=4096, top_k=10, seed=31258, coarse_dim=32, coarse_dtype="int8",
-        coarse_refine=384, use_pallas_hash=True, coarse_head_pool=64)
-    big = RDFForest(conf, device=dev).fit(DenseBatch(np.arange(n, dtype=np.int32), x))
+    big = RDFForest(bench_config(coarse_head_pool=64), device=dev).fit(
+        DenseBatch(np.arange(n, dtype=np.int32), x))
     ops = window_operands(big, x[:128].contiguous(), 65536, 16)
     tier, q_low, table, blk, start, end, live, win = ops
     pos = blk.long()[..., None] + torch.arange(win, device=dev)
@@ -141,9 +238,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("timing: needs a CUDA device", file=sys.stderr)
         return 2
+    from . import build
     from . import coarse_fold as K3
     from . import coarse_gather as K2
     from . import flat_groupmax as K4
+    from . import hash_kernel as K1
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
@@ -167,10 +266,52 @@ def main() -> int:
     def timed(name, fn):
         t = kernel_times(fn, args.reps)
         out[name], device[name] = t["ms"], t["device_ms"]
-    if wanted("K2_bench"):
+
+    if wanted("K1_bench_query", "K1_fit", "K1_one_row", "host"):
+        # the bench config's hash model shapes: T 10 chains of C 32 over D 100, P 3
+        kgen = torch.Generator(device=dev).manual_seed(1)
+        proj = torch.randn((10, 32, 100), generator=kgen, device=dev)
+        perm = torch.stack([torch.stack([torch.randperm(32, generator=kgen, device=dev)
+                                         for _ in range(3)]) for _ in range(10)]).to(torch.int32)
+        xq = torch.randn((1024, 100), generator=kgen, device=dev)
+        xf = torch.randn((8192, 100), generator=kgen, device=dev)
+        if wanted("K1_bench_query"):
+            timed("K1_bench_query", lambda: K1.hash_dense_kernel(xq, proj, perm, True))
+        if wanted("K1_fit"):
+            timed("K1_fit", lambda: K1.hash_dense_kernel(xf, proj, perm))
+        if wanted("K1_one_row"):
+            x1 = xq[:1].contiguous()
+            timed("K1_one_row", lambda: K1.hash_dense_kernel(x1, proj, perm, True))
+    if wanted("K2_bench", "host"):
         tier, q = i8(30, 20_000, 32), bf16(1024, 32)
         table, blk = ints(0, 30, (1024, 512)), ints(0, 20_000 - 8, (1024, 512))
-        timed("K2_bench", lambda: K2.coarse_block_scores_kernel(tier, q, table, blk, 8))
+        if wanted("K2_bench"):
+            timed("K2_bench", lambda: K2.coarse_block_scores_kernel(tier, q, table, blk, 8))
+    if wanted("host"):
+        h1 = torch.empty((1024, 30), dtype=torch.int64, device=dev)
+        m1 = torch.empty((1024, 30, 32), device=dev)
+        s2 = torch.empty((1024, 512, 8), device=dev)
+        info["host_us_K1_bench_query"] = wrapper_host_us(
+            lambda: K1.hash_dense_kernel(xq, proj, perm, True),
+            lambda lib, s: lib.rdf_hash_dense(
+                xq.data_ptr(), proj.data_ptr(), perm.data_ptr(), h1.data_ptr(), m1.data_ptr(),
+                1024, 100, 10, 32, 3, s),
+            [((1024, 30), torch.int64), ((1024, 30, 32), torch.float32)],
+            lambda: build.check_operands("hash_dense_kernel", xq.device, x=xq, proj=proj,
+                                         perm=perm), 2000)
+        info["host_us_K2_bench"] = wrapper_host_us(
+            lambda: K2.coarse_block_scores_kernel(tier, q, table, blk, 8),
+            lambda lib, s: lib.rdf_coarse_block_scores(
+                tier.data_ptr(), q.data_ptr(), table.data_ptr(), blk.data_ptr(), s2.data_ptr(),
+                30, 20_000, 32, 1024, 512, 8, s),
+            [((1024, 512, 8), torch.float32)],
+            lambda: build.check_operands("coarse_block_scores_kernel", tier.device,
+                                         ("tier", "q_low"), tier=tier, q_low=q, table=table,
+                                         blk_start=blk), 2000)
+    if wanted("K2_bench_fit"):
+        blk_args, info["K2_bench_fit_operands"] = block_fit_operands(dev)
+        timed("K2_bench_fit", lambda: K2.coarse_block_scores_kernel(*blk_args))
+        del blk_args
 
     if wanted("K2b_window_1m", "K2b_window_1m_ragged"):
         tier, q = i8(10, 1 << 20, 32), bf16(128, 32)
@@ -259,6 +400,10 @@ def main() -> int:
             torch.cuda.synchronize(dev)
             times.append((time.perf_counter() - t0) * 1e3)
         out["flat_8m_query"] = float(np.median(times[3:]))
+    if wanted("floor"):
+        # the timer's floor: K2 on one 8-row block, about the least any launch does
+        t1, q1, i1 = i8(1, 64, 32), bf16(1, 32), ints(0, 1, (1, 1))
+        timed("floor_one_block", lambda: K2.coarse_block_scores_kernel(t1, q1, i1, i1, 8))
     print(json.dumps({"checkout": os.getcwd(), "reps": args.reps, "ms": out,
                       "device_ms": device, **info}), flush=True)
     return 0

@@ -32,11 +32,13 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("b,d,t,p,c", [(1, 7, 1, 1, 5), (130, 100, 10, 3, 32),
-                                       (65, 33, 3, 4, 17), (8, 300, 2, 2, 32)])
-def test_hash_kernel_matches_plain(dev, b, d, t, p, c):
-    rng = np.random.default_rng(b * d)
-    x = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32), device=dev)
+def _check_hash(dev, b, d, t, p, c, seed, offset=0):
+    """K1 against its plain version: no hash bit differs away from near-zero
+    dots, margins within the f32 bound, the same hashes without margins.
+    `offset` starts x that many floats into its buffer."""
+    rng = np.random.default_rng(seed)
+    buf = torch.as_tensor(rng.normal(size=b * d + offset).astype(np.float32), device=dev)
+    x = buf[offset:].view(b, d)
     proj = torch.as_tensor(rng.normal(size=(t, c, d)).astype(np.float32), device=dev)
     perm = torch.as_tensor(np.stack([[rng.permutation(c) for _ in range(p)]
                                      for _ in range(t)]).astype(np.int32), device=dev)
@@ -57,6 +59,40 @@ def test_hash_kernel_matches_plain(dev, b, d, t, p, c):
     assert torch.equal(K1.hash_dense_kernel(x, proj, perm)[0], hk)
 
 
+@pytest.mark.parametrize("b,d,t,p,c", [(1, 7, 1, 1, 5), (130, 100, 10, 3, 32),
+                                       (65, 33, 3, 4, 17), (8, 300, 2, 2, 32)])
+def test_hash_kernel_matches_plain(dev, b, d, t, p, c):
+    _check_hash(dev, b, d, t, p, c, b * d)
+
+
+_CHAIN_PERMS = [(c, p) for c in (5, 17, 32) for p in (1, 2, 3, 4)]
+
+
+@pytest.mark.parametrize("d", [7, 96, 100, 128, 300])
+@pytest.mark.parametrize("b", [1, 7, 63, 64, 65, 1024, 8192])
+def test_hash_kernel_rows_and_widths(dev, b, d):
+    """Every B: one row, tiles of 32 rows cut short, the query's 1,024 and
+    the fit's 8,192; every D: 7 (4-byte copies and a zero-padded last
+    group), 96 to 128 (one staged chunk of 16-byte copies), 300 (three
+    chunks, the last one short). C and P run through all 12 pairs of C 5,
+    17, 32 and P 1-4 across the cases."""
+    c, p = _CHAIN_PERMS[(b + d) % len(_CHAIN_PERMS)]
+    _check_hash(dev, b, d, 10 if b <= 1024 else 3, p, c, b * 1000 + d)
+
+
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+@pytest.mark.parametrize("c", [5, 17, 32])
+def test_hash_kernel_chains_and_permutations(dev, c, p):
+    _check_hash(dev, 65, 100, 10, p, c, 100 * c + p)
+
+
+@pytest.mark.parametrize("d", [100, 101])
+def test_hash_kernel_unaligned_rows(dev, d):
+    """x starting one float into its buffer: not 16-byte aligned, so the
+    rows are staged by 4-byte copies even where D is a multiple of 4."""
+    _check_hash(dev, 65, d, 4, 3, 32, d, offset=1)
+
+
 @pytest.mark.parametrize("cs,bs", [(8, 8), (16, 1), (24, 8), (32, 8), (64, 8), (96, 8),
                                    (128, 3), (224, 8), (256, 8), (800, 8), (2048, 2)])
 def test_coarse_kernel_matches_plain(dev, cs, bs):
@@ -75,6 +111,50 @@ def test_coarse_kernel_matches_plain(dev, cs, bs):
     want = K2.coarse_block_scores_plain(tier, q, table, start, bs)
     bound = 2 * cs * U * K2.coarse_block_scores_plain(tier.abs(), q.abs(), table, start, bs)
     assert ((got - want).abs() <= bound + 1e-30).all()
+
+
+@pytest.mark.parametrize("queries", ["integer", "float"])
+@pytest.mark.parametrize("mb", [1, 33, 512])
+@pytest.mark.parametrize("b", [1, 1024])
+def test_block_kernel_main_shape(dev, b, mb, queries):
+    """K2 at the block-mode main shape (int8, cs 32, 8-slot blocks), which
+    takes its specialised kernel: B 1 and the bench's 1,024 queries, MB 1,
+    33 (block counts that end mid-step) and 512, table ids out of range and
+    starts past both ends of the tier, which the kernel clips. With integer
+    queries (|q| <= 16) every partial sum is an integer below 2^24, so
+    kernel and plain version agree bit for bit; with float queries within
+    the f32 summation bound."""
+    assert K2.block_kernel_form(32, 8, b, mb) == "b8"
+    rng = np.random.default_rng(b * 1000 + mb)
+    l, caprows, cs, bs = 30, 20_000, 32, 8
+    tier = torch.as_tensor(rng.integers(-128, 128, size=(l, caprows, cs)).astype(np.int8),
+                           device=dev)
+    qv = (rng.integers(-16, 17, size=(b, cs)) if queries == "integer"
+          else rng.normal(size=(b, cs)))
+    q = torch.as_tensor(qv.astype(np.float32), device=dev).to(torch.bfloat16)
+    table = torch.as_tensor(rng.integers(-2, l + 2, size=(b, mb)).astype(np.int32), device=dev)
+    start = torch.as_tensor(rng.integers(-20, caprows + 20, size=(b, mb)).astype(np.int32),
+                            device=dev)
+    before = K2.LAUNCHES
+    got = K2.coarse_block_scores_kernel(tier, q, table, start, bs)
+    assert K2.LAUNCHES == before + 1
+    want = K2.coarse_block_scores_plain(tier, q, table, start, bs)
+    if queries == "integer":
+        assert torch.equal(got, want)
+    else:
+        bound = 2 * cs * U * K2.coarse_block_scores_plain(tier.abs(), q.abs(), table, start, bs)
+        assert ((got - want).abs() <= bound + 1e-30).all()
+
+
+@pytest.mark.parametrize("cs,bs,b,mb,form", [
+    (32, 8, 1024, 512, "b8"), (32, 8, 1, 1, "b8"), (32, 8, 7, 33, "b8"),
+    (32, 4, 1024, 512, "generic"), (32, 16, 1024, 512, "generic"), (64, 8, 1024, 512, "generic"),
+    (24, 8, 7, 33, "generic"), (16, 8, 1024, 512, "generic"),
+    (32, 8, 1 << 16, 1 << 15, "generic")])
+def test_block_kernel_form(dev, cs, bs, b, mb, form):
+    """Only the block-mode main shape takes the specialised kernel; other
+    widths and block sizes, and block counts past an int, the generic one."""
+    assert K2.block_kernel_form(cs, bs, b, mb) == form
 
 
 @pytest.mark.parametrize("tier_dtype", [torch.int8, torch.bfloat16])
