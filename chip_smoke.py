@@ -11,8 +11,10 @@ device is present:
      the bench config's shapes (K1 hash at B 1024 with margins, timed also
      at the fit's B 8192 without; K2 coarse scores at B 1024 x 512 blocks
      of 8 rows of a real fit's tier, with the tier bytes it gathers beside
-     the distinct ones, its achieved rate and its share of the bound), with
-     timings;
+     the distinct ones, its achieved rate and its share of the bound; K2
+     again on the bf16 tiers of the bench corpus fitted with
+     coarse_dtype="bfloat16", at cs 32 and, with coarse_dim 100, cs 128),
+     with timings;
   2. bench_20k: the bench config (`bench.py`) on the bench corpus: fit, warm
      fit, query, recall@10 against exact ground truth, the kernels' launch
      counts over that main path, and agreement with the port's CPU path
@@ -46,7 +48,21 @@ device is present:
      its bound it reached;
   9. flat_8m: `FlatIndex()` at its defaults (int8, argpack) on folded_8m's
      corpus and ground truth: fit, 1,024 queries, recall, qps, bytes,
-     peak device memory.
+     peak device memory;
+ 10. options_1m (after window_1m): the 1M corpus fitted with the bench
+     config plus the forest's last three options (a bf16 coarse tier on a
+     PCA basis, the bf16 two-stage rerank), queried in block mode at
+     deploy_1m's settings (K2 on the bf16 tier) and in window mode at
+     window_1m's (K2b on it): recall against the int8 fit's in the same
+     mode, qps, build rate, bytes, peak memory, launches, a device profile,
+     agreement with the port's CPU path on the same index;
+ 11. ivf_8m (after flat_8m): `IVFFlatIndex(target_cluster=256, iters=6)` on
+     the same Deep-8M corpus and ground truth, built twice from one seed
+     (the layouts must be equal), queried at three points (nprobe 2 / win
+     128, nprobe 1 / win 64, nprobe 8 / win 64 pruned to 64 windows by a
+     64-row head tier): build and k-means seconds, recall, qps, bytes, peak
+     memory, a device profile, and K2b against its plain version on the
+     operands each point gave it.
 
 Each phase prints one JSON line. A kernel's `ms` is CUDA events around one
 call on an idle card, the wrapper's host time included; `device_ms` beside
@@ -214,45 +230,92 @@ def gather_rates(gathered: int, distinct: int, rec: dict) -> dict:
     return out
 
 
-def window_kernel_phase(big, xq, sync, median_ms) -> dict:
-    """K2b against its plain version on the window-mode query's real blocks:
-    128 queries of the 1M corpus, m_cap 65536, 64-slot windows."""
+def block_kernel_check(tier, q_low, table_i, blk_start, bs, sync, median_ms) -> dict:
+    """K2 against its plain version on one set of operands (int8 or bf16
+    tier), within the f32 summation bound, with its form, times, bound and
+    gathered and distinct bytes."""
     import torch
 
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
-    from similaritysearchbyrdf_tpu_torch.ops.kernels import timing
 
-    tier, q_low, *args, live, win = timing.window_operands(big, xq, WINDOW_M_CAP,
-                                                           QUERY_KW["probe_budget"])
-    mb = args[0].shape[1]
-    sk = K2.coarse_window_scores_kernel(tier, q_low, *args, live, win)
-    sp = K2.coarse_window_scores_plain(tier, q_low, *args, live, win)
+    b, mb = table_i.shape
+    sk = K2.coarse_block_scores_kernel(tier, q_low, table_i, blk_start, bs)
+    sp = K2.coarse_block_scores_plain(tier, q_low, table_i, blk_start, bs)
     sync()
-    check(bool(torch.equal(torch.isneginf(sk), torch.isneginf(sp))),
-          "K2b masks a different set of slots than its plain version")
-    fin = torch.isfinite(sp)
-    s_abs = K2.coarse_block_scores_plain(tier.abs(), q_low.abs(), args[0], args[1], win)
-    err = (sk - sp).abs()[fin]
-    check(bool((err <= 2 * tier.shape[2] * U32 * s_abs[fin]).all()),
-          f"K2b scores exceed the f32 bound: max err {float(err.max())}")
-    # bytes: the distinct tier rows of valid slots, the small inputs, the scores
+    s_abs = K2.coarse_block_scores_plain(tier.abs(), q_low.abs(), table_i, blk_start, bs)
+    s_err = (sk - sp).abs()
+    check(bool((s_err <= 2 * tier.shape[2] * U32 * s_abs).all()),
+          f"K2 ({tier.dtype}, cs {tier.shape[2]}) exceeds the f32 bound: max err "
+          f"{float(s_err.max())}")
     caprows, cs = tier.shape[1], tier.shape[2]
-    slot_rows = (args[0].long().clamp(0, tier.shape[0] - 1)[..., None] * caprows
-                 + args[1].long()[..., None] + torch.arange(win, device=xq.device))
+    row_bytes = cs * tier.element_size()
+    blk_rows = (table_i.long().clamp(0, tier.shape[0] - 1)[..., None] * caprows
+                + blk_start.long().clamp(0, caprows - bs)[..., None]
+                + torch.arange(bs, device=tier.device))
+    distinct = int(torch.unique(blk_rows).numel()) * row_bytes
+    out = {"shape": {"B": b, "MB": mb, "bs": bs, "L": tier.shape[0], "caprows": caprows,
+                     "cs": cs, "tier": str(tier.dtype)},
+           "form": K2.block_kernel_form(cs, bs, b, mb, tier.dtype == torch.bfloat16),
+           "max_abs_err": float(s_err.max()),
+           "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score",
+           **bound(distinct + nbytes(q_low, table_i, blk_start, sk), 2.0 * sk.numel() * cs,
+                   "bf16"),
+           **kernel_times(lambda: K2.coarse_block_scores_kernel(tier, q_low, table_i,
+                                                                blk_start, bs)),
+           "plain_ms": median_ms(lambda: K2.coarse_block_scores_plain(tier, q_low, table_i,
+                                                                      blk_start, bs))}
+    # every block is read whole: gathered bytes are B * MB * bs rows
+    out.update(gather_rates(sk.numel() * row_bytes, distinct, out))
+    return out
+
+
+def window_check(args, sync, median_ms, where: str) -> dict:
+    """K2b against its plain version on the operands a path gave it (any
+    tier type, any number of tables; a sketch is a one-table tier): within
+    the f32 bound, the same -inf slots; with its times, bound, and gathered
+    and distinct bytes."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
+
+    tier, q_low, table, blk_start, start, end, live, win = args
+    got = K2.coarse_window_scores_kernel(*args)
+    want = K2.coarse_window_scores_plain(*args)
+    sync()
+    check(bool(torch.equal(torch.isneginf(got), torch.isneginf(want))),
+          f"K2b masks a different set of slots than its plain version on {where}")
+    fin = torch.isfinite(want)
+    s_abs = K2.coarse_block_scores_plain(tier.abs(), q_low.abs(), table, blk_start, win)
+    err = (got - want).abs()[fin]
+    check(bool((err <= 2 * tier.shape[2] * U32 * s_abs[fin]).all()),
+          f"K2b on {where} exceeds the f32 bound: max err {float(err.max())}")
+    # bytes: the distinct tier rows of valid slots, the small inputs, the scores
+    l, caprows, cs = tier.shape
+    slot_rows = (table.long().clamp(0, l - 1)[..., None] * caprows
+                 + blk_start.long()[..., None] + torch.arange(win, device=tier.device))
     rows_read = int(torch.unique(slot_rows[fin]).numel())
-    k2b_bound = bound(rows_read * cs + nbytes(q_low, *args, live, sk),
-                      2 * int(fin.sum()) * cs, "bf16")
-    out = {"shape": {"B": xq.shape[0], "MB": mb, "win": win, "L": tier.shape[0],
-                     "caprows": tier.shape[1], "cs": tier.shape[2]},
+    row_bytes = cs * tier.element_size()
+    out = {"shape": {"B": q_low.shape[0], "MB": blk_start.shape[1], "win": win, "L": l,
+                     "caprows": caprows, "cs": cs, "tier": str(tier.dtype)},
            "live_window_share": float(live.float().mean()),
            "valid_slot_share": float(fin.float().mean()),
            "max_abs_err": float(err.max()),
            "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score; -inf slots equal",
-           **k2b_bound,
-           **kernel_times(lambda: K2.coarse_window_scores_kernel(tier, q_low, *args, live, win)),
-           "plain_ms": median_ms(lambda: K2.coarse_window_scores_plain(tier, q_low, *args,
-                                                                       live, win))}
-    out.update(gather_rates(int(fin.sum()) * cs, rows_read * cs, out))
+           **bound(rows_read * row_bytes + nbytes(q_low, table, blk_start, start, end, live, got),
+                   2.0 * int(fin.sum()) * cs, "bf16"),
+           **kernel_times(lambda: K2.coarse_window_scores_kernel(*args)),
+           "plain_ms": median_ms(lambda: K2.coarse_window_scores_plain(*args))}
+    out.update(gather_rates(int(fin.sum()) * row_bytes, rows_read * row_bytes, out))
+    return out
+
+
+def window_kernel_phase(big, xq, sync, median_ms) -> dict:
+    """K2b against its plain version on the window-mode query's real blocks:
+    128 queries of the 1M corpus, m_cap 65536, 64-slot windows."""
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import timing
+
+    args = timing.window_operands(big, xq, WINDOW_M_CAP, QUERY_KW["probe_budget"])
+    out = window_check(tuple(args), sync, median_ms, "window_1m")
     emit({"phase": "kernels_window", "K2b": out})
     return out
 
@@ -299,6 +362,192 @@ def window_phase(big, conf_l, ql, qids, gt, recall_block, cpu_agree, sync) -> di
             times.append(time.perf_counter() - t0)
         q_s = float(np.median(times[1:]))
         out[f"keep_{keep}"] = {"recall_at_10": rec, "qps": ql.shape[0] / q_s, "query_s": q_s}
+    emit(out)
+    return out
+
+
+def options_phase(conf, x_d, gt, recall_block, recall_window, sync, median_ms) -> dict:
+    """The forest's last three options on the 1M corpus: the bench config
+    plus a bf16 coarse tier on a PCA basis and the bf16 two-stage rerank,
+    fitted once and queried in block mode at deploy_1m's settings (K2 on
+    the bf16 tier) and in window mode at window_1m's (m_cap 65536, refine
+    1024, batch 128, unpruned; K2b on it). Each mode's recall must come
+    within RECALL_TOL of the int8 fit's in that mode, and the port's CPU
+    path must return the same ids on >= 99% of 128 queries on the same
+    index (copied to the host). K2 and K2b are held against their plain
+    versions on the operands of each mode's first kernel call."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch import DenseBatch, RDFForest
+    from similaritysearchbyrdf_tpu_torch.index import forest as F
+
+    dev = x_d.device
+    n = x_d.shape[0]
+    ids = np.arange(n, dtype=np.int32)
+    conf_o = conf.replace(coarse_dtype="bfloat16", coarse_proj_mode="pca",
+                          rerank_dtype="bfloat16")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    forest = RDFForest(conf_o, device=dev).fit(DenseBatch(ids, x_d))
+    fit_s = timed_s(lambda: forest.fit(DenseBatch(ids, x_d)), sync, 1)
+    st = forest.state
+    check(st.coarse_tier.dtype == torch.bfloat16 and st.corpus_lp is not None,
+          "the options fit made no bf16 tier or no bf16 corpus copy")
+    wf = RDFForest(conf_o.replace(query_batch_size=128, max_candidates=WINDOW_M_CAP,
+                                  coarse_refine=1024, coarse_window=-1),
+                   model=forest.model, device=dev)
+    wf.state = st
+    cpu_state = st.to("cpu")
+    q, qids = x_d[:N_QUERY], ids[:N_QUERY]
+    out = {"phase": "options_1m", "n": n, "queries": N_QUERY,
+           "config": {"coarse_dtype": "bfloat16", "coarse_proj_mode": "pca",
+                      "rerank_dtype": "bfloat16", "coarse_dim": conf.coarse_dim},
+           "build_vectors_per_sec": n / fit_s, "build_s": fit_s,
+           "index_bytes_per_vector": forest.index_bytes_per_vector(),
+           "coarse_tier_bytes_per_vector": nbytes(st.coarse_tier) / n,
+           "corpus_lp_bytes_per_vector": nbytes(st.corpus_lp) / n}
+    for mode, f, ref, kernel in (
+            ("block", forest, recall_block, "coarse_block_scores_kernel"),
+            ("window", wf, recall_window, "coarse_window_scores_kernel")):
+        f.query_device(q, query_ids=qids, **QUERY_KW)
+        with recording(F, kernel) as calls:
+            reset_launches()
+            got, sc = f.query_device(q, query_ids=qids, **QUERY_KW)
+            sync()
+            launches = read_launches()
+        check(launches[kernel] > 0 and launches["hash_dense_kernel"] > 0,
+              f"options_1m {mode} mode did not launch {kernel}: {launches}")
+        # the kernel against its plain version on the first call's operands
+        args, kw = calls[kernel][0]
+        check(not kw and args[0].dtype == torch.bfloat16,
+              f"options_1m {mode}: unexpected {kernel} call: {kw}, tier {args[0].dtype}")
+        del calls
+        if mode == "block":
+            k_check = {"K2": block_kernel_check(*args, sync, median_ms)}
+        else:
+            k_check = {"K2b": window_check(args, sync, median_ms, "options_1m window")}
+        del args
+        got = got.cpu().numpy()
+        check(got.shape == (N_QUERY, 10) and bool(torch.isfinite(sc).all()),
+              f"options_1m {mode}: wrong shape or non-finite scores")
+        rec = recall_at(gt, got)
+        check(rec >= ref - RECALL_TOL, f"options_1m {mode} mode: recall@10 {rec} is more than "
+                                       f"{RECALL_TOL} below the int8 fit's {ref}")
+        cpu = RDFForest(f.conf, model=cpu_state.model, device="cpu")
+        cpu.state = cpu_state
+        cpu_ids, _ = cpu.query(q[:128].cpu().numpy(), query_ids=qids[:128], **QUERY_KW)
+        agree = float((cpu_ids == got[:128]).all(axis=1).mean())
+        check(agree >= 0.99, f"options_1m {mode}: GPU and CPU paths agree on only {agree}")
+        q_s = timed_s(lambda: f.query_device(q, query_ids=qids, **QUERY_KW), sync, 3)
+        out[mode] = {"recall_at_10": rec, "int8_fit_recall_at_10": ref,
+                     "cpu_path_agreement_128": agree, "qps": N_QUERY / q_s, "query_s": q_s,
+                     "launches": {k: v for k, v in launches.items() if v}, **k_check,
+                     "profile": device_profile(
+                         lambda: f.query_device(q, query_ids=qids, **QUERY_KW), sync)}
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    emit(out)
+    return out
+
+
+def ivf_phase(xd, gt, sync, median_ms) -> dict:
+    """The IVF engine on the Deep-8M corpus (`scripts/bench_ivf.py`'s build:
+    target_cluster 256, iters 6, seed 0, refine 128; K = 31,250), built
+    twice from one seed (equal layouts required, the first build freed
+    before the second), k-means timed apart inside each build, then three
+    query points on the second index, K2b checked on each point's own
+    operands."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch import DenseBatch, IVFFlatIndex
+    from similaritysearchbyrdf_tpu_torch.ops import ivf as IVF
+
+    dev = xd.device
+    n, d = xd.shape
+    nq = 1024
+    ids = np.arange(n, dtype=np.int32)
+    kmeans_s = []
+    kmeans = IVF.kmeans
+
+    def timed_kmeans(*args, **kw):
+        sync()
+        t0 = time.perf_counter()
+        res = kmeans(*args, **kw)
+        sync()
+        kmeans_s.append(time.perf_counter() - t0)
+        return res
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    build_s, layouts = [], []
+    IVF.kmeans = timed_kmeans
+    try:
+        for _ in range(2):
+            layouts.clear()
+            idx = IVFFlatIndex(target_cluster=256, iters=6, seed=0, refine=128, device=dev)
+            sync()
+            t0 = time.perf_counter()
+            idx.fit(DenseBatch(ids, xd))
+            sync()
+            build_s.append(time.perf_counter() - t0)
+            layouts.append({f: getattr(idx.state, f).clone()
+                            for f in ("starts", "ends", "row_ids", "centroids")})
+            if len(build_s) == 1:
+                first = layouts[0]
+                del idx
+                torch.cuda.empty_cache()
+    finally:
+        IVF.kmeans = kmeans
+    same = {f: bool(torch.equal(first[f], layouts[0][f])) for f in first}
+    check(all(same.values()), f"two IVF builds from one seed lay out differently: {same}")
+    del first, layouts
+    build_peak = torch.cuda.max_memory_allocated(dev)
+    st = idx.state
+    kc = st.centroids.shape[0]
+    out = {"phase": "ivf_8m", "n": n, "dim": d, "queries": nq, "k_clusters": kc,
+           "config": {"target_cluster": 256, "iters": 6, "seed": 0, "refine": 128,
+                      "query_batch": 1024},
+           "build_s": build_s, "kmeans_s": kmeans_s, "same_layout_twice": same,
+           "build_vectors_per_sec": n / build_s[-1],
+           "bytes_per_vector": {f: nbytes(getattr(st, f)) / n
+                                for f in ("sketch", "corpus", "row_ids", "centroids")},
+           "build_max_memory_allocated": build_peak, "points": {}}
+    qd, qids = xd[:nq], ids[:nq]
+    points = (("headline", dict(nprobe=2, win=128), 1.0),
+              ("smallest_probe", dict(nprobe=1, win=64), 0.9998),
+              ("two_phase", dict(nprobe=8, win=64, head_pool=64, keep=64), None))
+    torch.cuda.reset_peak_memory_stats(dev)
+    for name, p, tpu_recall in points:
+        idx.nprobe, idx.win = p["nprobe"], p["win"]
+        idx.head_pool, idx.keep = p.get("head_pool", 0), p.get("keep", 0)
+        idx.state = idx.state._replace(heads=None)
+        idx.ensure_heads()
+        wb = IVF.ivf_window_budget(st.starts, st.ends, idx.nprobe, idx.win)
+        idx.query_device(qd, k=10, query_ids=qids)
+        with recording(IVF, "coarse_window_scores_kernel") as calls:
+            reset_launches()
+            got, sc = idx.query_device(qd, k=10, query_ids=qids)
+            sync()
+            launches = read_launches()
+        check(launches["coarse_window_scores_kernel"] > 0,
+              f"ivf_8m {name} did not launch K2b: {launches}")
+        got = got.cpu().numpy()
+        check(got.shape == (nq, 10) and bool(torch.isfinite(sc).all()),
+              f"ivf_8m {name}: wrong shape or non-finite scores")
+        rec = recall_at(gt, got)
+        if name == "headline":
+            check(rec >= FLAT8M_RECALL_MIN,
+                  f"ivf_8m headline recall@10 {rec} is below {FLAT8M_RECALL_MIN}")
+        q_s = timed_s(lambda: idx.query_device(qd, k=10, query_ids=qids), sync, 3)
+        args, kw = calls["coarse_window_scores_kernel"][0]
+        check(not kw, f"unexpected K2b call on the IVF path: {kw}")
+        out["points"][name] = {
+            **p, "wb": wb, "recall_at_10": rec, "tpu_v5e_recall_at_10": tpu_recall,
+            "qps": nq / q_s, "query_s": q_s,
+            "launches": {k: v for k, v in launches.items() if v},
+            "profile": device_profile(lambda: idx.query_device(qd, k=10, query_ids=qids), sync),
+            "K2b": window_check(args, sync, median_ms, f"ivf_8m {name}")}
+        del calls, args
+    out["query_max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
     emit(out)
     return out
 
@@ -489,7 +738,6 @@ def flat_20k_kernels(calls, sync, median_ms) -> dict:
     same -inf slots)."""
     import torch
 
-    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
     from similaritysearchbyrdf_tpu_torch.ops.kernels import flat_groupmax as K4
 
     check(len(calls["flat_groupmax_kernel"]) == 1
@@ -529,30 +777,7 @@ def flat_20k_kernels(calls, sync, median_ms) -> dict:
 
     args, kw2 = calls["coarse_window_scores_kernel"][0]
     check(not kw2, f"unexpected K2b call on the path: {kw2}")
-    tier, q_low, table, blk_start, start, end, live, win = args
-    got = K2.coarse_window_scores_kernel(*args)
-    want = K2.coarse_window_scores_plain(*args)
-    sync()
-    check(bool(torch.equal(torch.isneginf(got), torch.isneginf(want))),
-          "K2b masks a different set of slots than its plain version on flat_20k")
-    fin = torch.isfinite(want)
-    s_abs = K2.coarse_block_scores_plain(tier.abs(), q_low.abs(), table, blk_start, win)
-    err = (got - want).abs()[fin]
-    check(bool((err <= 2 * tier.shape[2] * U32 * s_abs[fin]).all()),
-          f"K2b on flat_20k exceeds the f32 bound: max err {float(err.max())}")
-    pos = blk_start.long()[..., None] + torch.arange(win, device=tier.device)
-    rows_read = int(torch.unique(pos[fin]).numel())
-    row_bytes = tier.shape[2] * tier.element_size()
-    out["K2b"] = {"shape": {"B": q_low.shape[0], "MB": blk_start.shape[1], "win": win,
-                            "cs": tier.shape[2], "tier": str(tier.dtype)},
-                  "valid_slot_share": float(fin.float().mean()),
-                  "max_abs_err": float(err.max()),
-                  **bound(rows_read * row_bytes
-                          + nbytes(q_low, table, blk_start, start, end, live, got),
-                          2.0 * int(fin.sum()) * tier.shape[2], "bf16"),
-                  **kernel_times(lambda: K2.coarse_window_scores_kernel(*args)),
-                  "plain_ms": median_ms(lambda: K2.coarse_window_scores_plain(*args))}
-    out["K2b"].update(gather_rates(int(fin.sum()) * row_bytes, rows_read * row_bytes, out["K2b"]))
+    out["K2b"] = window_check(args, sync, median_ms, "flat_20k")
     out["tolerance"] = ("K4 int8: bit for bit; K4 bf16 and K2b: |err| <= "
                         "2*D*2^-24*sum|s*q| per value, K2b's -inf slots equal")
     return out
@@ -818,34 +1043,16 @@ def main() -> int:
     k1_fit_plain_ms = median_ms(lambda: K1.hash_dense_plain(xf, model.proj, model.perm))
 
     # K2 on the real query path's blocks (B 1024, MB 512, bs 8) and tier
-    tier, q_low, table_i, blk_start, bs = timing.block_operands(forest, xb)
-    mb = table_i.shape[1]
-    sk = K2.coarse_block_scores_kernel(tier, q_low, table_i, blk_start, bs)
-    sp = K2.coarse_block_scores_plain(tier, q_low, table_i, blk_start, bs)
-    sync()
-    s_abs = K2.coarse_block_scores_plain(tier.abs(), q_low.abs(), table_i, blk_start, bs)
-    s_err = (sk - sp).abs()
-    s_bound = 2 * tier.shape[2] * U32 * s_abs
-    check(bool((s_err <= s_bound).all()), f"K2 scores exceed the f32 bound: max err "
-                                          f"{float(s_err.max())}")
-    caprows = tier.shape[1]
-    blk_rows = (table_i.long().clamp(0, tier.shape[0] - 1)[..., None] * caprows
-                + blk_start.long().clamp(0, caprows - bs)[..., None]
-                + torch.arange(bs, device=dev))
-    distinct = int(torch.unique(blk_rows).numel()) * tier.shape[2]
-    k2 = {"shape": {"B": 1024, "MB": mb, "bs": bs, "L": tier.shape[0],
-                    "caprows": tier.shape[1], "cs": tier.shape[2]},
-          "form": K2.block_kernel_form(tier.shape[2], bs, 1024, mb),
-          "max_abs_err": float(s_err.max()),
-          "tolerance": "|err| <= 2*cs*2^-24*sum_c|tier*q| per score",
-          **bound(distinct + nbytes(q_low, table_i, blk_start, sk),
-                  2.0 * sk.numel() * tier.shape[2], "bf16"),
-          **kernel_times(lambda: K2.coarse_block_scores_kernel(tier, q_low, table_i,
-                                                               blk_start, bs)),
-          "plain_ms": median_ms(lambda: K2.coarse_block_scores_plain(tier, q_low, table_i,
-                                                                     blk_start, bs))}
-    # every block is read whole: gathered bytes are B * MB * bs rows of cs
-    k2.update(gather_rates(sk.numel() * tier.shape[2], distinct, k2))
+    k2 = block_kernel_check(*timing.block_operands(forest, xb), sync, median_ms)
+    # K2 on bf16 tiers: the bench corpus fitted with coarse_dtype="bfloat16"
+    # (cs 32), and with coarse_dim 100 as well (the identity basis, cs 128)
+    k2_bf16 = {}
+    for name, kw in (("cs32", {}), ("cs128", dict(coarse_dim=100))):
+        fb = RDFForest(conf.replace(coarse_dtype="bfloat16", **kw), device=dev).fit(
+            DenseBatch(ids, xd))
+        check(fb.state.coarse_tier.dtype == torch.bfloat16, "the bf16 fit made no bf16 tier")
+        k2_bf16[name] = block_kernel_check(*timing.block_operands(fb, xb), sync, median_ms)
+        del fb
     emit({"phase": "kernels", "build_s": build_s,
           "K1": {"shape": {"B": 1024, "D": 100, "T": 10, "P": 3, "C": 32},
                  "far_mismatch_words": far_mismatch, "near_zero_bit_flips": near_flips,
@@ -853,7 +1060,7 @@ def main() -> int:
                  **k1_t, "plain_ms": k1_plain_ms,
                  "fit_shape_B": xf.shape[0], "fit_ms": k1_fit["ms"],
                  "fit_device_ms": k1_fit["device_ms"], "fit_plain_ms": k1_fit_plain_ms},
-          "K2": k2})
+          "K2": k2, "K2_bf16_tier": k2_bf16})
 
     # ---- phase 2: the bench config, end to end ------------------------------
     gt, _ = exact_search(x, x[:N_QUERY], 10, exclude_self=True, device=dev)
@@ -955,7 +1162,11 @@ def main() -> int:
     # ---- phases 4 and 5: window mode on the 1M forest -----------------------
     k2b = window_kernel_phase(big, xl_d[:128].contiguous(), sync, median_ms)
     win = window_phase(big, conf_l, ql, ids_l[:N_QUERY], gt_l, recall_l, win_cpu_agree, sync)
-    del big, st, xl, xl_d, ql
+    del big, st, xl, ql
+
+    # ---- phase 10: the forest's last three options on the same 1M corpus -----
+    options_phase(conf, xl_d, gt_l, recall_l, win["keep_0"]["recall_at_10"], sync, median_ms)
+    del xl_d
     torch.cuda.empty_cache()
 
     # ---- phase 6: the folded tier on an 8M corpus ----------------------------
@@ -964,6 +1175,10 @@ def main() -> int:
 
     # ---- phases 8 and 9: the flat engine on the same 8M corpus ---------------
     k4, launches_flat = flat_8m_phase(x8, gt8, dev, sync, median_ms)
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: the IVF engine on the same 8M corpus ----------------------
+    ivf_phase(x8, gt8, sync, median_ms)
     del x8
     k4p = k4["int8_packed"]
     lib = {"library_ms": None}     # no single PyTorch call computes any of these functions

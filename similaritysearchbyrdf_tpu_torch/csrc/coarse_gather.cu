@@ -7,12 +7,13 @@
 // skipped; see `coarse_window_scores_kernel` below for what K2b adds).
 // For every (query b, block m) K2 reads `bs` contiguous rows of
 // table t = clip(table[b, m], 0, L-1) starting at s = clip(start[b, m], 0,
-// caprows-bs) of the per-table int8 tier [L, caprows, cs], and writes
+// caprows-bs) of the per-table int8 or bf16 tier [L, caprows, cs], and
+// writes
 //   out[b, m, j] = sum_c float(tier[t, s+j, c]) * float(q[b, c])
 // with f32 accumulation: the numerics of the XLA scoring path
-// (index/forest.py `_coarse_block_scores`, int8 rows times a bf16 query).
-// Every int8 x bf16 product is exact in f32; only the summation order
-// differs from the reference.
+// (index/forest.py `_coarse_block_scores`, int8 or bf16 rows times a bf16
+// query). Every int8 x bf16 and bf16 x bf16 product is exact in f32; only
+// the summation order differs from the reference.
 //
 // Generic design (every shape but the two main paths', which take kernels
 // of their own below): one warp per (query, block), looping grid-stride over
@@ -126,9 +127,9 @@ __device__ __forceinline__ float row_dot(const TierT* row, const float* qv,
   return acc;
 }
 
-template <int LPR, int CPL>  // lanes per tier row, chunks per lane
+template <int LPR, int CPL, typename TierT>  // lanes per tier row, chunks per lane
 __global__ void __launch_bounds__(kThreads)
-coarse_block_scores_kernel(const int8_t* __restrict__ tier,
+coarse_block_scores_kernel(const TierT* __restrict__ tier,
                            const __nv_bfloat16* __restrict__ q,
                            const int* __restrict__ table,
                            const int* __restrict__ start, float* __restrict__ out,
@@ -148,7 +149,7 @@ coarse_block_scores_kernel(const int8_t* __restrict__ tier,
     load_query<LPR, CPL>(qrow, chunk, cpr, qv);
     const int t = min(max(table[i], 0), L - 1);
     const int s = min(max(start[i], 0), caprows - bs);
-    const int8_t* blk = tier + ((size_t)t * caprows + s) * cs;
+    const TierT* blk = tier + ((size_t)t * caprows + s) * cs;
     float* o = out + i * bs;
     for (int r0 = 0; r0 < bs; r0 += kRowsPerPass) {
       const int r = r0 + row_in_pass;
@@ -527,11 +528,20 @@ int grid_for(long long n_items) {
 
 template <int LPR, int CPL>
 int launch(const void* tier, const void* q, const void* table, const void* start,
-           void* out, int L, int caprows, int cs, int B, int MB, int bs, cudaStream_t stream) {
-  coarse_block_scores_kernel<LPR, CPL><<<grid_for((long long)B * MB), kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(tier), static_cast<const __nv_bfloat16*>(q),
-      static_cast<const int*>(table), static_cast<const int*>(start),
-      static_cast<float*>(out), L, caprows, cs, B, MB, bs);
+           void* out, int L, int caprows, int cs, int B, int MB, int bs, int tier_bf16,
+           cudaStream_t stream) {
+  const int grid = grid_for((long long)B * MB);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* ti = static_cast<const int*>(table);
+  const auto* si = static_cast<const int*>(start);
+  auto* o = static_cast<float*>(out);
+  if (tier_bf16) {
+    coarse_block_scores_kernel<LPR, CPL, __nv_bfloat16><<<grid, kThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(tier), qb, ti, si, o, L, caprows, cs, B, MB, bs);
+  } else {
+    coarse_block_scores_kernel<LPR, CPL, int8_t><<<grid, kThreads, 0, stream>>>(
+        static_cast<const int8_t*>(tier), qb, ti, si, o, L, caprows, cs, B, MB, bs);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -635,27 +645,32 @@ int launch_block_b8(const void* tier, const void* q, const void* table, const vo
 }  // namespace
 
 // Which kernel K2 takes for a shape: 1, the specialised kernel, for the
-// block-mode main shape (32 columns, 8-slot blocks, a block count that fits
-// an int); 0, the generic kernel, for every other shape.
-extern "C" int rdf_coarse_block_form(int cs, int bs, int B, int MB) {
-  return cs == Blk8::kCs && bs == Blk8::kBs && (long long)B * MB < (1LL << 31) - Blk8::kStep;
+// block-mode main shape (an int8 tier of 32 columns, 8-slot blocks, a block
+// count that fits an int); 0, the generic kernel, for every other shape and
+// for every bf16 tier.
+extern "C" int rdf_coarse_block_form(int cs, int bs, int B, int MB, int tier_bf16) {
+  return !tier_bf16 && cs == Blk8::kCs && bs == Blk8::kBs &&
+         (long long)B * MB < (1LL << 31) - Blk8::kStep;
 }
 
-// tier i8[L, caprows, cs], q bf16[B, cs], table and start i32[B, MB] (all
-// contiguous, 16-byte aligned); out f32[B, MB, bs]. cs is a multiple of 8
-// and caprows >= bs. Launches on `stream`; returns the
-// cudaError_t of the launch (cudaErrorInvalidValue for an unsupported cs).
+// tier i8[L, caprows, cs] (bf16 with tier_bf16 = 1), q bf16[B, cs], table
+// and start i32[B, MB] (all contiguous, 16-byte aligned); out f32[B, MB,
+// bs]. cs is a multiple of 8 and caprows >= bs. Launches on `stream`;
+// returns the cudaError_t of the launch (cudaErrorInvalidValue for an
+// unsupported cs). A bf16 tier takes the generic kernel, a chunk of 8
+// columns being one 16-byte load per lane; every bf16 x bf16 product is
+// exact in f32, as the int8 ones are.
 extern "C" int rdf_coarse_block_scores(const void* tier, const void* q,
                                        const void* table, const void* start,
                                        void* out, int L, int caprows, int cs,
-                                       int B, int MB, int bs, void* stream) {
+                                       int B, int MB, int bs, int tier_bf16, void* stream) {
   if ((long long)B * MB == 0) return 0;
   if (cs <= 0 || cs % 8) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (rdf_coarse_block_form(cs, bs, B, MB))
+  if (rdf_coarse_block_form(cs, bs, B, MB, tier_bf16))
     return launch_block_b8(tier, q, table, start, out, L, caprows, B * MB, MB, st);
 #define RDF_BLOCK(LPR, CPL) \
-  launch<LPR, CPL>(tier, q, table, start, out, L, caprows, cs, B, MB, bs, st)
+  launch<LPR, CPL>(tier, q, table, start, out, L, caprows, cs, B, MB, bs, tier_bf16, st)
   RDF_BY_WIDTH(cs, RDF_BLOCK)
 #undef RDF_BLOCK
 }

@@ -4,12 +4,16 @@ Counterpart of `similaritysearchbyrdf_tpu/index/forest.py`:
 
 fit   hash the corpus (K1) → partition-hash → composite keys → per-table
       stable sort → overflow-rule leaf buckets; with `coarse_dim`, an int8
-      coarse tier of every corpus row per table in bucket-sorted order (and,
-      with `coarse_head_pool`, its mean-pooled head tier).
+      or bf16 (`coarse_dtype`) coarse tier of every corpus row per table in
+      bucket-sorted order, on a random or PCA basis (`coarse_proj_mode`)
+      (and, with `coarse_head_pool`, its mean-pooled head tier); with
+      `rerank_dtype="bfloat16"`, a bf16 copy of the corpus for the
+      two-stage rerank.
 query hash with margins (K1) → probe keys (partition steps x bit flips) →
       bucket lookup → range dedup with step-distance priority → ragged
       flatten, then one of three coarse paths and an exact f32 rerank with
-      deduplicated top-k:
+      deduplicated top-k (two-stage over the bf16 copy when the fit made
+      one):
       * block mode (m_cap < 32768): blocks of 8 slots → coarse block scores
         (K2) → top-m2 select;
       * window mode (m_cap >= 32768, `coarse_window`): aligned 64-slot
@@ -21,8 +25,7 @@ query hash with margins (K1) → probe keys (partition steps x bit flips) →
         max → group select, optional id dedup (`select_mult`) or staged
         int8 rerank (`stage2`).
 
-Not ported yet: the PCA coarse basis, a bf16 coarse tier, the bf16
-two-stage rerank (`rerank_dtype="bfloat16"`), sparse corpora.
+Not ported yet: sparse corpora.
 """
 
 from __future__ import annotations
@@ -57,10 +60,12 @@ class ForestState:
     tables: BucketTables
     corpus: torch.Tensor                    # f32[Npad, D] (padding rows 0)
     row_ids: torch.Tensor                   # i32[Npad] user ids (padding -1)
+    # bf16 copy of `corpus` for the two-stage rerank (rerank_dtype="bfloat16")
+    corpus_lp: Optional[torch.Tensor] = None      # bf16[Npad, D]
     coarse_proj: Optional[torch.Tensor] = None    # f32[D, cs]
     # per-table coarse rows in bucket-sorted order, so a query block's rows
     # are contiguous (padding rows 0)
-    coarse_tier: Optional[torch.Tensor] = None    # i8[L, Npad+ID_PAD, cs]
+    coarse_tier: Optional[torch.Tensor] = None    # i8 or bf16[L, Npad+ID_PAD, cs]
     # mean-pooled head tier for window pruning (`coarse_head_pool` rows per
     # head row, lane layout only)
     coarse_head: Optional[torch.Tensor] = None    # bf16[L, ceil(caprows/hp), cs]
@@ -87,6 +92,19 @@ class ForestState:
     @property
     def device(self) -> torch.device:
         return self.corpus.device
+
+    def to(self, device: Device) -> "ForestState":
+        """This state with every tensor, its model's and tables' too, on
+        `device`."""
+        def move(v):
+            if isinstance(v, torch.Tensor):
+                return v.to(device)
+            if dataclasses.is_dataclass(v):
+                return dataclasses.replace(v, **{f.name: move(getattr(v, f.name))
+                                                 for f in dataclasses.fields(v)})
+            return v
+
+        return move(self)
 
 
 # ---------------------------------------------------------------------------
@@ -128,20 +146,45 @@ def coarse_fold_factor(cs: int) -> int:
     return max(1, 128 // cs)
 
 
-def _coarse_projection(d: int, cd: int, seed: int, mode: str = "random") -> np.ndarray:
-    """[d, cd] orthonormal projection: seed-deterministic QR of a Gaussian,
-    the same numpy draw as the JAX package."""
+_PCA_SAMPLE = 131072      # rows of the strided sample the PCA basis is taken from
+
+
+def _coarse_projection(corpus: torch.Tensor, cd: int, seed: int,
+                       mode: str = "random") -> np.ndarray:
+    """[D, cd] orthonormal projection of the row-padded corpus f32[Npad, D].
+    "random": seed-deterministic QR of a Gaussian, the same numpy draw as
+    the JAX package. "pca": the top-cd eigenvectors of the uncentered
+    second moment of a strided sample of at most 128k rows (the same rows
+    as the JAX package's, which pads rows alike), formed in full f32 on the
+    corpus's device and decomposed in float64 on the host; eigenvalues
+    descending, and each column's sign set so that its largest-magnitude
+    entry is positive (`eigh`'s sign is arbitrary). Uncentered, because
+    search scores are inner products."""
+    d = corpus.shape[1]
+    if mode == "pca":
+        stride = max(1, corpus.shape[0] // _PCA_SAMPLE)
+        xs = corpus[::stride]
+        with full_f32():
+            mom = (xs.T @ xs).cpu().numpy()
+        w, v = np.linalg.eigh(mom.astype(np.float64))
+        proj = v[:, np.argsort(-w)[:cd]].astype(np.float32)
+        flip = np.sign(proj[np.argmax(np.abs(proj), axis=0), np.arange(cd)])
+        return (proj * np.where(flip == 0, 1.0, flip)[None, :]).astype(np.float32)
     if mode != "random":
-        raise NotImplementedError(f"coarse_proj_mode={mode!r} is not ported yet")
+        raise ValueError(f"unknown coarse_proj_mode {mode!r}")
     rng = np.random.default_rng(seed ^ 0x5EED)
     return np.linalg.qr(rng.normal(size=(d, d)))[0][:, :cd].astype(np.float32)
 
 
-def _coarse_low(corpus: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
-    """Project and quantize the corpus once, with one global scale:
-    [Npad, D] → i8[Npad, cs]. Rounding is half-to-even, as in the reference."""
+def _coarse_low(corpus: torch.Tensor, proj: torch.Tensor, store_int8: bool = True
+                ) -> torch.Tensor:
+    """Project the corpus once: [Npad, D] → i8[Npad, cs] quantized with one
+    global scale, rounding half to even as in the reference, or the
+    projection itself rounded to bf16 (no scale)."""
     with full_f32():
         low = corpus @ proj
+    if not store_int8:
+        return low.to(torch.bfloat16)
     scale = 127.0 / torch.clamp(low.abs().max(), min=1e-20)
     return torch.clamp(torch.round(low * scale), -127, 127).to(torch.int8)
 
@@ -149,19 +192,19 @@ def _coarse_low(corpus: torch.Tensor, proj: torch.Tensor) -> torch.Tensor:
 def _build_coarse_tier(corpus: torch.Tensor, sorted_ids: torch.Tensor, coarse_dim: int,
                        coarse_dtype: str, seed: int, proj_mode: str = "random"
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(coarse_proj f32[D, cs], tier i8[L, caprows, cs]): every table's
-    coarse rows in its bucket-sorted order, so a query block's rows are one
-    contiguous slice. The tier is stored per table; the JAX package packs
-    G = 128/cs tables per 128-lane row, a TPU DMA workaround."""
-    if coarse_dtype != "int8":
-        raise NotImplementedError(f"coarse_dtype={coarse_dtype!r} is not ported yet")
+    """(coarse_proj f32[D, cs], tier [L, caprows, cs], int8 for
+    coarse_dtype "int8", else bf16): every table's coarse rows in its
+    bucket-sorted order, so a query block's rows are one contiguous slice.
+    The tier is stored per table; the JAX package packs G = 128/cs tables
+    per 128-lane row, a TPU DMA workaround."""
     d = corpus.shape[1]
     cd = min(coarse_dim, d)
-    proj = np.eye(d, dtype=np.float32) if cd == d else _coarse_projection(d, cd, seed, proj_mode)
+    proj = (np.eye(d, dtype=np.float32) if cd == d
+            else _coarse_projection(corpus, cd, seed, proj_mode))
     cs = coarse_seg_width(cd)
     proj = np.pad(proj, ((0, 0), (0, cs - proj.shape[1])))
     coarse_proj = torch.as_tensor(proj, device=corpus.device)
-    low = _coarse_low(corpus, coarse_proj)                      # [Npad, cs]
+    low = _coarse_low(corpus, coarse_proj, coarse_dtype == "int8")   # [Npad, cs]
     tier = low[sorted_ids.clamp(min=0).to(torch.int64)]         # [L, caprows, cs]
     tier.masked_fill_((sorted_ids < 0)[..., None], 0)
     return coarse_proj, tier
@@ -170,9 +213,10 @@ def _build_coarse_tier(corpus: torch.Tensor, sorted_ids: torch.Tensor, coarse_di
 def build_head_tier(tier: torch.Tensor, sorted_ids: torch.Tensor, hp: int) -> torch.Tensor:
     """Head tier bf16[L, ceil(caprows/hp), cs] for window pruning: row r of
     table t is the mean of the table's live coarse rows [r*hp, (r+1)*hp),
-    summed in f32 (exact for int8) and divided by the live count, as the JAX
-    package's `build_head_tier` does per lane segment. Built a table at a
-    time, so the f32 sums never hold more than one table."""
+    summed in f32 (exact for int8; for a bf16 tier the sum rounds, in
+    another order than the JAX package's) and divided by the live count, as
+    the JAX package's `build_head_tier` does per lane segment. Built a table
+    at a time, so the f32 sums never hold more than one table."""
     l, caprows, cs = tier.shape
     hr = -(-caprows // hp)
     pad = hr * hp - caprows
@@ -197,8 +241,6 @@ def fit_dense(conf: RDFConfig, batch: DenseBatch, model: Optional[HashModel] = N
     if conf.coarse_dim and conf.coarse_layout == "folded" and conf.coarse_dtype != "int8":
         raise ValueError("coarse_layout='folded' requires coarse_dtype='int8' (the groupmax "
                          "kernel packs integer scores)")
-    if conf.rerank_dtype != "float32":
-        raise NotImplementedError(f"rerank_dtype={conf.rerank_dtype!r} is not ported yet")
     if isinstance(batch.values, torch.Tensor) and device is None:
         device = batch.values.device
     device = resolve_device(device)
@@ -229,10 +271,11 @@ def fit_dense(conf: RDFConfig, batch: DenseBatch, model: Optional[HashModel] = N
         if conf.coarse_layout == "lane" and conf.coarse_head_pool:
             coarse_head = build_head_tier(coarse_tier, tables.sorted_ids,
                                           conf.coarse_head_pool)
+    corpus_lp = values.to(torch.bfloat16) if conf.rerank_dtype == "bfloat16" else None
     return ForestState(
         model=model, part_proj=part_proj, tables=tables, corpus=values, row_ids=row_ids,
-        coarse_proj=coarse_proj, coarse_tier=coarse_tier, coarse_head=coarse_head,
-        coarse_layout=conf.coarse_layout,
+        corpus_lp=corpus_lp, coarse_proj=coarse_proj, coarse_tier=coarse_tier,
+        coarse_head=coarse_head, coarse_layout=conf.coarse_layout,
     )
 
 
@@ -522,11 +565,18 @@ def _to_user_ids(state: ForestState, rows: torch.Tensor) -> torch.Tensor:
 
 def _rerank(state: ForestState, cand2: torch.Tensor, queries: torch.Tensor,
             query_ids: torch.Tensor, exclude_self: bool, k: int):
-    """Exact f32 rerank of the selected candidate rows → user ids, scores."""
+    """Exact f32 rerank of the selected candidate rows → user ids, scores;
+    with a bf16 corpus copy, its two-stage form over the best 256 bf16
+    prescores (the JAX package's refine at both coarse paths)."""
     if exclude_self:
         cand2 = _exclude_self(cand2, state.row_ids, query_ids)
-    rows, sc = rerank_ops.dedup_topk(
-        cand2, rerank_ops.score_candidates(state.corpus, cand2, queries), k)
+    if state.corpus_lp is not None:
+        rows, sc = rerank_ops.rerank_dense_two_stage(
+            state.corpus_lp, state.corpus, cand2, queries, k,
+            dup_bound=state.tables.num_tables, refine=256)
+    else:
+        rows, sc = rerank_ops.dedup_topk(
+            cand2, rerank_ops.score_candidates(state.corpus, cand2, queries), k)
     return _to_user_ids(state, rows), sc
 
 
@@ -850,8 +900,12 @@ def _query_dense(state: ForestState, queries: torch.Tensor, query_ids: torch.Ten
                                     multiprobe, probes, probe_valid)
     if exclude_self:
         cand = _exclude_self(cand, state.row_ids, query_ids)
-    rows, scores = rerank_ops.rerank_dense(state.corpus, cand, queries, k,
-                                           dup_bound=h.shape[1])
+    if state.corpus_lp is not None:
+        rows, scores = rerank_ops.rerank_dense_two_stage(state.corpus_lp, state.corpus, cand,
+                                                         queries, k, dup_bound=h.shape[1])
+    else:
+        rows, scores = rerank_ops.rerank_dense(state.corpus, cand, queries, k,
+                                               dup_bound=h.shape[1])
     return _to_user_ids(state, rows), scores, total
 
 

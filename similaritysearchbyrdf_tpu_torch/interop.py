@@ -5,10 +5,11 @@ arrays, keyed by their attribute paths (`"model.proj"`,
 `"tables.sorted_keys"`, ...), so that both packages can query the identical
 index. Layout changes on the way:
   * uint32 keys become the port's order-preserving int32 keys;
-  * the corpus loses its 128-lane column padding;
-  * the lane-packed coarse tier [Lg, caprows, G*cs] (G tables per row) and
-    its head tier [Lg, hr, G*cs] are unpacked per table: table t is group
-    t // G, lanes [(t % G)*cs, (t % G + 1)*cs);
+  * the corpus and its bf16 copy `corpus_lp` (two-stage rerank) lose
+    their 128-lane column padding;
+  * the lane-packed coarse tier [Lg, caprows, G*cs] (G tables per row; int8
+    or bf16) and its head tier [Lg, hr, G*cs] are unpacked per table: table
+    t is group t // G, lanes [(t % G)*cs, (t % G + 1)*cs);
   * the slot-folded tier [L, caprows/fold, fold*cs] is reshaped back to the
     per-table tier [L, caprows, cs] (exact: folding is a row-major
     reshape), of which the port's folded tier is a view.
@@ -16,7 +17,12 @@ index. Layout changes on the way:
 `from_jax_flat` does the same for the JAX package's `FlatIndex`: its sketch
 loses the 128-lane padding down to the port's multiple of 32 columns, its
 exact tier the padding down to the true width, and its strided second
-sketch copy (`sketch_gmax`, a TPU tactic) is not read.
+sketch copy (`sketch_gmax`, a TPU tactic) is not read. `from_jax_ivf`
+carries the JAX package's `IVFState` over the same way.
+
+numpy has no bf16 type: a bf16 array may come as the JAX package's own
+(`ml_dtypes`) bf16 or widened to f32 by the caller. Either widens to f32
+exactly and narrows back to the same bf16 values.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from .index.forest import ForestState
 from .models.families import Device, HashModel, resolve_device
 from .ops.bitops import to_key
 from .ops.flat import FlatIndex
+from .ops.ivf import IVFFlatIndex, IVFState
 
 FIELDS = (
     "model.proj", "model.perm", "model.b", "model.sampling_perm", "part_proj",
@@ -39,8 +46,15 @@ FIELDS = (
     "tables.bucket_starts", "tables.bucket_shifts", "corpus", "row_ids",
 )
 # forests with a coarse tier: coarse_proj and one of coarse_by_table (lane
-# layout, with coarse_head when `coarse_head_pool` was set) or coarse_folded
-OPTIONAL_FIELDS = ("coarse_proj", "coarse_by_table", "coarse_head", "coarse_folded")
+# layout, with coarse_head when `coarse_head_pool` was set) or coarse_folded;
+# forests fitted with rerank_dtype="bfloat16": corpus_lp
+OPTIONAL_FIELDS = ("coarse_proj", "coarse_by_table", "coarse_head", "coarse_folded",
+                   "corpus_lp")
+
+
+def _bf16(a: np.ndarray, device) -> torch.Tensor:
+    """A bf16 tensor of the bf16 values in `a` (bf16, or widened to f32)."""
+    return torch.as_tensor(np.asarray(a, dtype=np.float32), device=device).to(torch.bfloat16)
 
 
 def unpack_lane_tier(packed: np.ndarray, num_tables: int, cs: int) -> np.ndarray:
@@ -54,16 +68,10 @@ def from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
                    device: Device = None) -> ForestState:
     """The port's `ForestState` from the JAX package's state arrays (see
     `FIELDS`; `OPTIONAL_FIELDS` may be absent), on `device` (default: the
-    first CUDA card). Raises NotImplementedError for a bf16-rerank state."""
+    first CUDA card). A state with `corpus_lp` reranks in two stages, as
+    the JAX package's does, whatever `conf.rerank_dtype` says: that option
+    acts at the fit."""
     device = resolve_device(device)
-    # the bf16 two-stage rerank reads `corpus_lp`, which the port does not
-    # carry yet: taking such a state would rerank it in f32 without a word
-    if conf.rerank_dtype != "float32" or arrays.get("corpus_lp") is not None:
-        raise NotImplementedError(
-            "from_jax_state: a bf16-rerank state (rerank_dtype="
-            f"{conf.rerank_dtype!r}, corpus_lp present: {arrays.get('corpus_lp') is not None}) "
-            "needs the bf16 two-stage rerank, which the port does not have yet "
-            "(ROADMAP.md Queue 1 item 2)")
     missing = [f for f in FIELDS if f not in arrays]
     if missing:
         raise KeyError(f"from_jax_state: missing arrays {missing}")
@@ -96,23 +104,25 @@ def from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
     if arrays.get("coarse_by_table") is not None:
         coarse_proj = t("coarse_proj", torch.float32)
         cs = coarse_proj.shape[1]
-        tier = torch.as_tensor(
-            unpack_lane_tier(np.asarray(arrays["coarse_by_table"]), l, cs), device=device)
+        packed = np.asarray(arrays["coarse_by_table"])
+        tier = unpack_lane_tier(packed, l, cs)
+        tier = (torch.as_tensor(tier, device=device) if packed.dtype == np.int8
+                else _bf16(tier, device))
         if arrays.get("coarse_head") is not None:
-            # bf16 values widen to f32 exactly, and narrow back exactly
-            packed = np.asarray(arrays["coarse_head"], dtype=np.float32)
-            head = torch.as_tensor(unpack_lane_tier(packed, l, cs), device=device)
-            head = head.to(torch.bfloat16)
+            head = _bf16(unpack_lane_tier(np.asarray(arrays["coarse_head"]), l, cs), device)
     elif arrays.get("coarse_folded") is not None:
         coarse_proj = t("coarse_proj", torch.float32)
         folded = np.array(arrays["coarse_folded"])
         tier = torch.as_tensor(folded.reshape(l, -1, coarse_proj.shape[1]), device=device)
         layout = "folded"
+    corpus_lp = None
+    if arrays.get("corpus_lp") is not None:
+        corpus_lp = _bf16(np.asarray(arrays["corpus_lp"])[:, :conf.vector_dim], device)
     return ForestState(
         model=model, part_proj=t("part_proj", torch.float32), tables=tables,
         corpus=t("corpus", torch.float32)[:, :conf.vector_dim].contiguous(),
-        row_ids=t("row_ids", torch.int32), coarse_proj=coarse_proj, coarse_tier=tier,
-        coarse_head=head, coarse_layout=layout,
+        row_ids=t("row_ids", torch.int32), corpus_lp=corpus_lp, coarse_proj=coarse_proj,
+        coarse_tier=tier, coarse_head=head, coarse_layout=layout,
     )
 
 
@@ -139,3 +149,37 @@ def from_jax_flat(arrays: Dict[str, np.ndarray], dim: int, device: Device = None
                       device=device, **index_kw)
     return index.set_state(sketch, float(arrays["scale"]), host(corpus_np[:, :dim], np.float32),
                            host(arrays["row_ids"], np.int32))
+
+
+def from_jax_ivf(arrays: Dict[str, np.ndarray], dim: int, device: Device = None,
+                 **index_kw) -> IVFFlatIndex:
+    """A fitted port `IVFFlatIndex` (on `device`, default the first CUDA
+    card; `index_kw` as for `IVFFlatIndex`) from the JAX package's
+    `IVFState` arrays `sketch`, `corpus`, `row_ids`, `centroids`, `starts`
+    and `ends`. The sketch, the exact tier and the centroids lose their
+    128-lane padding down to the port's multiple of 32 columns above `dim`,
+    the corpus's true width; the head tier, derived from the sketch, is
+    built anew when `index_kw` asks for pruning."""
+    device = resolve_device(device)
+    missing = [f for f in ("sketch", "corpus", "row_ids", "centroids", "starts", "ends")
+               if f not in arrays]
+    if missing:
+        raise KeyError(f"from_jax_ivf: missing arrays {missing}")
+    dp = -(-dim // 32) * 32
+
+    def cols(name: str) -> torch.Tensor:
+        a = np.asarray(arrays[name])[:, :dp]
+        if a.dtype in (np.int8, np.float32):
+            return torch.as_tensor(np.array(a), device=device)     # a writable copy
+        return _bf16(a, device)
+
+    def ints(name: str) -> torch.Tensor:
+        return torch.as_tensor(np.array(arrays[name], dtype=np.int32), device=device)
+
+    index = IVFFlatIndex(device=device, **index_kw)
+    index.state = IVFState(sketch=cols("sketch"), corpus=cols("corpus"),
+                           row_ids=ints("row_ids"), centroids=_bf16(
+                               np.asarray(arrays["centroids"])[:, :dp], device),
+                           starts=ints("starts"), ends=ints("ends"))
+    index.ensure_heads()
+    return index

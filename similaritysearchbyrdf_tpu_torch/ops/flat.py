@@ -108,15 +108,24 @@ def build_flat_sketch(corpus: torch.Tensor, dtype: str = "int8") -> Tuple[torch.
     if dtype != "int8":
         raise ValueError(f"unsupported flat sketch dtype: {dtype}")
     lo, hi = torch.aminmax(corpus) if corpus.numel() else (torch.zeros(()), torch.zeros(()))
-    amax = max(-float(lo), float(hi))
-    scale = 127.0 / max(amax, 1e-30)
-    scale32 = float(np.float32(scale))
+    scale = sketch_scale(max(-float(lo), float(hi)))
     sketch = torch.zeros((n, width), dtype=torch.int8, device=corpus.device)
     for c0 in range(0, n, _QUANT_CHUNK):
-        x = corpus[c0:c0 + _QUANT_CHUNK].to(torch.float32)
-        q = torch.clamp(torch.round(x * scale32), -127, 127)
-        sketch[c0:c0 + _QUANT_CHUNK, :d] = q.to(torch.int8)
+        sketch[c0:c0 + _QUANT_CHUNK, :d] = quantize_sketch_rows(corpus[c0:c0 + _QUANT_CHUNK],
+                                                                scale)
     return sketch, scale
+
+
+def sketch_scale(amax: float) -> float:
+    """The int8 sketch's one global scale, 127 / max|x|, in float64."""
+    return 127.0 / max(amax, 1e-30)
+
+
+def quantize_sketch_rows(x: torch.Tensor, scale: float) -> torch.Tensor:
+    """int8 sketch rows: x times `scale` applied as its f32 value, rounded
+    half to even and clipped to ±127 (the reference's order)."""
+    q = torch.round(x.to(torch.float32) * float(np.float32(scale)))
+    return torch.clamp(q, -127, 127).to(torch.int8)
 
 
 def _quantize_queries(queries: torch.Tensor, sketch: torch.Tensor) -> torch.Tensor:

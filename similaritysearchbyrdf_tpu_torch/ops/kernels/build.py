@@ -96,9 +96,9 @@ def library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.rdf_hash_dense.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             lib.rdf_hash_dense.restype = i
-            lib.rdf_coarse_block_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+            lib.rdf_coarse_block_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
             lib.rdf_coarse_block_scores.restype = i
-            lib.rdf_coarse_block_form.argtypes = [i] * 4
+            lib.rdf_coarse_block_form.argtypes = [i] * 5
             lib.rdf_coarse_block_form.restype = i
             lib.rdf_coarse_window_scores.argtypes = [p] * 8 + [i] * 7 + [p]
             lib.rdf_coarse_window_scores.restype = i

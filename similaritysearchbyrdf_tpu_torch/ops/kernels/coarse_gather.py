@@ -5,17 +5,19 @@ Replace `similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py`:
 K2 `pallas_coarse_scores` (`_kernel`, blocks at arbitrary starts, block
 mode) and K2b `pallas_coarse_scores_aligned` (`_kernel_aligned*`, aligned
 windows, window mode). Both kernels (`csrc/coarse_gather.cu`) score
-contiguous rows of the per-table int8 coarse tier against each query's bf16
-coarse vector with f32 accumulation. On the H100 they are bound by bytes
+contiguous rows of the per-table int8 or bf16 coarse tier against each
+query's bf16 coarse vector with f32 accumulation. On the H100 they are bound by bytes
 read (2 flops per tier byte). The generic design reads each row chunk with
 one coalesced 8-byte load per lane and keeps the query in registers, so the
 dependent table/start-then-rows loads of many warps overlap. K2b also takes
 the window mode's validity: a dead window loads nothing, and a slot outside
 its range's [start, end) scores -inf, so the caller needs no masking pass.
 K2b also takes a bf16 tier: the flat engine's bf16 sketch, re-scored as a
-one-table tier (`ops/flat.py`).
+one-table tier (`ops/flat.py`), and a forest's bf16 coarse tier in window
+mode; K2 takes a forest's bf16 coarse tier in block mode, on its generic
+kernel (a chunk of 8 columns is one 16-byte load per lane).
 
-K2's main-path shape, 8-slot blocks of 32 columns (block mode), takes a
+K2's main-path shape, 8-slot blocks of 32 int8 columns (block mode), takes a
 kernel of its own, chosen by shape inside `rdf_coarse_block_scores`
 (`block_kernel_form`): K2b's design below, with steps of 32 blocks, 16
 consecutive blocks to a warp and each 16-byte load covering two blocks;
@@ -54,17 +56,18 @@ def _cs_ok(cs: int) -> bool:
     return cs > 0 and cs % 8 == 0
 
 
-def block_kernel_form(cs: int, bs: int, b: int, mb: int) -> str:
+def block_kernel_form(cs: int, bs: int, b: int, mb: int, tier_bf16: bool = False) -> str:
     """Which kernel K2 takes for a shape on the card, as
     `rdf_coarse_block_scores` chooses it (`rdf_coarse_block_form`): "b8",
-    the block-mode main shape's kernel, or "generic"."""
-    return "b8" if build.library().rdf_coarse_block_form(cs, bs, b, mb) else "generic"
+    the block-mode main shape's kernel (int8 tiers only), or "generic"."""
+    form = build.library().rdf_coarse_block_form(cs, bs, b, mb, int(tier_bf16))
+    return "b8" if form else "generic"
 
 
 def coarse_block_scores_plain(tier: torch.Tensor, q_low: torch.Tensor,
                               table: torch.Tensor, blk_start: torch.Tensor,
                               bs: int) -> torch.Tensor:
-    """tier i8[L, caprows, cs], q_low bf16[B, cs], table and blk_start
+    """tier i8 (or bf16) [L, caprows, cs], q_low bf16[B, cs], table and blk_start
     i32[B, MB] → f32[B, MB, bs] with out[b, m, j] = sum_c tier[t, s+j, c] *
     q_low[b, c], t = clip(table, 0, L-1), s = clip(blk_start, 0, caprows-bs)
     — the CLIP gather of `index/forest.py:1150-1182`."""
@@ -85,9 +88,9 @@ def coarse_block_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
         if tier.device.type == "cpu":
             return coarse_block_scores_plain(tier, q_low, table, blk_start, bs)
         raise ValueError(f"coarse_block_scores_kernel: unsupported device {tier.device}")
-    if (tier.dtype != torch.int8 or q_low.dtype != torch.bfloat16
+    if (tier.dtype not in (torch.int8, torch.bfloat16) or q_low.dtype != torch.bfloat16
             or table.dtype != torch.int32 or blk_start.dtype != torch.int32):
-        raise TypeError("coarse_block_scores_kernel: needs tier i8, q_low bf16, "
+        raise TypeError("coarse_block_scores_kernel: needs tier i8 or bf16, q_low bf16, "
                         "table and blk_start i32")
     l, caprows, cs = tier.shape
     b, mb = table.shape
@@ -104,7 +107,8 @@ def coarse_block_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
         return out
     err = build.library().rdf_coarse_block_scores(
         tier.data_ptr(), q_low.data_ptr(), table.data_ptr(), blk_start.data_ptr(),
-        out.data_ptr(), l, caprows, cs, b, mb, bs, build.stream(dev))
+        out.data_ptr(), l, caprows, cs, b, mb, bs, int(tier.dtype == torch.bfloat16),
+        build.stream(dev))
     build.check(err, "rdf_coarse_block_scores")
     LAUNCHES += 1
     return out

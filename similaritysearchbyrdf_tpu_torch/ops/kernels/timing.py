@@ -303,7 +303,7 @@ def main() -> int:
             lambda: K2.coarse_block_scores_kernel(tier, q, table, blk, 8),
             lambda lib, s: lib.rdf_coarse_block_scores(
                 tier.data_ptr(), q.data_ptr(), table.data_ptr(), blk.data_ptr(), s2.data_ptr(),
-                30, 20_000, 32, 1024, 512, 8, s),
+                30, 20_000, 32, 1024, 512, 8, 0, s),
             [((1024, 512, 8), torch.float32)],
             lambda: build.check_operands("coarse_block_scores_kernel", tier.device,
                                          ("tier", "q_low"), tier=tier, q_low=q, table=table,

@@ -13,6 +13,11 @@ PyTorch has two interfaces to the one setting: the older `allow_tf32` flag
 torch has it, the per-backend `fp32_precision` string. Mixing them makes
 torch refuse to read either, so the block uses the one the caller's state
 can be read through, and changes nothing when TF32 is already off.
+
+`matmul_f32` is the one place that decides how a product with f32 output
+runs, also the JAX package's bf16 x bf16 products with
+`preferred_element_type=float32`: a bf16 `matmul` on the card returns bf16
+and would round every score.
 """
 
 from __future__ import annotations
@@ -50,3 +55,13 @@ def full_f32() -> Iterator[None]:
             yield
         finally:
             matmul.allow_tf32 = True
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor,
+               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """f32 `torch.matmul(a, b)` with both operands first rounded to `dtype`
+    (float32 or bfloat16), then multiplied widened to f32 in full f32. A
+    product of two bf16 values is exact in f32, so a bf16 product differs
+    from the reference's only in its summation order."""
+    with full_f32():
+        return torch.matmul(a.to(dtype).to(torch.float32), b.to(dtype).to(torch.float32))

@@ -70,6 +70,45 @@ def test_block_scores_match_jax(l, cs):
     assert (np.abs(got_s[live] - want_s[live]) <= bound[live] + 1e-30).all()
 
 
+@pytest.mark.parametrize("l,cs", [(6, 32), (3, 64)])
+def test_block_scores_match_jax_on_a_bf16_tier(l, cs):
+    """`_coarse_block_scores` in block mode over a bf16 tier (coarse_dtype
+    "bfloat16"): JAX on the lane-packed tier, the port's plain K2 on the
+    same tier unpacked per table. bf16 x bf16 products are exact in f32
+    too, so the same summation-order bound holds."""
+    rng = np.random.default_rng(l + cs)
+    g = 128 // cs
+    lg, caprows, d, b, mb, bs = -(-l // g), 160, 24, 5, 16, 8
+    packed = bf16_round(rng.normal(size=(lg, caprows, g * cs)).astype(np.float32))
+    per_table = unpack_lane_tier(packed, l, cs)
+    proj = rng.normal(size=(d, cs)).astype(np.float32)
+    queries = rng.normal(size=(b, d)).astype(np.float32)
+    mbi = np.arange(mb) * bs
+    blk_start = rng.integers(-12, caprows + 12, size=(b, mb))
+    base = (blk_start - mbi).astype(np.int32)
+    table = rng.integers(0, l, size=(b, mb)).astype(np.int32)
+    end = (blk_start + rng.integers(-4, 12, size=(b, mb))).astype(np.int32)
+    want_s, want_p, want_t = (np.asarray(a) for a in jforest._coarse_block_scores(
+        jnp.asarray(packed).astype(jnp.bfloat16), jnp.asarray(proj), jnp.asarray(queries),
+        jnp.asarray(base), jnp.asarray(table), jnp.asarray(end), bs))
+    got_s, got_p, got_t = (a.numpy() for a in tforest._coarse_block_scores(
+        torch.from_numpy(per_table).to(torch.bfloat16), torch.from_numpy(proj),
+        torch.from_numpy(queries), torch.from_numpy(base).long(),
+        torch.from_numpy(table).long(), torch.from_numpy(end).long(), bs))
+    np.testing.assert_array_equal(got_p, want_p)
+    np.testing.assert_array_equal(got_t, want_t)
+    live = np.isfinite(want_s)
+    np.testing.assert_array_equal(np.isfinite(got_s), live)
+    assert 0.2 < live.mean() < 0.9
+    q_low = bf16_round(queries @ proj)
+    s_abs = K2.coarse_block_scores_plain(
+        torch.from_numpy(np.abs(per_table)).to(torch.bfloat16),
+        torch.from_numpy(np.abs(q_low)).to(torch.bfloat16), torch.from_numpy(table),
+        torch.from_numpy((base + mbi).astype(np.int32)), bs).numpy().reshape(b, -1)
+    bound = (128 + cs) * U * s_abs
+    assert (np.abs(got_s[live] - want_s[live]) <= bound[live] + 1e-30).all()
+
+
 def test_plain_matches_pallas_coarse_scores(monkeypatch):
     """The TPU kernel K2 replaces (`pallas_coarse_scores`, interpret mode on
     the CPU) against the port's plain version, at arbitrary block starts."""

@@ -11,13 +11,16 @@ import numpy as np
 import pytest
 import torch
 
-from similaritysearchbyrdf_tpu_torch import (DenseBatch, FlatIndex, RDFConfig, RDFForest,
-                                             TableConfig, fit_dense, flat_topk_grouped)
+from similaritysearchbyrdf_tpu_torch import (DenseBatch, FlatIndex, IVFFlatIndex, RDFConfig,
+                                             RDFForest, TableConfig, fit_dense,
+                                             flat_topk_grouped)
 from similaritysearchbyrdf_tpu_torch.ops.exact import exact_search
 from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_fold as K3
 from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
 from similaritysearchbyrdf_tpu_torch.ops.kernels import flat_groupmax as K4
+from similaritysearchbyrdf_tpu_torch.ops import ivf as IVF
 from similaritysearchbyrdf_tpu_torch.ops.kernels import hash_kernel as K1
+from similaritysearchbyrdf_tpu_torch.ops.precision import matmul_f32
 
 pytestmark = pytest.mark.cuda
 U = 2.0 ** -24
@@ -573,3 +576,189 @@ def test_entry_points_default_to_the_card(dev):
     got, _ = flat.query(x[:4], k=3, exclude_self=False)
     gt, _ = exact_search(x, x[:4], 3)
     assert np.array_equal(got, gt)
+
+
+@pytest.mark.parametrize("mb", [1, 33])
+@pytest.mark.parametrize("cs", [8, 16, 24, 32, 64, 96, 128, 224, 256, 800, 2048, 2056])
+def test_block_kernel_bf16_tier_matches_plain(dev, cs, mb):
+    """K2 on a bf16 tier (a forest's bf16 coarse tier in block mode) takes
+    the generic kernel at every width, MB 1 and a ragged 33, within the f32
+    summation bound of its plain version."""
+    assert K2.block_kernel_form(cs, 8, 7, mb, tier_bf16=True) == "generic"
+    rng = np.random.default_rng(cs * 100 + mb)
+    l, caprows, b, bs = 5, 300, 7, 8
+    tier = torch.as_tensor(rng.normal(size=(l, caprows, cs)).astype(np.float32),
+                           device=dev).to(torch.bfloat16)
+    q = torch.as_tensor(rng.normal(size=(b, cs)).astype(np.float32), device=dev)
+    q = q.to(torch.bfloat16)
+    table = torch.as_tensor(rng.integers(-2, l + 2, size=(b, mb)).astype(np.int32), device=dev)
+    start = torch.as_tensor(rng.integers(-20, caprows + 20, size=(b, mb)).astype(np.int32),
+                            device=dev)
+    before = K2.LAUNCHES
+    got = K2.coarse_block_scores_kernel(tier, q, table, start, bs)
+    assert K2.LAUNCHES == before + 1
+    want = K2.coarse_block_scores_plain(tier, q, table, start, bs)
+    bound = 2 * cs * U * K2.coarse_block_scores_plain(tier.abs(), q.abs(), table, start, bs)
+    assert ((got - want).abs() <= bound + 1e-30).all()
+
+
+@pytest.mark.parametrize("mb", [1, 33, 512])
+def test_block_kernel_bf16_tier_bench_shape_bit_equal(dev, mb):
+    """K2 on a bf16 tier at the bench shape (B 1024, bs 8, cs 32): integer
+    tier values (|v| <= 127, exact in bf16) and small integer queries make
+    every partial sum an integer below 2^24, so kernel and plain version
+    agree bit for bit."""
+    rng = np.random.default_rng(mb)
+    l, caprows, b, cs, bs = 30, 20_000, 1024, 32, 8
+    tier = torch.as_tensor(rng.integers(-127, 128, size=(l, caprows, cs)).astype(np.float32),
+                           device=dev).to(torch.bfloat16)
+    q = torch.as_tensor(rng.integers(-16, 17, size=(b, cs)).astype(np.float32),
+                        device=dev).to(torch.bfloat16)
+    table = torch.as_tensor(rng.integers(-2, l + 2, size=(b, mb)).astype(np.int32), device=dev)
+    start = torch.as_tensor(rng.integers(-20, caprows + 20, size=(b, mb)).astype(np.int32),
+                            device=dev)
+    got = K2.coarse_block_scores_kernel(tier, q, table, start, bs)
+    assert torch.equal(got, K2.coarse_block_scores_plain(tier, q, table, start, bs))
+
+
+def _ivf_corpus(n, d, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(max(16, n // 200), d))
+    centers /= np.linalg.norm(centers, axis=1, keepdims=True)
+    x = centers[rng.integers(0, len(centers), n)] + 0.08 * rng.normal(size=(n, d))
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [6000, 24])
+@pytest.mark.parametrize("win", [64, 128, 256])
+def test_window_kernel_at_ivf_shapes(dev, win, n):
+    """K2b on IVF's operands: the cluster-ordered int8 sketch as a one-table
+    tier (L 1, cs 96), windows from `_flatten_windows`, start = the window
+    start, end = its cluster's true end; 24 rows in 2 clusters make a
+    sketch shorter than `win`, padded with zero rows as `ivf_topk` pads it."""
+    x = _ivf_corpus(n, 96, win + n)
+    st = IVF.build_ivf(torch.as_tensor(x, device=dev), np.arange(n, dtype=np.int32),
+                       target_cluster=32, iters=3, k=2 if n == 24 else None)
+    npad = st.sketch.shape[0]
+    assert (npad < win) == (n == 24)
+    q = torch.as_tensor(x[:64], device=dev).to(torch.bfloat16)
+    sel = IVF.top_sorted(matmul_f32(q, st.centroids.T, torch.bfloat16), 4)[1]
+    wb = IVF.ivf_window_budget(st.starts, st.ends, 4, win)
+    blk, end, live = IVF._flatten_windows(st.starts[sel], st.ends[sel], win, wb)
+    tier = (st.sketch if npad >= win else IVF._pad_rows(st.sketch, win))[None]
+    args = [a.to(torch.int32).contiguous() for a in
+            (torch.zeros_like(blk), blk.clamp(max=max(npad - win, 0)), blk, end)]
+    before = K2.WINDOW_LAUNCHES
+    got = K2.coarse_window_scores_kernel(tier, q, *args, live.contiguous(), win)
+    assert K2.WINDOW_LAUNCHES == before + 1
+    want = K2.coarse_window_scores_plain(tier, q, *args, live, win)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    assert fin.any()
+    bound = 2 * 96 * U * K2.coarse_block_scores_plain(tier.abs(), q.abs(), args[0], args[1], win)
+    assert ((got - want).abs()[fin] <= bound[fin] + 1e-30).all()
+
+
+def test_kmeans_is_deterministic_on_card(dev):
+    """Two builds from one seed lay out identically on the card: the k-means
+    update sums clusters with integer adds, whose order does not matter."""
+    x = torch.as_tensor(_ivf_corpus(200_000, 96, 5), device=dev)
+    ids = np.arange(200_000, dtype=np.int32)
+    a = IVF.build_ivf(x, ids, target_cluster=256, iters=4, seed=0)
+    b = IVF.build_ivf(x, ids, target_cluster=256, iters=4, seed=0)
+    for name in ("starts", "ends", "row_ids", "centroids", "sketch"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+
+
+@pytest.mark.parametrize("point", ["single", "two_phase", "short_sketch"])
+def test_ivf_on_card_matches_cpu(dev, point):
+    """IVF's ids on the card (K2b) against the port's CPU path (K2b's plain
+    version) on one index, built on the CPU and copied to the card."""
+    kw = {"single": dict(nprobe=4, win=64), "two_phase": dict(nprobe=8, win=64, head_pool=16,
+                                                               keep=8),
+          "short_sketch": dict(nprobe=4, win=256)}[point]
+    n = 24 if point == "short_sketch" else 6000
+    x = _ivf_corpus(n, 96, 11)
+    ids = np.arange(n, dtype=np.int32)
+    cpu = IVFFlatIndex(target_cluster=32, iters=3, refine=128, device="cpu", **kw).fit(
+        DenseBatch(ids, x))
+    gpu = IVFFlatIndex(target_cluster=32, iters=3, refine=128, device=dev, **kw)
+    gpu.state = IVF.IVFState(*(None if t is None else t.to(dev) for t in cpu.state))
+    k2b = K2.WINDOW_LAUNCHES
+    got, _ = gpu.query(x[:128], k=10, query_ids=ids[:128])
+    assert K2.WINDOW_LAUNCHES > k2b
+    want, _ = cpu.query(x[:128], k=10, query_ids=ids[:128])
+    assert (got == want).all(axis=1).mean() >= 0.99
+
+
+def _anisotropic(n, d, seed, n_clusters=80):
+    """Clustered unit rows with well-separated leading eigenvalues, so the
+    card's and the CPU's PCA bases agree."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.normal(size=(d, d)))
+    centers = (rng.normal(size=(n_clusters, d)) * 0.85 ** np.arange(d)) @ q.T
+    x = centers[rng.integers(0, n_clusters, n)] + 0.02 * rng.normal(size=(n, d))
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+def _equal_up_to_ties(g_ids, g_sc, c_ids, c_sc, tol) -> bool:
+    """One query's top-k from two summation orders: the scores agree
+    position by position within `tol`, and where the ids differ, the row
+    one side ranks at a position sits on the other side at a score within
+    `tol` of it (two near-tied rows in swapped order), or, absent there,
+    within `tol` of the other side's last score (a near-tie at the cut)."""
+    if not (np.abs(g_sc - c_sc) <= tol).all():
+        return False
+    for j in np.flatnonzero(g_ids != c_ids):
+        pos = np.flatnonzero(c_ids == g_ids[j])
+        other = c_sc[pos[0]] if pos.size else c_sc[-1]
+        if abs(other - g_sc[j]) > tol:
+            return False
+    return True
+
+
+@pytest.mark.parametrize("extra", [dict(), dict(m_cap=32768, window_keep=0),
+                                   dict(m_cap=32768, window_keep=64)])
+def test_forest_options_on_card_match_cpu(dev, extra):
+    """The PCA basis, a bf16 coarse tier and the bf16 two-stage rerank on
+    the card (K2 on the bf16 tier in block mode, K2b in window mode). The
+    card's fit against the CPU's: both form the PCA moment in f32 in their
+    own summation order, so the bases agree to 1e-4 and each tier value
+    within one bf16 step plus twice what the bases' difference moves it
+    (|x| . |basis difference|). The query paths on one index (the card's,
+    copied to the host): every query's top 10 equal up to near-ties of the
+    exact f32 scores (within 2*D*2^-24 for unit rows, the bound of two
+    summation orders). This tight corpus (noise 0.02) has such ties: on the
+    H100, query 12's rows 590 and 174 score 0.99940288 and 0.99940282 on
+    the card and equal on the CPU, in the int8 f32 configuration too."""
+    x = _anisotropic(3000, 32, 2)
+    ids = np.arange(3000, dtype=np.int32)
+    conf = RDFConfig(vector_dim=32, table_num=4, permutation_num=2, family_size=40,
+                     lsh_table=TableConfig(chain_length=32, bucket_overflow=48),
+                     query_batch_size=64, max_candidates=4096, coarse_dim=16,
+                     coarse_refine=256, coarse_head_pool=16, coarse_dtype="bfloat16",
+                     coarse_proj_mode="pca", rerank_dtype="bfloat16", seed=3)
+    kw = dict(query_ids=ids[:128], probe_mode="margin", probe_budget=16, **extra)
+    forest = RDFForest(conf, device=dev).fit(DenseBatch(ids, x))
+    own_cpu = RDFForest(conf, device="cpu").fit(DenseBatch(ids, x)).state
+    gs = forest.state.to("cpu")
+    assert gs.coarse_tier.dtype == torch.bfloat16 and gs.corpus_lp is not None
+    dproj = (gs.coarse_proj - own_cpu.coarse_proj).abs()
+    assert float(dproj.max()) <= 1e-4
+    si = own_cpu.tables.sorted_ids
+    same = (gs.tables.sorted_ids == si)[..., None]
+    assert float(same.float().mean()) > 0.999
+    moved = (torch.from_numpy(np.abs(x)) @ dproj)[si.clamp(min=0).long()]
+    want = own_cpu.coarse_tier.float()
+    step = 2.0 ** (torch.floor(torch.log2(want.abs().clamp(min=1e-30))) - 7)
+    diff = (gs.coarse_tier.float() - want).abs()
+    assert bool(((diff <= step + 2 * moved) | ~same).all())
+    k2, k2b = K2.LAUNCHES, K2.WINDOW_LAUNCHES
+    gpu, gpu_sc = forest.query(x[:128], **kw)
+    assert (K2.WINDOW_LAUNCHES > k2b) if extra else (K2.LAUNCHES > k2)
+    cpu = RDFForest(conf, device="cpu")
+    cpu.state = gs
+    want_ids, want_sc = cpu.query(x[:128], **kw)
+    tol = 2 * x.shape[1] * U
+    assert all(_equal_up_to_ties(gpu[i], gpu_sc[i], want_ids[i], want_sc[i], tol)
+               for i in range(128))

@@ -109,23 +109,39 @@ def test_fit_matches_jax(world, coarse):
         assert ts.coarse_tier is None and js.coarse_by_table is None
 
 
+@pytest.fixture(scope="module")
+def bf16_rerank_world(world):
+    """The JAX package's forests of `world` fitted again with
+    rerank_dtype="bfloat16", so they carry `corpus_lp`."""
+    x, ids = world["x"], world["ids"]
+    return {coarse: jforest.RDFForest(world[coarse][0].replace(rerank_dtype="bfloat16")).fit(
+        JBatch(ids, x)) for coarse in (True, False)}
+
+
 @pytest.mark.parametrize("port_rerank", ["bfloat16", "float32"])
-def test_from_jax_state_refuses_a_bf16_rerank_state(world, port_rerank):
-    """A JAX state fitted with rerank_dtype="bfloat16" carries `corpus_lp`
-    for its two-stage rerank, which the port does not have: the state is
-    refused whether the port's config says bf16 or f32, never reranked in
-    f32 without a word."""
-    jc, tc, _, _ = world[False]
-    js = jforest.fit_dense(jc.replace(rerank_dtype="bfloat16"),
-                           JBatch(world["ids"][:500], world["x"][:500]))
-    arrays = jax_state_arrays(js)
+@pytest.mark.parametrize("coarse", [True, False])
+def test_from_jax_state_carries_a_bf16_rerank_state(world, bf16_rerank_world, coarse,
+                                                    port_rerank):
+    """A JAX state fitted with rerank_dtype="bfloat16" carries `corpus_lp`,
+    and the port reranks it in two stages as the JAX package does, whatever
+    the port's config says (the option acts at the fit): top-k ids equal on
+    >= 99% of queries, recall within 0.005, scores within the exact
+    rerank's f32 bound (the final re-score is full f32 on both sides)."""
+    _, tc, _, _ = world[coarse]
+    jf = bf16_rerank_world[coarse]
+    x, ids, gt = world["x"], world["ids"], world["gt"]
+    arrays = jax_state_arrays(jf.state)
     assert "corpus_lp" in arrays
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        from_jax_state(arrays, tc.replace(rerank_dtype=port_rerank), device="cpu")
-    # the config alone refuses too, with the f32 state's arrays
-    with pytest.raises(NotImplementedError):
-        from_jax_state(jax_state_arrays(world[False][2].state),
-                       tc.replace(rerank_dtype="bfloat16"), device="cpu")
+    port = tforest.RDFForest(tc.replace(rerank_dtype=port_rerank), device="cpu")
+    port.state = from_jax_state(arrays, port.conf, device="cpu")
+    assert port.state.corpus_lp.dtype == torch.bfloat16
+    kw = dict(query_ids=ids[:NQ], probe_mode="margin", probe_budget=16)
+    want, want_s = jf.query(x[:NQ], **kw)
+    got, got_s = port.query(x[:NQ], **kw)
+    assert (got == want).all(axis=1).mean() >= 0.99
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-6)
+    assert abs(recall(gt, got) - recall(gt, want)) <= 0.005
+    assert recall(gt, want) > 0.5
 
 
 @pytest.mark.parametrize("coarse", [True, False])
@@ -219,11 +235,22 @@ def test_similarity_threshold_matches_jax(world):
     np.testing.assert_array_equal(np.isinf(got_s), np.isinf(want_s))
 
 
-def test_unported_options_are_refused(world):
-    _, tc, _, _ = world[True]
-    x, ids = world["x"], world["ids"]
-    with pytest.raises(NotImplementedError):
-        tforest.fit_dense(tc.replace(rerank_dtype="bfloat16"), TBatch(ids, x), device="cpu")
+def test_own_bf16_rerank_fit_matches_jax(world, bf16_rerank_world):
+    """The port's own fit with rerank_dtype="bfloat16" makes the JAX
+    package's `corpus_lp` bit for bit (the corpus rounded to bf16, without
+    the 128-lane padding), and its queries answer as the JAX package's."""
+    jc, tc, _, _ = world[True]
+    jf = bf16_rerank_world[True]
+    x, ids, gt = world["x"], world["ids"], world["gt"]
+    tf = tforest.RDFForest(tc.replace(rerank_dtype="bfloat16"), device="cpu").fit(
+        TBatch(ids, x))
+    want_lp = np.asarray(jf.state.corpus_lp, dtype=np.float32)[:, :D]
+    np.testing.assert_array_equal(tf.state.corpus_lp.to(torch.float32).numpy(), want_lp)
+    kw = dict(query_ids=ids[:NQ], probe_mode="margin", probe_budget=16)
+    want, _ = jf.query(x[:NQ], **kw)
+    got, _ = tf.query(x[:NQ], **kw)
+    assert (got == want).all(axis=1).mean() >= 0.99
+    assert abs(recall(gt, got) - recall(gt, want)) <= 0.005
 
 
 def test_window_mode_matches_jax(world):

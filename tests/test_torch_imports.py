@@ -41,6 +41,7 @@ def test_port_imports_with_jax_blocked():
         "import similaritysearchbyrdf_tpu_torch.interop\n"
         "import similaritysearchbyrdf_tpu_torch.ops.exact\n"
         "import similaritysearchbyrdf_tpu_torch.ops.flat\n"
+        "import similaritysearchbyrdf_tpu_torch.ops.ivf\n"
         "from similaritysearchbyrdf_tpu_torch.ops.kernels import build\n"
         "assert build._lib is None, 'kernels were built at import'\n"
         "assert 'triton' not in sys.modules\n"
@@ -51,8 +52,8 @@ def test_port_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     assert set(out.stdout.strip().split(",")) == {
         "RDFConfig", "TableConfig", "DenseBatch", "ForestState", "RDFForest",
-        "fit_dense", "query_dense_many", "from_jax_state", "from_jax_flat", "FlatIndex",
-        "flat_topk", "flat_topk_grouped"}
+        "fit_dense", "query_dense_many", "from_jax_state", "from_jax_flat", "from_jax_ivf",
+        "FlatIndex", "flat_topk", "flat_topk_grouped", "IVFFlatIndex", "tune_nprobe"}
 
 
 def test_kernel_sources_are_package_data():
