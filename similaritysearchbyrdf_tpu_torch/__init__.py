@@ -7,28 +7,55 @@ bucket tables and a coarse tier; query in block mode with K2, window
 mode with K2b, or the folded tier with K3; int8 or bf16 coarse tiers on a
 random or PCA basis, and the bf16 two-stage rerank), the dense flat engine
 (`FlatIndex`, `flat_topk`, `flat_topk_grouped` with the K4 group-max
-kernel) and the clustered-flat IVF engine (`IVFFlatIndex`, k-means and K2b
-window scores). Entry points run on the first CUDA card unless given
-`device="cpu"`. The CUDA kernels are built on first use, never at import.
+kernel), the clustered-flat IVF engine (`IVFFlatIndex`, k-means and K2b
+window scores), the dense front ends (`DenseRDFInit`, `MultiFeatureRDFInit`,
+the `RDFMap` map surface), the mutable index (`DynamicForest`,
+`RDFForest.add`), hash-model and partition files, tracing spans and the
+experiment harness (`experiments.harness`). Entry points run on the first
+CUDA card unless given `device="cpu"`. The CUDA kernels are built on first
+use, never at import.
 """
 
-from .config import RDFConfig, TableConfig
-from .index.forest import ForestState, RDFForest, fit_dense, query_dense_many
+from .config import RDFConfig, TableConfig, from_hocon_dict, from_hocon_file
+from .deploy.dense import DenseRDFInit
+from .deploy.map_api import RDFMap
+from .deploy.multi_feature import MultiFeatureRDFInit
+from .index.bucket_table import BucketTables, KeyLayout
+from .index.dynamic import DynamicForest
+from .index.forest import ForestState, RDFForest, fit_dense, query_dense, query_dense_many
 from .interop import from_jax_flat, from_jax_ivf, from_jax_state
+from .models.families import HashModel, generate_model, load_model_file, save_model_file
+from .ops.exact import exact_search
 from .ops.flat import FlatIndex, flat_topk, flat_topk_grouped
 from .ops.ivf import IVFFlatIndex, tune_nprobe
-from .vectors import DenseBatch
+from .vectors import DenseBatch, load_dense_file, load_ground_truth
 
 __version__ = "0.1.0"
 
 __all__ = [
     "RDFConfig",
     "TableConfig",
+    "from_hocon_dict",
+    "from_hocon_file",
     "DenseBatch",
+    "load_dense_file",
+    "load_ground_truth",
+    "HashModel",
+    "generate_model",
+    "save_model_file",
+    "load_model_file",
     "ForestState",
     "RDFForest",
     "fit_dense",
+    "query_dense",
     "query_dense_many",
+    "KeyLayout",
+    "BucketTables",
+    "exact_search",
+    "DynamicForest",
+    "DenseRDFInit",
+    "MultiFeatureRDFInit",
+    "RDFMap",
     "from_jax_state",
     "from_jax_flat",
     "from_jax_ivf",

@@ -25,7 +25,9 @@ query hash with margins (K1) → probe keys (partition steps x bit flips) →
         max → group select, optional id dedup (`select_mult`) or staged
         int8 rerank (`stage2`).
 
-Not ported yet: sparse corpora.
+`RDFForest` adds inserts (`add`), the per-table sub-index distribution and
+`query_dense`, the public name of the batched query core. Not ported yet:
+sparse corpora.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ import torch
 from ..config import RDFConfig
 from ..models.families import Device, HashModel, generate_model, resolve_device
 from ..ops import rerank as rerank_ops
-from ..ops.bitops import clz, to_key
+from ..ops.bitops import clz, from_key, to_key
 from ..ops.hashing import hash_dense, hash_dense_with_margins
 from ..ops.kernels.coarse_fold import I32_DEAD, coarse_rowmax_kernel
 from ..ops.kernels.coarse_gather import coarse_block_scores_kernel, coarse_window_scores_kernel
@@ -256,7 +258,7 @@ def fit_dense(conf: RDFConfig, batch: DenseBatch, model: Optional[HashModel] = N
     values = torch.zeros((npad, batch.dim), dtype=torch.float32, device=device)
     values[:n] = torch.as_tensor(batch.values, dtype=torch.float32).to(device)
     row_ids = torch.full((npad,), -1, dtype=torch.int32, device=device)
-    row_ids[:n] = torch.as_tensor(np.asarray(batch.ids), dtype=torch.int32).to(device)
+    row_ids[:n] = torch.as_tensor(batch.ids, dtype=torch.int32).to(device)
 
     keys = _keys_for_corpus(model, part_proj, values, n, layout, chunk)
     pos = torch.arange(npad, dtype=torch.int32, device=device)
@@ -909,6 +911,11 @@ def _query_dense(state: ForestState, queries: torch.Tensor, query_ids: torch.Ten
     return _to_user_ids(state, rows), scores, total
 
 
+# the public name of the batched query core, as the JAX package exports its
+# jitted form
+query_dense = _query_dense
+
+
 def query_dense_many(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
                      layout: KeyLayout, chunk: int = 256, **kw):
     """Whole-query-set search, `chunk` queries at a time (bounds peak
@@ -944,6 +951,19 @@ class RDFForest:
                                part_proj=self.part_proj, device=self.device)
         return self
 
+    def add(self, batch: DenseBatch) -> "RDFForest":
+        """Incremental insert: refit on the live rows (a prefix of the
+        corpus) followed by `batch`, concatenated on the device
+        (`RandomDrawTreeMap.put:1557` inserts one point into the trie)."""
+        if self.state is None:
+            return self.fit(batch)
+        old_n = self.size()
+        values = torch.cat([self.state.corpus[:old_n, :batch.dim],
+                            torch.as_tensor(batch.values, dtype=torch.float32).to(self.device)])
+        ids = torch.cat([self.state.row_ids[:old_n],
+                         torch.as_tensor(batch.ids, dtype=torch.int32).to(self.device)])
+        return self.fit(DenseBatch(ids, values))
+
     def query(self, queries: np.ndarray, steps: int = 0,
               query_ids: Optional[np.ndarray] = None, k: Optional[int] = None,
               **kw) -> Tuple[np.ndarray, np.ndarray]:
@@ -971,7 +991,7 @@ class RDFForest:
         k = k or self.conf.top_k
         qd = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         exclude = query_ids is not None
-        qids = (torch.as_tensor(np.asarray(query_ids), dtype=torch.int32).to(self.device)
+        qids = (torch.as_tensor(query_ids, dtype=torch.int32).to(self.device)
                 if exclude else torch.full((qd.shape[0],), -1, dtype=torch.int32,
                                            device=self.device))
         ids, scores, _ = query_dense_many(
@@ -1004,3 +1024,20 @@ class RDFForest:
         if self.state is None:
             raise RuntimeError("need to fit the data first")
         return self.state.tables.index_bytes() / max(1, self.size())
+
+    def sub_index_distribution(self) -> np.ndarray:
+        """Objects per (table, sub-index), int64[L, 2**partitionBits]
+        (`allSubIndexObjectsNumberDistribution`, `RandomDrawTreeMap.java:
+        2793-2802`). The sub-index is the key's top bits: keys are unflipped
+        to their unsigned values before the shift. Counted on the device."""
+        if self.state is None:
+            raise RuntimeError("need to fit the data first")
+        tables = self.state.tables
+        keys = from_key(tables.sorted_keys)                          # [L, cap]
+        ids = tables.sorted_ids[:, :keys.shape[1]]
+        parts = keys >> (self.layout.seg_bits + self.layout.consumed_bits)
+        l = keys.shape[0]
+        np_parts = 1 << self.layout.partition_bits
+        flat = parts + np_parts * torch.arange(l, device=keys.device)[:, None]
+        counts = torch.bincount(flat[ids >= 0], minlength=l * np_parts)
+        return counts.view(l, np_parts).cpu().numpy()

@@ -14,6 +14,9 @@ index. Layout changes on the way:
     per-table tier [L, caprows, cs] (exact: folding is a row-major
     reshape), of which the port's folded tier is a view.
 
+`dynamic_from_jax` builds a `DynamicForest` whose main and delta tiers hold
+two such states, with the JAX package's staged delta rows and tombstones.
+
 `from_jax_flat` does the same for the JAX package's `FlatIndex`: its sketch
 loses the 128-lane padding down to the port's multiple of 32 columns, its
 exact tier the padding down to the true width, and its strided second
@@ -34,6 +37,7 @@ import torch
 
 from .config import RDFConfig
 from .index.bucket_table import BucketTables, build_records
+from .index.dynamic import DynamicForest
 from .index.forest import ForestState
 from .models.families import Device, HashModel, resolve_device
 from .ops.bitops import to_key
@@ -124,6 +128,22 @@ def from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
         row_ids=t("row_ids", torch.int32), corpus_lp=corpus_lp, coarse_proj=coarse_proj,
         coarse_tier=tier, coarse_head=head, coarse_layout=layout,
     )
+
+
+def dynamic_from_jax(conf: RDFConfig, main: Dict[str, np.ndarray],
+                     delta: Optional[Dict[str, np.ndarray]] = None,
+                     delta_ids: Optional[np.ndarray] = None,
+                     delta_values: Optional[np.ndarray] = None, tombstones=(),
+                     merge_threshold: float = 0.25, device: Device = None) -> DynamicForest:
+    """A port `DynamicForest` in the JAX package's DynamicForest's state:
+    `main` and `delta` are its tiers' state arrays (see `from_jax_state`;
+    `delta` None when it has no delta tier), `delta_ids` / `delta_values`
+    its staged delta rows and `tombstones` its pending removals."""
+    device = resolve_device(device)
+    return DynamicForest.from_states(
+        conf, from_jax_state(main, conf, device),
+        None if delta is None else from_jax_state(delta, conf, device), tombstones,
+        delta_ids, delta_values, merge_threshold, device)
 
 
 def from_jax_flat(arrays: Dict[str, np.ndarray], dim: int, device: Device = None,

@@ -13,12 +13,16 @@ The JAX package attaches hi/lo pack-weight matrices to the model when
 `use_pallas_hash` is set; they exist only to do the TPU kernel's bit-pack as
 f32 matmuls. The CUDA hash kernel packs with integer shifts from `perm`, so
 the port's model carries `perm` alone, whatever that flag says.
+
+A model also round-trips through the reference's text checkpoint
+(`save_model_file`, `load_model_file`, `generate_method="fromfile"`), whose
+bytes equal the JAX package's for the same model.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -143,12 +147,102 @@ def generate_pstable_model(conf: RDFConfig, seed: Optional[int] = None,
 
 def generate_model(conf: RDFConfig, seed: Optional[int] = None,
                    device: Device = None) -> HashModel:
-    """Family dispatch (`LSH.initHashChains`). Loading hash families from
-    files (`generate_method="fromfile"`) is not ported yet."""
+    """Family dispatch (`LSH.initHashChains`, `LSH.scala:29-53`), including
+    the load-from-file path (`generate_method="fromfile"`,
+    `LSH.scala:69-77`): confType "partition" reads
+    `partition_family_file_path`, any other `family_file_path`."""
     if conf.generate_method == "fromfile":
-        raise NotImplementedError("generate_method='fromfile' is not ported yet")
+        if conf.conf_type == "partition":
+            path = conf.partition_family_file_path
+            if path is None:
+                raise ValueError("generate_method=fromfile with confType=partition "
+                                 "requires partition_family_file_path")
+        else:
+            path = conf.family_file_path
+            if path is None:
+                raise ValueError("generate_method=fromfile requires family_file_path")
+        return load_model_file(path, conf, device)
     if conf.family_name == "angle":
         return generate_angle_model(conf, seed, device)
     if conf.family_name == "pStable":
         return generate_pstable_model(conf, seed, device)
     raise ValueError(f"{conf.family_name!r} is not a valid family name")
+
+
+# ---------------------------------------------------------------------------
+# Hash-function file round trip (the reference's model checkpoint format)
+# ---------------------------------------------------------------------------
+
+
+def _sparse_vector_str(vid: int, values: np.ndarray) -> str:
+    """The reference's SparseVector.toString: `(id,size,[i...],[v...])`."""
+    nz = np.nonzero(values)[0]
+    idx = ",".join(str(int(i)) for i in nz)
+    val = ",".join(repr(float(values[i])) for i in nz)
+    return f"({vid},{len(values)},[{idx}],[{val}])"
+
+
+def write_lines(lines: List[str], path: str) -> None:
+    """The reference's line layout: every line ends in CR LF."""
+    with open(path, "w") as fh:
+        fh.write("\r\n".join(lines) + "\r\n")
+
+
+def save_model_file(model: HashModel, path: str) -> None:
+    """Write hash functions in the reference's text format
+    (`LSH.outPutTheHashFunctionsIntoFile`, `LSH.scala:173-195`): one function
+    per line, chains in table-major order with permutations expanded (each
+    saved chain is already permuted); p-stable lines append `;b;w`."""
+    proj = model.proj.cpu().numpy()
+    perm = model.perm.cpu().numpy()
+    b = model.b.cpu().numpy()
+    lines: List[str] = []
+    for t in range(model.table_num):
+        for p in range(model.permutation_num):
+            for j in range(model.chain_length):
+                f = int(perm[t, p, j])
+                line = _sparse_vector_str(len(lines), proj[t, f])
+                if model.family != "angle":
+                    line += f";{float(b[t, f])!r};{model.w}"
+                lines.append(line)
+    write_lines(lines, path)
+
+
+def read_function_rows(path: str) -> List[str]:
+    """The non-empty lines of a hash-function file, stripped."""
+    with open(path, "r") as fh:
+        return [line.strip() for line in fh if line.strip()]
+
+
+def load_model_file(path: str, conf: RDFConfig, device: Device = None) -> HashModel:
+    """Load a hash-function file (angle `(..)` lines or p-stable `(..);b;w`
+    lines), every `chainLength` lines one chain
+    (`generateTableChainFromFile`, `AngleHashFamily.scala:158-177`,
+    `PStableHashFamily.scala:88-108`). Loaded chains become T*P distinct
+    tables, each with one identity permutation (P = 1)."""
+    from ..vectors import from_string
+
+    c = conf.lsh_table.chain_length
+    rows: List[np.ndarray] = []
+    bs: List[float] = []
+    w = conf.pstable.w
+    family = "angle"
+    for line in read_function_rows(path):
+        if ";" in line:
+            family = "pStable"
+            vec_s, b_s, w_s = line.split(";")
+            b_val, w = float(b_s), int(w_s)
+        else:
+            vec_s, b_val = line, 0.0
+        _, size, idx, val = from_string(vec_s)
+        dense = np.zeros(size, dtype=np.float32)
+        dense[idx] = val
+        rows.append(dense)
+        bs.append(b_val)
+    if len(rows) % c != 0:
+        raise ValueError(f"{path}: {len(rows)} functions not divisible by chainLength {c}")
+    t = len(rows) // c
+    proj = np.stack(rows).reshape(t, c, -1)
+    b = np.asarray(bs, dtype=np.float32).reshape(t, c)
+    perm = np.broadcast_to(np.arange(c, dtype=np.int32), (t, 1, c))
+    return _model(proj, perm, b, conf, family, w, device)

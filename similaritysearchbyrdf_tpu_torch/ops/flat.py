@@ -401,7 +401,7 @@ class FlatIndex:
         """batch: vectors.DenseBatch (numpy values or a tensor)."""
         corpus = torch.as_tensor(batch.values, dtype=torch.float32).to(self.device)
         sketch, scale = build_flat_sketch(corpus, self.sketch_dtype)
-        ids = torch.as_tensor(np.asarray(batch.ids, dtype=np.int32))
+        ids = torch.as_tensor(batch.ids, dtype=torch.int32)
         return self.set_state(sketch, scale, corpus, ids)
 
     def query(self, queries, k: int = 10, query_ids: Optional[np.ndarray] = None,
@@ -424,7 +424,7 @@ class FlatIndex:
             raise RuntimeError("need to fit the data first")
         q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         nq = q.shape[0]
-        qids = (torch.as_tensor(np.asarray(query_ids), dtype=torch.int32).to(self.device)
+        qids = (torch.as_tensor(query_ids, dtype=torch.int32).to(self.device)
                 if query_ids is not None
                 else torch.full((nq,), -1, dtype=torch.int32, device=self.device))
         bsz = effective_query_batch(nq, self.query_batch)

@@ -510,7 +510,7 @@ class IVFFlatIndex:
         st = self.state
         q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         nq = q.shape[0]
-        qids = (torch.as_tensor(np.asarray(query_ids), dtype=torch.int32).to(self.device)
+        qids = (torch.as_tensor(query_ids, dtype=torch.int32).to(self.device)
                 if query_ids is not None
                 else torch.full((nq,), -1, dtype=torch.int32, device=self.device))
         npb = nprobe or self.nprobe

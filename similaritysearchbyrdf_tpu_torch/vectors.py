@@ -4,8 +4,8 @@ A copy of `similaritysearchbyrdf_tpu/vectors.py` (the replacement for the
 reference's vector layer, `src/main/scala/mclab/lsh/vector/Vector.scala`),
 which is framework-free: vectors live in batches, a dense batch one `[N, D]`
 array, a sparse batch padded `[N, nnz_pad]` index/value arrays plus per-row
-lengths. One change: a `DenseBatch` keeps torch tensors as they are, so a
-corpus already on the GPU is not copied through the host. The native C++
+lengths. One change: a `DenseBatch` keeps torch tensors (values and ids) as
+they are, so a corpus already on the GPU is not copied through the host. The native C++
 parser of the JAX package is not ported; the pure-Python parsers run.
 """
 
@@ -37,9 +37,12 @@ class DenseBatch:
     values: np.ndarray
 
     def __post_init__(self) -> None:
-        self.ids = np.asarray(self.ids, dtype=np.int32)
         # a torch tensor (e.g. a corpus already on the GPU) passes through
-        # without a host round trip, cast to f32 where it lives
+        # without a host round trip, cast to i32 / f32 where it lives
+        if isinstance(self.ids, torch.Tensor):
+            self.ids = self.ids.to(torch.int32)
+        else:
+            self.ids = np.asarray(self.ids, dtype=np.int32)
         if isinstance(self.values, torch.Tensor):
             self.values = self.values.to(torch.float32)
         else:

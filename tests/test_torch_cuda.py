@@ -11,9 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from similaritysearchbyrdf_tpu_torch import (DenseBatch, FlatIndex, IVFFlatIndex, RDFConfig,
-                                             RDFForest, TableConfig, fit_dense,
-                                             flat_topk_grouped)
+from similaritysearchbyrdf_tpu_torch import (DenseBatch, DenseRDFInit, DynamicForest,
+                                             FlatIndex, IVFFlatIndex, RDFConfig, RDFForest,
+                                             RDFMap, TableConfig, fit_dense, flat_topk_grouped,
+                                             generate_model, load_model_file,
+                                             save_model_file)
+from similaritysearchbyrdf_tpu_torch.experiments.harness import equal_up_to_ties
 from similaritysearchbyrdf_tpu_torch.ops.exact import exact_search
 from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_fold as K3
 from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
@@ -701,22 +704,6 @@ def _anisotropic(n, d, seed, n_clusters=80):
     return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
 
 
-def _equal_up_to_ties(g_ids, g_sc, c_ids, c_sc, tol) -> bool:
-    """One query's top-k from two summation orders: the scores agree
-    position by position within `tol`, and where the ids differ, the row
-    one side ranks at a position sits on the other side at a score within
-    `tol` of it (two near-tied rows in swapped order), or, absent there,
-    within `tol` of the other side's last score (a near-tie at the cut)."""
-    if not (np.abs(g_sc - c_sc) <= tol).all():
-        return False
-    for j in np.flatnonzero(g_ids != c_ids):
-        pos = np.flatnonzero(c_ids == g_ids[j])
-        other = c_sc[pos[0]] if pos.size else c_sc[-1]
-        if abs(other - g_sc[j]) > tol:
-            return False
-    return True
-
-
 @pytest.mark.parametrize("extra", [dict(), dict(m_cap=32768, window_keep=0),
                                    dict(m_cap=32768, window_keep=64)])
 def test_forest_options_on_card_match_cpu(dev, extra):
@@ -760,5 +747,144 @@ def test_forest_options_on_card_match_cpu(dev, extra):
     cpu.state = gs
     want_ids, want_sc = cpu.query(x[:128], **kw)
     tol = 2 * x.shape[1] * U
-    assert all(_equal_up_to_ties(gpu[i], gpu_sc[i], want_ids[i], want_sc[i], tol)
+    assert all(equal_up_to_ties(gpu[i], gpu_sc[i], want_ids[i], want_sc[i], tol)
                for i in range(128))
+
+
+def test_loaded_model_through_hash_kernel(dev, tmp_path):
+    """A model loaded from its file holds T*P tables with one identity
+    permutation each (P = 1). K1 takes that shape: bit-equal to its plain
+    version away from near-zero dots, and to the saved model's K1 hashes
+    everywhere (each function's dot is summed in the same column order
+    whichever table holds it)."""
+    conf = RDFConfig(vector_dim=100, table_num=10, permutation_num=3, family_size=100,
+                     lsh_table=TableConfig(chain_length=32), seed=9)
+    saved = generate_model(conf, device=dev)
+    path = str(tmp_path / "model")
+    save_model_file(saved, path)
+    loaded = load_model_file(path, conf, device=dev)
+    assert tuple(loaded.perm.shape) == (30, 1, 32)
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(1024, 100)).astype(np.float32), device=dev)
+    before = K1.LAUNCHES
+    h, _ = K1.hash_dense_kernel(x, loaded.proj, loaded.perm)
+    assert K1.LAUNCHES == before + 1
+    assert torch.equal(h, K1.hash_dense_kernel(x, saved.proj, saved.perm)[0])
+    _check_hash_of(dev, x, loaded.proj, loaded.perm)
+
+
+def _check_hash_of(dev, x, proj, perm):
+    """K1 against its plain version on given operands: no hash bit differs
+    away from near-zero dots."""
+    b, (t, c, _), p = x.shape[0], proj.shape, perm.shape[1]
+    hk, _ = K1.hash_dense_kernel(x, proj, perm)
+    hp, _ = K1.hash_dense_plain(x, proj, perm)
+    dots = torch.einsum("bd,tcd->btc", x.double(), proj.double())
+    near = (dots.abs() < 1e-4)[:, :, None, :].expand(-1, -1, p, -1)
+    bits = torch.gather(near, 3, perm.long()[None].expand(b, -1, -1, -1)).long()
+    near_word = (bits << torch.arange(31, 31 - c, -1, device=dev)).sum(-1).reshape(b, -1)
+    assert not ((hk ^ hp) & ~near_word).any()
+
+
+def _front_conf(**kw):
+    return RDFConfig(vector_dim=32, table_num=4, permutation_num=2, family_size=40,
+                     lsh_table=TableConfig(chain_length=32, bucket_overflow=48),
+                     query_batch_size=64, max_candidates=4096, coarse_dim=16,
+                     coarse_refine=256, top_k=10, seed=13, **kw)
+
+
+def _ids_equal_up_to_ties(x, q, got, want, tol) -> bool:
+    """Two id lists of one query (no scores returned): their rows' exact
+    scores, position by position, within `tol`."""
+    if len(got) != len(want):
+        return False
+    sg = x[np.asarray(got, dtype=np.int64)].astype(np.float64) @ q.astype(np.float64)
+    sw = x[np.asarray(want, dtype=np.int64)].astype(np.float64) @ q.astype(np.float64)
+    return bool((np.abs(sg - sw) <= tol).all())
+
+
+@pytest.mark.parametrize("engine", ["forest", "flat"])
+def test_dense_front_end_on_card_matches_cpu(dev, engine):
+    """DenseRDFInit on the card against the CPU path on the same rows: the
+    vector query up to exact-score ties (2*D*2^-24), the key query equal to
+    the card's own vector query and [] for unknown keys, the dataTable
+    distribution equal and each table's partition counts summing to N."""
+    x = _flat_corpus(3000, 32, 21)
+    ids = np.arange(3000, dtype=np.int32) + 100
+    conf = _front_conf(engine=engine)
+    fronts = {}
+    for where in (dev, "cpu"):
+        f = DenseRDFInit(device=where)
+        f.initialize_rdf_hash_map(conf)
+        f.fit_batch(DenseBatch(ids, x))
+        fronts[str(where)] = f
+    card, cpu = fronts[str(dev)], fronts["cpu"]
+    k1, k2, k4 = K1.LAUNCHES, K2.LAUNCHES, K4.LAUNCHES
+    g_ids, g_sc = card.new_multi_thread_query_batch(ids[:128], x[:128])
+    if engine == "forest":
+        assert K1.LAUNCHES > k1 and K2.LAUNCHES > k2
+    else:
+        assert K4.LAUNCHES > k4
+    c_ids, c_sc = cpu.new_multi_thread_query_batch(ids[:128], x[:128])
+    tol = 2 * 32 * U
+    assert all(equal_up_to_ties(g_ids[i], g_sc[i], c_ids[i], c_sc[i], tol)
+               for i in range(128))
+    keys = [int(k) for k in ids[:128]] + [5, -1, 99999]
+    got = card.query_batch(keys)
+    assert got[:128] == [[i for i in row if i >= 0] for row in g_ids.tolist()]
+    assert got[128:] == [[], [], []]
+    if engine == "forest":
+        dt, ht = card.get_dt_and_ht_num_distribution()
+        assert np.array_equal(dt, cpu.get_dt_and_ht_num_distribution()[0])
+        assert ht.sum() == 3000
+        assert (card.forest.sub_index_distribution().sum(axis=1) == 3000).all()
+
+
+def test_dynamic_forest_on_card_matches_cpu(dev):
+    """The same inserts and removals on the card and on the CPU answer
+    alike up to exact-score ties; the card's compaction equals a fresh fit
+    on the card with the same model and chains, bit for bit."""
+    x = _flat_corpus(4000, 32, 22)
+    ids = np.arange(4000, dtype=np.int32)
+    dyns = {}
+    for where in (dev, "cpu"):
+        d = DynamicForest(_front_conf(), merge_threshold=0.5, device=where)
+        d.fit(DenseBatch(ids[:3000], x[:3000]))
+        d.add(DenseBatch(ids[3000:3500], x[3000:3500]))
+        for victim in (1, 3100, 2000):
+            d.remove(victim)
+        dyns[str(where)] = d
+    card, cpu = dyns[str(dev)], dyns["cpu"]
+    q = np.concatenate([x[:64], x[3000:3064]])
+    qid = np.concatenate([ids[:64], ids[3000:3064]])
+    k1, k2 = K1.LAUNCHES, K2.LAUNCHES
+    g_ids, g_sc = card.query(q, query_ids=qid)
+    assert K1.LAUNCHES > k1 and K2.LAUNCHES > k2 and card.delta is not None
+    c_ids, c_sc = cpu.query(q, query_ids=qid)
+    assert not np.isin(g_ids, [1, 3100, 2000]).any()
+    tol = 2 * 32 * U
+    assert all(equal_up_to_ties(g_ids[i], g_sc[i], c_ids[i], c_sc[i], tol)
+               for i in range(128))
+    card.compact()
+    keep = ~np.isin(ids[:3500], [1, 3100, 2000])
+    fresh = RDFForest(card.conf, model=card.main.model, device=dev)
+    fresh.part_proj = card.main.part_proj
+    fresh.fit(DenseBatch(ids[:3500][keep], x[:3500][keep]))
+    got, want = card.query(q, query_ids=qid), fresh.query(q, query_ids=qid)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def test_rdfmap_on_card_matches_cpu(dev):
+    x = _flat_corpus(2000, 32, 23)
+    maps = {}
+    for where in (dev, "cpu"):
+        m = RDFMap(_front_conf(), device=where)
+        for i in range(2000):
+            m.put(i, x[i])
+        m.remove(17)
+        maps[str(where)] = m
+    tol = 2 * 32 * U
+    for key in range(0, 2000, 97):
+        got, want = maps[str(dev)].get_similar(key), maps["cpu"].get_similar(key)
+        assert 17 not in got and key not in got
+        assert _ids_equal_up_to_ties(x, x[key], got, want, tol), key

@@ -42,6 +42,13 @@ def test_port_imports_with_jax_blocked():
         "import similaritysearchbyrdf_tpu_torch.ops.exact\n"
         "import similaritysearchbyrdf_tpu_torch.ops.flat\n"
         "import similaritysearchbyrdf_tpu_torch.ops.ivf\n"
+        "import similaritysearchbyrdf_tpu_torch.deploy.dense\n"
+        "import similaritysearchbyrdf_tpu_torch.deploy.map_api\n"
+        "import similaritysearchbyrdf_tpu_torch.deploy.multi_feature\n"
+        "import similaritysearchbyrdf_tpu_torch.deploy.server\n"
+        "import similaritysearchbyrdf_tpu_torch.experiments.harness\n"
+        "import similaritysearchbyrdf_tpu_torch.index.dynamic\n"
+        "import similaritysearchbyrdf_tpu_torch.utils.timing\n"
         "from similaritysearchbyrdf_tpu_torch.ops.kernels import build\n"
         "assert build._lib is None, 'kernels were built at import'\n"
         "assert 'triton' not in sys.modules\n"
@@ -53,7 +60,11 @@ def test_port_imports_with_jax_blocked():
     assert set(out.stdout.strip().split(",")) == {
         "RDFConfig", "TableConfig", "DenseBatch", "ForestState", "RDFForest",
         "fit_dense", "query_dense_many", "from_jax_state", "from_jax_flat", "from_jax_ivf",
-        "FlatIndex", "flat_topk", "flat_topk_grouped", "IVFFlatIndex", "tune_nprobe"}
+        "FlatIndex", "flat_topk", "flat_topk_grouped", "IVFFlatIndex", "tune_nprobe",
+        "DenseRDFInit", "MultiFeatureRDFInit", "HashModel", "generate_model",
+        "save_model_file", "load_model_file", "query_dense", "KeyLayout", "BucketTables",
+        "exact_search", "load_dense_file", "load_ground_truth", "from_hocon_dict",
+        "from_hocon_file", "RDFMap", "DynamicForest"}
 
 
 def test_kernel_sources_are_package_data():
