@@ -84,6 +84,18 @@ device is present:
      query's hash) and K2 (the 900k main and the 100k delta tier) against
      their plain versions on the operands of the query that rebuilds the
      delta;
+ 14. persist_1m (after dynamic_1m): deploy_1m's forest saved (compressed) and
+     loaded, its rebuilt coarse and head tiers equal to the fitted ones and
+     its 1,000 queries' ids bit-equal (recall@10 equal to deploy_1m's); a
+     `FlatIndex()` on the same corpus and an `IVFFlatIndex(target_cluster=256,
+     iters=6)` on its first 200,000 rows saved and loaded with equal ids; a `TieredForest` over 4
+     uncompressed generations of 250,000 rows, its merge equal to the host
+     merge of the generations' own lists, the second query reading nothing
+     from disk, `get` of 100 keys; save and load seconds, file bytes per
+     vector, merged qps; K1 and K2 (the loaded forest's first query), K4 and
+     K2b (the loaded flat index's) and K2b (the loaded IVF index's) against
+     their plain versions on those operands; the native parser on a dense
+     text file, built and used; the phase's seconds;
  11. ivf_8m (after flat_8m): `IVFFlatIndex(target_cluster=256, iters=6)` on
      the same Deep-8M corpus and ground truth, built twice from one seed
      (the layouts must be equal), queried at three points (nprobe 2 / win
@@ -760,6 +772,244 @@ def dynamic_phase(big, conf_l, xl_d, sync, median_ms) -> dict:
                 "compaction_s": calls["remove 65th (compaction)"]["first_s"],
                 "merged_qps": N_QUERY / calls["query"]["s"],
                 "phase_s": time.perf_counter() - t_phase})
+    emit(out)
+    return out
+
+
+def persist_phase(big, conf_l, xl, xl_d, gt, recall_block, sync, median_ms) -> dict:
+    """Persistence on deploy_1m's corpus and config: `big` saved
+    (compressed, the CLI's default) and loaded, its rebuilt coarse and head
+    tiers equal to the fitted ones and its 1,000 queries bit-equal; a
+    `FlatIndex()` and an `IVFFlatIndex(target_cluster=256, iters=6, seed=0,
+    refine=128)` fitted on the same corpus, saved and loaded with equal
+    ids (the IVF index on the first 200,000 rows, so that the phase stays
+    within 90 s); a `TieredForest` over an uncompressed `GenerationStore`, the
+    corpus spilled as 4 generations of 250,000 rows: its merge equal to the
+    host merge of the generations' own lists, the second query reading
+    nothing from disk, `get` of 100 keys. K1 and K2 on the loaded forest's
+    first query, K4 and K2b on the loaded flat index's, and K2b on the
+    loaded IVF index's are held against their plain versions; the native
+    parser reads a dense text file of 10,000 rows."""
+    import os
+    import tempfile
+
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch import (DenseBatch, FlatIndex, GenerationStore,
+                                                 IVFFlatIndex, TieredForest, load_flat,
+                                                 load_forest, load_ivf, save_flat, save_forest,
+                                                 save_ivf)
+    from similaritysearchbyrdf_tpu_torch import vectors as V
+    from similaritysearchbyrdf_tpu_torch.index import forest as F
+    from similaritysearchbyrdf_tpu_torch.native import loader as native
+    from similaritysearchbyrdf_tpu_torch.ops import flat as FL
+    from similaritysearchbyrdf_tpu_torch.ops import hashing as H
+    from similaritysearchbyrdf_tpu_torch.ops import ivf as IVF
+    from similaritysearchbyrdf_tpu_torch.ops.exact import exact_search
+    from similaritysearchbyrdf_tpu_torch.storage.persist import forest_state_bytes
+
+    t_phase = time.perf_counter()
+    dev = xl_d.device
+    n = xl_d.shape[0]
+    ids = np.arange(n, dtype=np.int32)
+    q, qids = xl_d[:N_QUERY], ids[:N_QUERY]
+    calls = {}
+    out = {"phase": "persist_1m", "n": n, "queries": N_QUERY, "calls": calls, "cuts": []}
+    kernels = {}
+
+    def run(name, fn, kernels_of_path, reps=0, record=()):
+        return launch_checked("persist_1m", calls, name, fn, kernels_of_path, sync, reps,
+                              record=record)
+
+    def timed(fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, time.perf_counter() - t0
+
+    def file_bytes(path):
+        return os.path.getsize(path + ".npz") + os.path.getsize(path + ".json")
+
+    tmp = tempfile.mkdtemp(prefix="persist_1m_")
+    try:
+        # ---- (a) the forest -------------------------------------------------
+        want_ids, want_sc = big.query_device(q, query_ids=qids, **QUERY_KW)
+        path = os.path.join(tmp, "forest")
+        _, save_s = timed(lambda: save_forest(big, path))
+        loaded, load_s = timed(lambda: load_forest(path, device=dev))
+        st, lst = big.state, loaded.state
+        tiers_equal = {"coarse_proj": bool(torch.equal(st.coarse_proj, lst.coarse_proj)),
+                       "coarse_tier": bool(torch.equal(st.coarse_tier, lst.coarse_tier)),
+                       "coarse_head": bool(torch.equal(st.coarse_head, lst.coarse_head))}
+        check(all(tiers_equal.values()), f"persist_1m: a rebuilt tier differs: {tiers_equal}")
+        (got, sc), rec = run("loaded forest query",
+                             lambda: loaded.query_device(q, query_ids=qids, **QUERY_KW),
+                             [K1, K2], reps=3, record=[(H, [K1]), (F, [K2])])
+        check(len(rec[K1]) == 1 and len(rec[K2]) == 1,
+              f"persist_1m: {len(rec[K1])} K1 and {len(rec[K2])} K2 calls in one query")
+        (x1, proj1, perm1), kw1 = rec[K1][0]
+        args2, kw2 = rec[K2][0]
+        check(kw1 == {"emit_margins": True} and not kw2,
+              f"persist_1m: unexpected K1 or K2 call: {kw1}, {kw2}")
+        kernels["K1"] = hash_check(x1, proj1, perm1, True, sync, median_ms,
+                                   "the loaded forest's query")
+        kernels["K2"] = block_kernel_check(*args2, sync, median_ms)
+        del rec, x1, proj1, perm1, args2
+        check(bool(torch.equal(got, want_ids)) and bool(torch.equal(sc, want_sc)),
+              "persist_1m: the loaded forest's ids or scores differ from the fitted forest's")
+        recall = recall_at(gt, got.cpu().numpy())
+        check(recall == recall_block,
+              f"persist_1m: the loaded forest's recall@10 {recall} is not deploy_1m's "
+              f"{recall_block}")
+        out["forest"] = {"save_s": save_s, "load_s": load_s, "compress": True,
+                         "file_bytes": file_bytes(path),
+                         "file_bytes_per_vector": file_bytes(path) / n,
+                         "forest_state_bytes": forest_state_bytes(lst),
+                         "tiers_equal": tiers_equal, "ids_bit_equal": True,
+                         "recall_at_10": recall, "deploy_1m_recall_at_10": recall_block,
+                         "qps": calls["loaded forest query"]["qps"]}
+        del loaded, lst, got, sc, want_ids, want_sc
+        os.remove(path + ".npz")
+        torch.cuda.empty_cache()
+
+        # ---- (b) the flat engine ----------------------------------------------
+        flat, fit_s = timed(lambda: FlatIndex(device=dev).fit(DenseBatch(ids, xl_d)))
+        want_ids, want_sc = flat.query_device(q, k=10, query_ids=qids)
+        path = os.path.join(tmp, "flat")
+        _, save_s = timed(lambda: save_flat(flat, path))
+        loaded, load_s = timed(lambda: load_flat(path, device=dev))
+        check(bool(torch.equal(loaded.sketch, flat.sketch))
+              and bool(torch.equal(loaded.corpus, flat.corpus)) and loaded.scale == flat.scale,
+              "persist_1m: the loaded flat index's arrays differ")
+        (got, sc), f_calls = run("loaded flat query",
+                                 lambda: loaded.query_device(q, k=10, query_ids=qids), [K4],
+                                 reps=3, record=[(FL, [K4, K2B])])
+        kernels["flat"] = flat_kernels(f_calls[K4][0], (f_calls[K2B] or [None])[0], sync,
+                                       median_ms, "the loaded flat index", bf16=False)
+        del f_calls
+        check(bool(torch.equal(got, want_ids)) and bool(torch.equal(sc, want_sc)),
+              "persist_1m: the loaded flat index's ids differ from the fitted index's")
+        out["flat"] = {"fit_s": fit_s, "save_s": save_s, "load_s": load_s,
+                       "file_bytes_per_vector": file_bytes(path) / n,
+                       "select_mode": FL._resolve_select_mode("auto", flat.sketch.dtype, n,
+                                                              flat.sketch.shape[1]),
+                       "recall_at_10": recall_at(gt, got.cpu().numpy()), "ids_bit_equal": True,
+                       "qps": calls["loaded flat query"]["qps"]}
+        del flat, loaded, got, sc, want_ids, want_sc
+        os.remove(path + ".npz")
+        torch.cuda.empty_cache()
+
+        # ---- (c) the IVF engine, on the first 200,000 rows ---------------------
+        # (at 1M rows the phase took 106 s on an NVIDIA H100 80GB HBM3
+        # machine, over its 90 s budget: IVF's compressed save alone took
+        # 22 s there, as the flat engine's did)
+        n_ivf = min(200_000, n)
+        out["cuts"].append(f"ivf on the first {n_ivf:,} of {n:,} rows")
+        gt_ivf, _ = exact_search(xl_d[:n_ivf], q, 10, exclude_self=True, device=dev)
+        ivf, build_s = timed(lambda: IVFFlatIndex(target_cluster=256, iters=6, seed=0,
+                                                  refine=128, device=dev).fit(
+            DenseBatch(ids[:n_ivf], xl_d[:n_ivf])))
+        want_ids, want_sc = ivf.query_device(q, k=10, query_ids=qids)
+        path = os.path.join(tmp, "ivf")
+        _, save_s = timed(lambda: save_ivf(ivf, path))
+        loaded, load_s = timed(lambda: load_ivf(path, device=dev))
+        same = {f: bool(torch.equal(a, b)) for f, a, b in
+                zip(ivf.state._fields, loaded.state, ivf.state) if a is not None}
+        check(all(same.values()), f"persist_1m: the loaded IVF state differs: {same}")
+        (got, sc), i_calls = run("loaded ivf query",
+                                 lambda: loaded.query_device(q, k=10, query_ids=qids), [K2B],
+                                 reps=3, record=[(IVF, [K2B])])
+        args, kw = i_calls[K2B][0]
+        check(not kw, f"persist_1m: unexpected K2b call on the IVF path: {kw}")
+        kernels["K2b_ivf"] = window_check(args, sync, median_ms, "the loaded IVF index")
+        del i_calls, args
+        check(bool(torch.equal(got, want_ids)) and bool(torch.equal(sc, want_sc)),
+              "persist_1m: the loaded IVF index's ids differ from the built index's")
+        out["ivf"] = {"rows": n_ivf, "k_clusters": ivf.state.centroids.shape[0],
+                      "nprobe": ivf.nprobe, "win": ivf.win, "build_s": build_s,
+                      "save_s": save_s, "load_s": load_s,
+                      "file_bytes_per_vector": file_bytes(path) / n_ivf,
+                      "recall_at_10": recall_at(gt_ivf, got.cpu().numpy()),
+                      "ids_bit_equal": True,
+                      "qps": calls["loaded ivf query"]["qps"]}
+        del ivf, loaded, got, sc, want_ids, want_sc
+        os.remove(path + ".npz")
+        torch.cuda.empty_cache()
+
+        # ---- (d) the tiered store ---------------------------------------------
+        store = GenerationStore(tmp, "tiered", compress=False, device=dev)
+        tiered = TieredForest(conf_l, store)
+        spill_s, per_gen = [], n // 4
+        for c0 in range(0, n, per_gen):
+            tiered.fit(DenseBatch(ids[c0:c0 + per_gen], xl_d[c0:c0 + per_gen]))
+            spill_s.append(timed(tiered.spill)[1])
+        stems = store.generations()
+        check(len(stems) == 4, f"persist_1m: {len(stems)} generations, not 4")
+        q_np = xl[:N_QUERY]
+        got, sc = run("tiered query (loads)", lambda: tiered.query(q_np, query_ids=qids),
+                      [K1, K2])
+        loads_first = store.disk_loads
+        got2, sc2 = run("tiered query (resident)", lambda: tiered.query(q_np, query_ids=qids),
+                        [K1, K2], reps=3)
+        loads_second = store.disk_loads
+        check(loads_first == 4 and loads_second == loads_first,
+              f"persist_1m: disk loads {loads_first} then {loads_second}, not 4 then 4")
+        check(np.array_equal(got, got2) and np.array_equal(sc, sc2),
+              "persist_1m: the resident query differs from the first")
+        # the JAX package's merge on the host: each generation's own top-10,
+        # a stable descending order of the concatenated lists, -1 where not finite
+        lists = [store.load_generation(s).query(q_np, query_ids=qids, k=10) for s in stems]
+        cat_i = np.concatenate([a for a, _ in lists], axis=1)
+        cat_s = np.concatenate([b for _, b in lists], axis=1)
+        order = np.argsort(-cat_s, axis=1, kind="stable")[:, :10]
+        m_sc = np.take_along_axis(cat_s, order, 1)
+        m_ids = np.where(np.isfinite(m_sc), np.take_along_axis(cat_i, order, 1), -1)
+        check(np.array_equal(got, m_ids) and np.array_equal(sc, m_sc),
+              "persist_1m: the tiered merge differs from the host merge of the generations")
+        check(got.shape == (N_QUERY, 10) and bool(np.isfinite(sc).all()),
+              "persist_1m: tiered output has the wrong shape or non-finite scores")
+        keys = [int(k) for k in np.linspace(0, n - 1, 100).astype(np.int64)]
+        rows, get_s = timed(lambda: [tiered.get(k) for k in keys])
+        check(all(r is not None and np.array_equal(r, xl[k]) for k, r in zip(keys, rows)),
+              "persist_1m: get did not return the stored rows")
+        out["tiered"] = {"generations": len(stems), "rows_per_generation": per_gen,
+                         "compress": False, "spill_s": spill_s,
+                         "generation_bytes_per_vector": sum(file_bytes(s) for s in stems) / n,
+                         "gated": len(store._cache), "loaded": loads_first,
+                         "disk_loads_after_first_query": loads_first,
+                         "disk_loads_after_second_query": loads_second,
+                         "probe_mode": "reference", "recall_at_10": recall_at(gt, got),
+                         "deploy_1m_recall_at_10": recall_block,
+                         "merged_qps": calls["tiered query (resident)"]["qps"],
+                         "merge_equals_host_merge": True, "get_100_keys_s": get_s}
+        del tiered, store, lists
+
+        # ---- the native parser --------------------------------------------------
+        path = os.path.join(tmp, "dense.txt")
+        with open(path, "w") as f:
+            f.write("\n".join(f"[{i},[{','.join(repr(float(v)) for v in xl[i])}]]"
+                              for i in range(10_000)))
+        _, build_s = timed(native.library)
+        before = native.CALLS
+        batch, parse_s = timed(lambda: V.load_dense_file(path))
+        used = native.CALLS == before + 1
+        py, py_s = timed(lambda: V.load_dense_file(path, use_native=False))
+        check(native.built and used, f"persist_1m: the native parser was not built and used: "
+                                     f"{native.last_build_log}")
+        check(np.array_equal(batch.ids, py.ids) and np.array_equal(batch.values, py.values),
+              "persist_1m: the native parser's rows differ from the Python parser's")
+        out["native"] = {"built": native.built, "used": used, "build_s": native.build_s,
+                         "first_call_s": build_s,
+                         "library": str(native.library_path().relative_to(
+                             native.BUILD_ROOT.parent.parent)),
+                         "rows": 10_000, "parse_s": parse_s, "python_parse_s": py_s}
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["kernels"] = kernels
+    out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
@@ -1536,11 +1786,14 @@ def main() -> int:
     k2b = window_kernel_phase(big, xl_d[:128].contiguous(), sync, median_ms)
     win = window_phase(big, conf_l, ql, ids_l[:N_QUERY], gt_l, recall_l, win_cpu_agree, sync)
 
-    # ---- phases 12 and 13: the front ends and the mutable index at 1M --------
+    # ---- phases 12-14: the front ends, the mutable index, persistence at 1M ---
     del st
     torch.cuda.empty_cache()
     frontend_phase(big, conf_l, xl, xl_d, gt_l, sync, median_ms)
     dynamic_phase(big, conf_l, xl_d, sync, median_ms)
+
+    # ---- phase 14: persistence at 1M ------------------------------------------
+    persist_phase(big, conf_l, xl, xl_d, gt_l, recall_l, sync, median_ms)
     del big, xl, ql
     torch.cuda.empty_cache()
 

@@ -10,13 +10,17 @@ random or PCA basis, and the bf16 two-stage rerank), the dense flat engine
 kernel), the clustered-flat IVF engine (`IVFFlatIndex`, k-means and K2b
 window scores), the dense front ends (`DenseRDFInit`, `MultiFeatureRDFInit`,
 the `RDFMap` map surface), the mutable index (`DynamicForest`,
-`RDFForest.add`), hash-model and partition files, tracing spans and the
-experiment harness (`experiments.harness`). Entry points run on the first
-CUDA card unless given `device="cpu"`. The CUDA kernels are built on first
-use, never at import.
+`RDFForest.add`), hash-model and partition files, tracing spans, the
+experiment harness (`experiments.harness`), persistence (`save_forest` /
+`load_forest`, `save_flat` / `load_flat`, `save_ivf` / `load_ivf`, writing
+the JAX package's files; the tiered `GenerationStore` and `TieredForest`),
+the CLI (`cli`), the dataset generators (`utils.datasets`) and the native
+host parser (`native`). Entry points run on the first CUDA card unless
+given `device="cpu"`. The CUDA kernels and the native parser are built on
+first use, never at import.
 """
 
-from .config import RDFConfig, TableConfig, from_hocon_dict, from_hocon_file
+from .config import PStableConfig, RDFConfig, TableConfig, from_hocon_dict, from_hocon_file
 from .deploy.dense import DenseRDFInit
 from .deploy.map_api import RDFMap
 from .deploy.multi_feature import MultiFeatureRDFInit
@@ -26,8 +30,10 @@ from .index.forest import ForestState, RDFForest, fit_dense, query_dense, query_
 from .interop import from_jax_flat, from_jax_ivf, from_jax_state
 from .models.families import HashModel, generate_model, load_model_file, save_model_file
 from .ops.exact import exact_search
-from .ops.flat import FlatIndex, flat_topk, flat_topk_grouped
+from .ops.flat import FlatIndex, build_flat_sketch, flat_topk, flat_topk_grouped
 from .ops.ivf import IVFFlatIndex, tune_nprobe
+from .storage.persist import (GenerationStore, TieredForest, load_flat, load_forest,
+                              load_ivf, save_flat, save_forest, save_ivf)
 from .vectors import DenseBatch, load_dense_file, load_ground_truth
 
 __version__ = "0.1.0"
@@ -35,6 +41,7 @@ __version__ = "0.1.0"
 __all__ = [
     "RDFConfig",
     "TableConfig",
+    "PStableConfig",
     "from_hocon_dict",
     "from_hocon_file",
     "DenseBatch",
@@ -62,6 +69,15 @@ __all__ = [
     "FlatIndex",
     "flat_topk",
     "flat_topk_grouped",
+    "build_flat_sketch",
     "IVFFlatIndex",
     "tune_nprobe",
+    "save_forest",
+    "load_forest",
+    "save_flat",
+    "load_flat",
+    "save_ivf",
+    "load_ivf",
+    "TieredForest",
+    "GenerationStore",
 ]

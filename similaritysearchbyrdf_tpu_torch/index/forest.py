@@ -192,17 +192,24 @@ def _coarse_low(corpus: torch.Tensor, proj: torch.Tensor, store_int8: bool = Tru
 
 
 def _build_coarse_tier(corpus: torch.Tensor, sorted_ids: torch.Tensor, coarse_dim: int,
-                       coarse_dtype: str, seed: int, proj_mode: str = "random"
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+                       coarse_dtype: str, seed: int, proj_mode: str = "random",
+                       proj: Optional[np.ndarray] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(coarse_proj f32[D, cs], tier [L, caprows, cs], int8 for
     coarse_dtype "int8", else bf16): every table's coarse rows in its
     bucket-sorted order, so a query block's rows are one contiguous slice.
     The tier is stored per table; the JAX package packs G = 128/cs tables
-    per 128-lane row, a TPU DMA workaround."""
+    per 128-lane row, a TPU DMA workaround. `proj` is a saved projection
+    (the load path): used as it is, never recomputed, so the rebuilt tier
+    equals the fitted one (a PCA basis depends on the fitting device's
+    products)."""
     d = corpus.shape[1]
     cd = min(coarse_dim, d)
-    proj = (np.eye(d, dtype=np.float32) if cd == d
-            else _coarse_projection(corpus, cd, seed, proj_mode))
+    if proj is not None:
+        proj = np.asarray(proj, dtype=np.float32)
+    elif cd == d:
+        proj = np.eye(d, dtype=np.float32)
+    else:
+        proj = _coarse_projection(corpus, cd, seed, proj_mode)
     cs = coarse_seg_width(cd)
     proj = np.pad(proj, ((0, 0), (0, cs - proj.shape[1])))
     coarse_proj = torch.as_tensor(proj, device=corpus.device)
@@ -229,6 +236,23 @@ def build_head_tier(tier: torch.Tensor, sorted_ids: torch.Tensor, hp: int) -> to
         cnt = live.view(hr, hp).sum(dim=1).clamp(min=1).to(torch.float32)
         out[t] = (rows.view(hr, hp, cs).sum(dim=1) / cnt[:, None]).to(torch.bfloat16)
     return out
+
+
+def build_coarse_tiers(conf: RDFConfig, corpus: torch.Tensor, sorted_ids: torch.Tensor,
+                       proj: Optional[np.ndarray] = None):
+    """(coarse_proj, coarse_tier, coarse_head) as a fit with `conf` makes
+    them from the row-padded corpus and the tables' sorted ids (all None
+    without `coarse_dim`; the head tier only in the lane layout with
+    `coarse_head_pool`). `proj` is a saved projection (the load path)."""
+    if not conf.coarse_dim:
+        return None, None, None
+    coarse_proj, tier = _build_coarse_tier(corpus, sorted_ids, conf.coarse_dim,
+                                           conf.coarse_dtype, conf.seed,
+                                           proj_mode=conf.coarse_proj_mode, proj=proj)
+    head = None
+    if conf.coarse_layout == "lane" and conf.coarse_head_pool:
+        head = build_head_tier(tier, sorted_ids, conf.coarse_head_pool)
+    return coarse_proj, tier, head
 
 
 def fit_dense(conf: RDFConfig, batch: DenseBatch, model: Optional[HashModel] = None,
@@ -265,14 +289,7 @@ def fit_dense(conf: RDFConfig, batch: DenseBatch, model: Optional[HashModel] = N
     ids = torch.where(pos < n, pos, -1).expand_as(keys)
     tables = build_tables(keys, ids, layout, conf.lsh_table.bucket_overflow, nb_pad=nb_pad)
     del keys, ids
-    coarse_proj = coarse_tier = coarse_head = None
-    if conf.coarse_dim:
-        coarse_proj, coarse_tier = _build_coarse_tier(
-            values, tables.sorted_ids, conf.coarse_dim, conf.coarse_dtype, conf.seed,
-            proj_mode=conf.coarse_proj_mode)
-        if conf.coarse_layout == "lane" and conf.coarse_head_pool:
-            coarse_head = build_head_tier(coarse_tier, tables.sorted_ids,
-                                          conf.coarse_head_pool)
+    coarse_proj, coarse_tier, coarse_head = build_coarse_tiers(conf, values, tables.sorted_ids)
     corpus_lp = values.to(torch.bfloat16) if conf.rerank_dtype == "bfloat16" else None
     return ForestState(
         model=model, part_proj=part_proj, tables=tables, corpus=values, row_ids=row_ids,

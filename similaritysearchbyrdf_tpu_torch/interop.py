@@ -14,6 +14,11 @@ index. Layout changes on the way:
     per-table tier [L, caprows, cs] (exact: folding is a row-major
     reshape), of which the port's folded tier is a view.
 
+`jax_state_arrays` goes the other way for the fields a saved forest holds
+(`storage/persist.save_forest` writes them as the JAX package's file):
+keys back to uint32, the corpus padded with zero columns to the JAX
+package's 128-lane width.
+
 `dynamic_from_jax` builds a `DynamicForest` whose main and delta tiers hold
 two such states, with the JAX package's staged delta rows and tombstones.
 
@@ -40,7 +45,7 @@ from .index.bucket_table import BucketTables, build_records
 from .index.dynamic import DynamicForest
 from .index.forest import ForestState
 from .models.families import Device, HashModel, resolve_device
-from .ops.bitops import to_key
+from .ops.bitops import from_key, to_key
 from .ops.flat import FlatIndex
 from .ops.ivf import IVFFlatIndex, IVFState
 
@@ -54,6 +59,7 @@ FIELDS = (
 # forests fitted with rerank_dtype="bfloat16": corpus_lp
 OPTIONAL_FIELDS = ("coarse_proj", "coarse_by_table", "coarse_head", "coarse_folded",
                    "corpus_lp")
+LANES = 128       # the JAX package pads stored widths to a multiple of this
 
 
 def _bf16(a: np.ndarray, device) -> torch.Tensor:
@@ -130,6 +136,44 @@ def from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
     )
 
 
+def pad_lanes(a: np.ndarray) -> np.ndarray:
+    """`a` with zero columns up to the JAX package's 128-lane multiple."""
+    return np.pad(a, ((0, 0), (0, -a.shape[1] % LANES)))
+
+
+def jax_state_arrays(state: ForestState) -> Dict[str, np.ndarray]:
+    """The JAX package's state arrays of a port `ForestState`, on the host,
+    keyed as `from_jax_state` takes them (`FIELDS`, and `coarse_proj` when
+    the state has a coarse tier), with the JAX package's dtypes: the
+    order-preserving int32 keys back to uint32 (`from_key`; the padding key
+    becomes 0xFFFFFFFF), bucket shifts as uint32, the corpus padded with
+    zero columns to 128 lanes. Derived arrays (records, coarse tiers,
+    `corpus_lp`) are not among them: a load rebuilds them."""
+    def host(t: torch.Tensor, dtype) -> np.ndarray:
+        return t.detach().cpu().numpy().astype(dtype, copy=False)
+
+    def key(t: torch.Tensor) -> np.ndarray:
+        return from_key(t.detach().cpu()).numpy().astype(np.uint32)
+
+    model, tables = state.model, state.tables
+    out = {
+        "model.proj": host(model.proj, np.float32), "model.perm": host(model.perm, np.int32),
+        "model.b": host(model.b, np.float32),
+        "model.sampling_perm": host(model.sampling_perm, np.int32),
+        "part_proj": host(state.part_proj, np.float32),
+        "tables.sorted_keys": key(tables.sorted_keys),
+        "tables.sorted_ids": host(tables.sorted_ids, np.int32),
+        "tables.bucket_keys": key(tables.bucket_keys),
+        "tables.bucket_starts": host(tables.bucket_starts, np.int32),
+        "tables.bucket_shifts": host(tables.bucket_shifts, np.uint32),
+        "corpus": pad_lanes(host(state.corpus, np.float32)),
+        "row_ids": host(state.row_ids, np.int32),
+    }
+    if state.coarse_proj is not None:
+        out["coarse_proj"] = host(state.coarse_proj, np.float32)
+    return out
+
+
 def dynamic_from_jax(conf: RDFConfig, main: Dict[str, np.ndarray],
                      delta: Optional[Dict[str, np.ndarray]] = None,
                      delta_ids: Optional[np.ndarray] = None,
@@ -151,7 +195,9 @@ def from_jax_flat(arrays: Dict[str, np.ndarray], dim: int, device: Device = None
     """A fitted port `FlatIndex` (on `device`, default the first CUDA card;
     `index_kw` as for `FlatIndex`) from the JAX package's FlatIndex arrays
     `sketch`, `scale`, `corpus` and `row_ids`. `dim` is the corpus's true
-    width: both packages pad it with zero columns, which change no score."""
+    width: both packages pad it with zero columns, which change no score.
+    The exact tier keeps `corpus`'s type unless `index_kw` names a
+    `corpus_dtype` (a saved file widens a bf16 tier to f32)."""
     device = resolve_device(device)
     missing = [f for f in ("sketch", "scale", "corpus", "row_ids") if f not in arrays]
     if missing:
@@ -164,9 +210,9 @@ def from_jax_flat(arrays: Dict[str, np.ndarray], dim: int, device: Device = None
     # bf16 values widen to f32 exactly, and narrow back exactly
     sketch = host(sketch_np, np.float32).to(torch.bfloat16) if bf16 else host(sketch_np)
     corpus_np = np.asarray(arrays["corpus"])
-    index = FlatIndex(sketch_dtype="bfloat16" if bf16 else "int8",
-                      corpus_dtype="float32" if corpus_np.dtype == np.float32 else "bfloat16",
-                      device=device, **index_kw)
+    index_kw.setdefault("corpus_dtype",
+                        "float32" if corpus_np.dtype == np.float32 else "bfloat16")
+    index = FlatIndex(sketch_dtype="bfloat16" if bf16 else "int8", device=device, **index_kw)
     return index.set_state(sketch, float(arrays["scale"]), host(corpus_np[:, :dim], np.float32),
                            host(arrays["row_ids"], np.int32))
 

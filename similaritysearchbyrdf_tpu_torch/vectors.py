@@ -5,8 +5,9 @@ reference's vector layer, `src/main/scala/mclab/lsh/vector/Vector.scala`),
 which is framework-free: vectors live in batches, a dense batch one `[N, D]`
 array, a sparse batch padded `[N, nnz_pad]` index/value arrays plus per-row
 lengths. One change: a `DenseBatch` keeps torch tensors (values and ids) as
-they are, so a corpus already on the GPU is not copied through the host. The native C++
-parser of the JAX package is not ported; the pure-Python parsers run.
+they are, so a corpus already on the GPU is not copied through the host. The
+native C++ parser (`native/`, built with g++ on first use) reads dense files
+when it is built; the pure-Python parsers run otherwise.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from .native import loader as native_loader
 
 
 # ---------------------------------------------------------------------------
@@ -266,14 +269,9 @@ def load_dense_file(
     """Load a file of `[id,[v...]]` lines (the reference's dense fit input,
     `DensevectorRDFInit.newFastFit` → `Vectors.parseDense`)."""
     if use_native:
-        try:
-            from .native import loader as _native_loader
-
-            out = _native_loader.load_dense_file(path, limit)
-            if out is not None:
-                return DenseBatch(*out)
-        except Exception:
-            pass
+        out = native_loader.load_dense_file(path, limit)
+        if out is not None:
+            return DenseBatch(*out)
     ids: List[int] = []
     rows: List[np.ndarray] = []
     with open(path, "r") as f:

@@ -888,3 +888,119 @@ def test_rdfmap_on_card_matches_cpu(dev):
         got, want = maps[str(dev)].get_similar(key), maps["cpu"].get_similar(key)
         assert 17 not in got and key not in got
         assert _ids_equal_up_to_ties(x, x[key], got, want, tol), key
+
+
+_PERSIST_CONFS = {
+    "int8_head": dict(coarse_dim=16, coarse_head_pool=8, coarse_window=64, coarse_keep=16,
+                      max_candidates=2048),
+    "bf16_pca_lp": dict(coarse_dim=16, coarse_dtype="bfloat16", coarse_proj_mode="pca",
+                        rerank_dtype="bfloat16"),
+    "folded": dict(coarse_dim=16, coarse_layout="folded", coarse_refine=2048,
+                   coarse_window=64, max_candidates=4096),
+}
+
+
+def _persist_corpus(n=6000, d=32, seed=5):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(64, d))
+    x = c[rng.integers(0, 64, n)] + 0.1 * rng.normal(size=(n, d))
+    return (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("name", list(_PERSIST_CONFS))
+@pytest.mark.parametrize("compress", [True, False])
+def test_forest_save_load_on_card(dev, tmp_path, name, compress):
+    """A forest fitted on the card, saved and loaded on the card: the
+    rebuilt coarse tier (and head tier) equal to the fitted ones, ids and
+    scores bit-equal, and the loaded query through K1 and K2/K2b/K3."""
+    from similaritysearchbyrdf_tpu_torch import load_forest, save_forest
+
+    conf = _front_conf().replace(**_PERSIST_CONFS[name])
+    x = _persist_corpus()
+    ids = np.arange(len(x), dtype=np.int32)
+    fitted = RDFForest(conf, device=dev).fit(DenseBatch(ids, torch.as_tensor(x, device=dev)))
+    save_forest(fitted, str(tmp_path / "f"), compress=compress)
+    loaded = load_forest(str(tmp_path / "f"))
+    a, b = fitted.state, loaded.state
+    assert b.corpus.is_cuda and b.coarse_tier.is_cuda
+    assert torch.equal(a.coarse_proj, b.coarse_proj)
+    assert torch.equal(a.coarse_tier, b.coarse_tier)
+    assert (a.coarse_head is None) == (b.coarse_head is None)
+    if a.coarse_head is not None:
+        assert torch.equal(a.coarse_head, b.coarse_head)
+    if a.corpus_lp is not None:
+        assert torch.equal(a.corpus_lp, b.corpus_lp)
+    kernel = {"int8_head": K2, "bf16_pca_lp": K2, "folded": K3}[name]
+    attr = "WINDOW_LAUNCHES" if name == "int8_head" else "LAUNCHES"
+    k1, kx = K1.LAUNCHES, getattr(kernel, attr)
+    got = loaded.query(x[:128], steps=1, query_ids=ids[:128])
+    assert K1.LAUNCHES > k1 and getattr(kernel, attr) > kx
+    want = fitted.query(x[:128], steps=1, query_ids=ids[:128])
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", ["int8", "bfloat16"])
+def test_flat_save_load_on_card(dev, tmp_path, dtype):
+    from similaritysearchbyrdf_tpu_torch import load_flat, save_flat
+
+    x = _persist_corpus(n=20000, d=100)
+    ids = np.arange(len(x), dtype=np.int32)
+    flat = FlatIndex(sketch_dtype=dtype, device=dev).fit(DenseBatch(ids, x))
+    save_flat(flat, str(tmp_path / "f"))
+    loaded = load_flat(str(tmp_path / "f"))
+    assert torch.equal(loaded.sketch, flat.sketch) and torch.equal(loaded.corpus, flat.corpus)
+    before = K4.LAUNCHES
+    got = loaded.query(x[:256], k=10, query_ids=ids[:256])
+    assert K4.LAUNCHES > before
+    want = flat.query(x[:256], k=10, query_ids=ids[:256])
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def test_ivf_save_load_on_card(dev, tmp_path):
+    from similaritysearchbyrdf_tpu_torch import load_ivf, save_ivf
+
+    x = _persist_corpus(n=20000, d=96)
+    ids = np.arange(len(x), dtype=np.int32)
+    ivf = IVFFlatIndex(target_cluster=64, nprobe=4, win=64, iters=3, head_pool=16, keep=8,
+                       device=dev).fit(DenseBatch(ids, x))
+    save_ivf(ivf, str(tmp_path / "i"))
+    loaded = load_ivf(str(tmp_path / "i"))
+    for a, b in zip(loaded.state, ivf.state):
+        assert torch.equal(a, b)
+    before = K2.WINDOW_LAUNCHES
+    got = loaded.query(x[:256], k=10, query_ids=ids[:256])
+    assert K2.WINDOW_LAUNCHES > before
+    want = ivf.query(x[:256], k=10, query_ids=ids[:256])
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])
+
+
+def test_tiered_store_on_card(dev, tmp_path):
+    """Three generations spilled from the card: the device merge equals a
+    host merge of each generation's own lists, the second query reads
+    nothing from disk, and `get` returns the stored rows."""
+    from similaritysearchbyrdf_tpu_torch import GenerationStore, TieredForest
+
+    conf = _front_conf()
+    x = _persist_corpus()
+    ids = np.arange(len(x), dtype=np.int32)
+    store = GenerationStore(str(tmp_path), "g", compress=False)
+    tiered = TieredForest(conf, store)
+    for c0 in range(0, len(x), 2000):
+        tiered.fit(DenseBatch(ids[c0:c0 + 2000], x[c0:c0 + 2000]))
+        tiered.spill()
+    got_i, got_s = tiered.query(x[:128], steps=1, query_ids=ids[:128])
+    loads = store.disk_loads
+    assert loads == 3
+    again = tiered.query(x[:128], steps=1, query_ids=ids[:128])
+    assert store.disk_loads == loads
+    assert np.array_equal(again[0], got_i)
+    lists = [store.load_generation(s).query(x[:128], steps=1, query_ids=ids[:128], k=10)
+             for s in store.generations()]
+    cat_i = np.concatenate([a for a, _ in lists], axis=1)
+    cat_s = np.concatenate([b for _, b in lists], axis=1)
+    order = np.argsort(-cat_s, axis=1, kind="stable")[:, :10]
+    want_s = np.take_along_axis(cat_s, order, 1)
+    want_i = np.where(np.isfinite(want_s), np.take_along_axis(cat_i, order, 1), -1)
+    assert np.array_equal(got_i, want_i) and np.array_equal(got_s, want_s)
+    for key in (0, 2500, 5999):
+        assert np.array_equal(tiered.get(key), x[key])

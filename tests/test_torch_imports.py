@@ -49,8 +49,16 @@ def test_port_imports_with_jax_blocked():
         "import similaritysearchbyrdf_tpu_torch.experiments.harness\n"
         "import similaritysearchbyrdf_tpu_torch.index.dynamic\n"
         "import similaritysearchbyrdf_tpu_torch.utils.timing\n"
+        "import similaritysearchbyrdf_tpu_torch.utils.datasets\n"
+        "import similaritysearchbyrdf_tpu_torch.storage.persist\n"
+        "import similaritysearchbyrdf_tpu_torch.storage.serializers\n"
+        "import similaritysearchbyrdf_tpu_torch.storage.crypto\n"
+        "import similaritysearchbyrdf_tpu_torch.storage.bloom\n"
+        "import similaritysearchbyrdf_tpu_torch.cli\n"
+        "from similaritysearchbyrdf_tpu_torch.native import loader\n"
         "from similaritysearchbyrdf_tpu_torch.ops.kernels import build\n"
         "assert build._lib is None, 'kernels were built at import'\n"
+        "assert loader._lib is None and not loader.built, 'the native library was built at import'\n"
         "assert 'triton' not in sys.modules\n"
         "print(','.join(sorted(p.__all__)))\n"
     )
@@ -64,7 +72,9 @@ def test_port_imports_with_jax_blocked():
         "DenseRDFInit", "MultiFeatureRDFInit", "HashModel", "generate_model",
         "save_model_file", "load_model_file", "query_dense", "KeyLayout", "BucketTables",
         "exact_search", "load_dense_file", "load_ground_truth", "from_hocon_dict",
-        "from_hocon_file", "RDFMap", "DynamicForest"}
+        "from_hocon_file", "RDFMap", "DynamicForest", "PStableConfig", "build_flat_sketch",
+        "save_forest", "load_forest", "save_flat", "load_flat", "save_ivf", "load_ivf",
+        "TieredForest", "GenerationStore"}
 
 
 def test_kernel_sources_are_package_data():
@@ -75,3 +85,16 @@ def test_kernel_sources_are_package_data():
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
         "coarse_fold.cu", "coarse_gather.cu", "flat_groupmax.cu", "hash_kernel.cu"]
+
+
+def test_native_sources_are_package_data():
+    import tomllib
+
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    data = conf["tool"]["setuptools"]["package-data"]["similaritysearchbyrdf_tpu_torch"]
+    assert "native/*.cc" in data
+    assert sorted(p.name for p in (PORT / "native").glob("*.cc")) == [
+        "rdf_codec.cc", "rdf_loader.cc"]
+    # the reference's package keeps its own Makefile build; the port builds
+    # with its loader, outside the package
+    assert not list((PORT / "native").glob("*.so"))
