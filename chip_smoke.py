@@ -102,7 +102,21 @@ device is present:
      128, nprobe 1 / win 64, nprobe 8 / win 64 pruned to 64 windows by a
      64-row head tier): build and k-means seconds, recall, qps, bytes, peak
      memory, a device profile, and K2b against its plain version on the
-     operands each point gave it.
+     operands each point gave it;
+ 15. sparse_1m (last): `scripts/bench_sparse_1m.py`'s corpus and config,
+     1,000,000 x 4096 rows of 64 non-zeros: exact ground truth of 1,024
+     self-excluded queries (`exact_topk_sparse`, equal to an f32 product
+     of densified chunks up to ties), the `SparseRDFForest` fit from rows
+     on the card (seconds, build rate, bytes, peak memory), its queries at
+     (steps 0, refine 2048), (0, 4096) and (1, 8192) (recall beside the
+     TPU v5e's, qps, a device profile of the last), the first 64 queries
+     again on the CPU path (equal up to exact-score ties), the
+     `SparseFlatIndex()` on the same corpus (build, bytes, recall, qps, a
+     profile; recall again with more groups kept and more rows re-scored),
+     and K1 (a fit chunk, B 8192, and a query chunk, B 64, at D 4096), K2
+     (cs 64), K2b (the 4096-wide sketch as one table) and K4 (D 4096, all
+     1,007,616 rows) against their plain versions on the operands the path
+     gave them, every call's launches.
 
 Each phase prints one JSON line. A kernel's `ms` is CUDA events around one
 call on an idle card, the wrapper's host time included; `device_ms` beside
@@ -1355,16 +1369,18 @@ def device_profile(fn, sync, reps: int = 3) -> dict:
 
 
 @contextlib.contextmanager
-def recording(module, *names):
+def recording(module, *names, limit=None):
     """Within the block, calls of `module.<name>` for each name also keep
-    their arguments: {name: [(args, kwargs), ...]}. The kernels' own launch
-    counts are untouched."""
+    their arguments: {name: [(args, kwargs), ...]}, the first `limit` calls
+    of each (all without one: a fit's hundred chunks would all be held).
+    The kernels' own launch counts are untouched."""
     calls = {name: [] for name in names}
     saved = {name: getattr(module, name) for name in names}
 
     def keep(name):
         def call(*args, **kw):
-            calls[name].append((args, kw))
+            if limit is None or len(calls[name]) < limit:
+                calls[name].append((args, kw))
             return saved[name](*args, **kw)
         return call
 
@@ -1613,6 +1629,246 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
     return k4, launches
 
 
+# recall@10 of the JAX package on a TPU v5e on the sparse_1m corpus
+# (results/sparse_1m.json, scripts/bench_sparse_1m.py): parity references,
+# not targets. At coarse_refine 2048 the TPU took approx_max_k, which was
+# approximate there; the port selects exactly.
+SPARSE_TPU_RECALL = {(0, 2048): 0.6168, (0, 4096): 0.9655, (1, 8192): 0.9997}
+SPARSE_N, SPARSE_DIM, SPARSE_NNZ, SPARSE_NQ = 1_000_000, 4096, 64, 1024
+# (refine, r_groups) of the sparse flat engine beside its default (128, 30)
+SPARSE_FLAT_WITNESS = ((128, 100), (128, 200), (512, 200))
+
+
+def sparse_corpus(n=SPARSE_N, dim=SPARSE_DIM, nnz=SPARSE_NNZ, n_clusters=5000, seed=3):
+    """`scripts/bench_sparse_1m.py:29-37`'s corpus, drawn in the same order:
+    5,000 cluster supports of `nnz` distinct indices, each row one
+    cluster's support, values 0.8 + 0.2·U normalised."""
+    rng = np.random.default_rng(seed)
+    supports = np.stack([rng.choice(dim, size=nnz, replace=False) for _ in range(n_clusters)])
+    idx = supports[rng.integers(0, n_clusters, n)].astype(np.int32)
+    val = (0.8 + 0.2 * rng.random((n, nnz))).astype(np.float32)
+    val /= np.linalg.norm(val, axis=1, keepdims=True)
+    return idx, val
+
+
+def sparse_conf(**kw):
+    """`scripts/bench_sparse_1m.py:62-69`'s index config."""
+    from similaritysearchbyrdf_tpu_torch import RDFConfig, TableConfig
+
+    return RDFConfig(vector_dim=SPARSE_DIM, table_num=10, permutation_num=3, family_size=100,
+                     partition_bits=3,
+                     lsh_table=TableConfig(chain_length=32, bucket_overflow=500),
+                     query_batch_size=64, max_candidates=16384, top_k=10, coarse_dim=64,
+                     coarse_dtype="int8", coarse_refine=2048, **kw)
+
+
+def sparse_phase(dev, sync, median_ms) -> dict:
+    """The sparse path at `scripts/bench_sparse_1m.py`'s scale: 1,000,000 x
+    4096 rows of 64 non-zeros. Exact ground truth of 1,024 self-excluded
+    queries (`exact_topk_sparse`, held against an f32 product of densified
+    chunks); the forest's fit and its three query points; the first query
+    chunk again on the CPU path; the sparse flat engine; K1 (a fit chunk
+    and a query chunk), K2 (cs 64), K2b (cs 4096) and K4 (D 4096) against
+    their plain versions on the operands the path gave them. → the kernel
+    records."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch import SparseBatch, SparseFlatIndex, SparseRDFForest
+    from similaritysearchbyrdf_tpu_torch.experiments.harness import equal_up_to_ties
+    from similaritysearchbyrdf_tpu_torch.index import forest as F
+    from similaritysearchbyrdf_tpu_torch.index import sparse_forest as SF
+    from similaritysearchbyrdf_tpu_torch.ops import flat as FL
+    from similaritysearchbyrdf_tpu_torch.ops import hashing as H
+    from similaritysearchbyrdf_tpu_torch.ops.exact import exact_topk_sparse
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2M
+    from similaritysearchbyrdf_tpu_torch.ops.precision import full_f32
+    from similaritysearchbyrdf_tpu_torch.ops.rerank import top_sorted
+
+    t_phase = time.perf_counter()
+    n, dim, nq = SPARSE_N, SPARSE_DIM, SPARSE_NQ
+    t0 = time.perf_counter()
+    idx, val = sparse_corpus()
+    gen_s = time.perf_counter() - t0
+    ids = np.arange(n, dtype=np.int32)
+    idx_d, val_d = torch.as_tensor(idx, device=dev), torch.as_tensor(val, device=dev)
+    batch = SparseBatch(ids, dim, idx_d, val_d, np.full(n, SPARSE_NNZ, np.int32))
+    queries = batch.slice(0, nq)
+    out = {"phase": "sparse_1m", "n": n, "dim": dim, "nnz": SPARSE_NNZ, "queries": nq,
+           "corpus_gen_s": gen_s, "source": "scripts/bench_sparse_1m.py:29-80",
+           "tpu_v5e_recall_at_10": {f"steps{s}_rf{r}": v
+                                    for (s, r), v in SPARSE_TPU_RECALL.items()}}
+    calls = {}
+
+    # ---- ground truth: exact_topk_sparse, held against densified f32 products
+    qd = H.densify(idx_d[:nq], val_d[:nq], dim)
+    sync()
+    t0 = time.perf_counter()
+    gt_i, gt_s = exact_topk_sparse(idx_d, val_d, qd, 10, exclude_diag_offset=0)
+    sync()
+    gt_secs = time.perf_counter() - t0
+    best_s = torch.full((nq, 10), float("-inf"), device=dev)
+    best_i = torch.full((nq, 10), -1, dtype=torch.int64, device=dev)
+    qrow = torch.arange(nq, device=dev)[:, None]
+    for c0 in range(0, n, 65536):
+        rows = H.densify(idx_d[c0:c0 + 65536], val_d[c0:c0 + 65536], dim)
+        with full_f32():
+            sc = qd @ rows.T
+        rid = torch.arange(c0, c0 + rows.shape[0], device=dev)[None, :]
+        sc = torch.where(rid == qrow, float("-inf"), sc)
+        cat_s, cat_i = torch.cat([best_s, sc], 1), torch.cat([best_i, rid.expand(nq, -1)], 1)
+        best_s, ti = top_sorted(cat_s, 10)
+        best_i = torch.gather(cat_i, 1, ti)
+        del rows, sc
+    gt = gt_i.cpu().numpy()
+    gs, di, ds = gt_s.cpu().numpy(), best_i.cpu().numpy(), best_s.cpu().numpy()
+    check(np.isfinite(gs).all(), "sparse ground truth has non-finite scores")
+    gt_ties = int((gt != di).any(axis=1).sum())
+    check(all(equal_up_to_ties(gt[i], gs[i], di[i], ds[i], 1e-6) for i in range(nq)),
+          "exact_topk_sparse disagrees with the densified f32 product beyond ties")
+    out["ground_truth"] = {"s": gt_secs, "queries_differing_by_ties": gt_ties,
+                           "max_score_diff": float(np.abs(gs - ds).max())}
+    del best_s, best_i
+
+    # ---- the forest: cold fit, then a warm fit on the main path -----------
+    conf = sparse_conf()
+    t0 = time.perf_counter()
+    forest = SparseRDFForest(conf, device=dev)
+    out["model_s"] = time.perf_counter() - t0
+    forest.fit(batch)
+    sync()
+    nb_pad = forest.state.tables.bucket_keys.shape[1]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with recording(H, K1, limit=1) as k1_fit:
+        state = launch_checked("sparse_1m", calls, "fit", lambda: SF.fit_sparse(
+            conf, batch, model=forest.model, part_proj=forest.part_proj, nb_pad=nb_pad),
+            (K1,), sync)
+    fit_s = calls["fit"]["first_s"]
+    forest.state = state
+    st = state
+    out["fit"] = {"s": fit_s, "build_vectors_per_sec": n / fit_s,
+                  "index_bytes_per_vector": st.tables.index_bytes() / n,
+                  "coarse_tier_bytes_per_vector": nbytes(st.coarse_tier) / n,
+                  "corpus_bytes_per_vector": nbytes(st.corpus_indices, st.corpus_values) / n,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(dev)}
+
+    # ---- the query points --------------------------------------------------
+    qids = ids[:nq]
+    out["points"] = {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    k1_query_call = k2_call = None
+    for steps, refine in SPARSE_TPU_RECALL:
+        name = f"steps{steps}_rf{refine}"
+
+        def run(steps=steps, refine=refine):
+            return forest.query_device(queries, steps=steps, query_ids=qids, coarse_refine=refine)
+
+        if k2_call is None:
+            with recording(H, K1, limit=1) as k1c, recording(F, K2, limit=1) as k2c:
+                got, sc = launch_checked("sparse_1m", calls, name, run, (K1, K2), sync)
+            k1_query_call, k2_call = k1c[K1][0], k2c[K2][0]
+        else:
+            got, sc = launch_checked("sparse_1m", calls, name, run, (K1, K2), sync)
+        got = got.cpu().numpy()
+        check(got.shape == (nq, 10) and bool(torch.isfinite(sc).all()),
+              f"sparse_1m {name}: wrong shape or non-finite scores")
+        q_s = timed_s(run, sync, 3)
+        rec = recall_at(gt, got)
+        out["points"][name] = {"steps": steps, "coarse_refine": refine, "recall_at_10": rec,
+                               "tpu_v5e_recall_at_10": SPARSE_TPU_RECALL[(steps, refine)],
+                               "recall_gap": rec - SPARSE_TPU_RECALL[(steps, refine)],
+                               "qps": nq / q_s, "query_s": q_s}
+    out["query_max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    last = lambda: forest.query_device(queries, steps=1, query_ids=qids, coarse_refine=8192)
+    out["profile_steps1_rf8192"] = device_profile(last, sync)
+
+    # ---- the card against the CPU path: the first 64-query chunk ----------
+    t0 = time.perf_counter()
+    cpu_state = st.to("cpu")
+    layout = forest.layout
+    q64 = queries.slice(0, 64)
+    kw = dict(steps=0, m_cap=conf.max_candidates, k=10, exclude_self=True, coarse_refine=4096)
+    g_ids, g_sc, _ = SF._query_sparse(st, q64.indices, q64.values,
+                                      torch.as_tensor(qids[:64], device=dev), layout, dim, **kw)
+    c_ids, c_sc, _ = SF._query_sparse(cpu_state, q64.indices.cpu(), q64.values.cpu(),
+                                      torch.as_tensor(qids[:64]), layout, dim, **kw)
+    g_ids, g_sc, c_ids, c_sc = (t.cpu().numpy() for t in (g_ids, g_sc, c_ids, c_sc))
+    tied = int((g_ids != c_ids).any(axis=1).sum())
+    check(all(equal_up_to_ties(g_ids[i], g_sc[i], c_ids[i], c_sc[i], 1e-6) for i in range(64)),
+          "sparse_1m: the card and the CPU path disagree beyond exact-score ties")
+    out["cpu_path"] = {"queries": 64, "steps": 0, "coarse_refine": 4096,
+                       "queries_differing_by_ties": tied, "s": time.perf_counter() - t0}
+    del cpu_state
+
+    # ---- the sparse flat engine on the same corpus -------------------------
+    flat = SparseFlatIndex(device=dev)
+    sync()
+    t0 = time.perf_counter()
+    flat.fit(batch)
+    sync()
+    flat_build_s = time.perf_counter() - t0
+
+    def flat_query():
+        return flat.query_device(queries.indices, queries.values, k=10, query_ids=qids)
+
+    with recording(FL, K4, K2B, limit=1) as f_calls:
+        f_ids, f_sc = launch_checked("sparse_1m", calls, "flat", flat_query, (K4, K2B), sync)
+    f_ids = f_ids.cpu().numpy()
+    check(f_ids.shape == (nq, 10) and bool(torch.isfinite(f_sc).all()),
+          "sparse_1m flat: wrong shape or non-finite scores")
+    f_s = timed_s(flat_query, sync, 3)
+    # the witness to the recall's cause: more groups kept, and then more rows
+    # re-scored exactly, on the same sketch and queries
+    witness = {}
+    for refine, r_groups in SPARSE_FLAT_WITNESS:
+        wit = SparseFlatIndex(refine, r_groups, device=dev).set_state(
+            flat.sketch, flat.scale, flat.c_idx, flat.c_val, flat.row_ids, flat.size)
+        w_ids, _ = wit.query_device(queries.indices, queries.values, k=10, query_ids=qids)
+        witness[f"refine{refine}_rg{r_groups}"] = {
+            "refine": refine, "r_groups": wit.groups_kept(10),
+            "recall_at_10": recall_at(gt, w_ids.cpu().numpy()),
+            "query_s": timed_s(lambda: wit.query_device(queries.indices, queries.values, k=10,
+                                                        query_ids=qids), sync, 1)}
+    out["flat"] = {"refine": flat.refine, "r_groups": flat.groups_kept(10),
+                   "select_mode": FL._resolve_select_mode("auto", flat.sketch.dtype, n,
+                                                          flat.sketch.shape[1]),
+                   "build_s": flat_build_s, "bytes_per_vector": flat.bytes_per_vector(),
+                   "recall_at_10": recall_at(gt, f_ids), "qps": nq / f_s, "query_s": f_s,
+                   "forest_best_recall_at_10": out["points"]["steps1_rf8192"]["recall_at_10"],
+                   "witness": witness,
+                   "profile": device_profile(flat_query, sync)}
+
+    # ---- the kernels on the path's own operands ---------------------------
+    kern = {}
+    (x, proj, perm), kw1 = k1_fit[K1][0]
+    check(not kw1 and x.shape == (conf.fit_batch_size, dim), f"unexpected K1 fit call: {kw1}")
+    kern["K1_fit"] = hash_check(x, proj, perm, False, sync, median_ms, "a sparse_1m fit chunk")
+    (x, proj, perm), kw1 = k1_query_call
+    check(not kw1 and x.shape == (conf.query_batch_size, dim), f"unexpected K1 call: {kw1}")
+    kern["K1_query"] = hash_check(x, proj, perm, False, sync, median_ms,
+                                  "a sparse_1m query chunk")
+    (tier, q_low, table_i, blk_start, bs), kw2 = k2_call
+    check(not kw2, f"unexpected K2 call on sparse_1m: {kw2}")
+    k2 = block_kernel_check(tier, q_low, table_i, blk_start, bs, sync, median_ms)
+    k2["mismatched_values"] = int(
+        (K2M.coarse_block_scores_kernel(tier, q_low, table_i, blk_start, bs)
+         != K2M.coarse_block_scores_plain(tier, q_low, table_i, blk_start, bs)).sum())
+    kern["K2"] = k2
+    fk = flat_kernels(f_calls[K4][0], f_calls[K2B][0], sync, median_ms, "sparse_1m",
+                      bf16=False)
+    check(fk["K4_int8"]["shape"]["D"] == dim, f"unexpected K4 call on sparse_1m: {fk}")
+    kern["K4"] = {**fk["K4_int8"], "form": fk["K4_int8"]["form"] + ", D in slices"}
+    kern["K2b"] = fk["K2b"]
+    for rec in kern.values():
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+        rec["device_bound_share"] = rec["bound_ms"] / rec["device_ms"]
+    out["kernels"] = kern
+    out["calls"] = calls
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1813,6 +2069,10 @@ def main() -> int:
     # ---- phase 11: the IVF engine on the same 8M corpus ----------------------
     ivf_phase(x8, gt8, sync, median_ms)
     del x8
+    torch.cuda.empty_cache()
+
+    # ---- phase 15: the sparse path at 1M x 4096 --------------------------------
+    sparse_phase(dev, sync, median_ms)
     k4p = k4["int8_packed"]
     lib = {"library_ms": None}     # no single PyTorch call computes any of these functions
 

@@ -14,8 +14,11 @@ the `RDFMap` map surface), the mutable index (`DynamicForest`,
 experiment harness (`experiments.harness`), persistence (`save_forest` /
 `load_forest`, `save_flat` / `load_flat`, `save_ivf` / `load_ivf`, writing
 the JAX package's files; the tiered `GenerationStore` and `TieredForest`),
-the CLI (`cli`), the dataset generators (`utils.datasets`) and the native
-host parser (`native`). Entry points run on the first CUDA card unless
+the CLI (`cli`), the dataset generators (`utils.datasets`), the native
+host parser (`native`), and the sparse path: the sparse forest
+(`SparseRDFForest`: sparse hashing through K1, the sort-merge rerank), the
+sparse flat engine (`SparseFlatIndex`, `flat_topk_sparse`) and the sparse
+front end (`SparseRDFInit`). Entry points run on the first CUDA card unless
 given `device="cpu"`. The CUDA kernels and the native parser are built on
 first use, never at import.
 """
@@ -24,17 +27,21 @@ from .config import PStableConfig, RDFConfig, TableConfig, from_hocon_dict, from
 from .deploy.dense import DenseRDFInit
 from .deploy.map_api import RDFMap
 from .deploy.multi_feature import MultiFeatureRDFInit
+from .deploy.sparse import SparseRDFInit
 from .index.bucket_table import BucketTables, KeyLayout
 from .index.dynamic import DynamicForest
 from .index.forest import ForestState, RDFForest, fit_dense, query_dense, query_dense_many
+from .index.sparse_forest import SparseRDFForest
 from .interop import from_jax_flat, from_jax_ivf, from_jax_state
 from .models.families import HashModel, generate_model, load_model_file, save_model_file
 from .ops.exact import exact_search
-from .ops.flat import FlatIndex, build_flat_sketch, flat_topk, flat_topk_grouped
+from .ops.flat import (FlatIndex, SparseFlatIndex, build_flat_sketch, flat_topk,
+                       flat_topk_grouped, flat_topk_sparse)
 from .ops.ivf import IVFFlatIndex, tune_nprobe
 from .storage.persist import (GenerationStore, TieredForest, load_flat, load_forest,
                               load_ivf, save_flat, save_forest, save_ivf)
-from .vectors import DenseBatch, load_dense_file, load_ground_truth
+from .vectors import (DenseBatch, SparseBatch, load_dense_file, load_ground_truth,
+                      load_sparse_file, sparse_batch_from_rows)
 
 __version__ = "0.1.0"
 
@@ -45,14 +52,18 @@ __all__ = [
     "from_hocon_dict",
     "from_hocon_file",
     "DenseBatch",
+    "SparseBatch",
     "load_dense_file",
+    "load_sparse_file",
     "load_ground_truth",
+    "sparse_batch_from_rows",
     "HashModel",
     "generate_model",
     "save_model_file",
     "load_model_file",
     "ForestState",
     "RDFForest",
+    "SparseRDFForest",
     "fit_dense",
     "query_dense",
     "query_dense_many",
@@ -62,6 +73,7 @@ __all__ = [
     "DynamicForest",
     "DenseRDFInit",
     "MultiFeatureRDFInit",
+    "SparseRDFInit",
     "RDFMap",
     "from_jax_state",
     "from_jax_flat",
@@ -70,6 +82,8 @@ __all__ = [
     "flat_topk",
     "flat_topk_grouped",
     "build_flat_sketch",
+    "SparseFlatIndex",
+    "flat_topk_sparse",
     "IVFFlatIndex",
     "tune_nprobe",
     "save_forest",

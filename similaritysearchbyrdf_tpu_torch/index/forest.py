@@ -26,8 +26,9 @@ query hash with margins (K1) → probe keys (partition steps x bit flips) →
         int8 rerank (`stage2`).
 
 `RDFForest` adds inserts (`add`), the per-table sub-index distribution and
-`query_dense`, the public name of the batched query core. Not ported yet:
-sparse corpora.
+`query_dense`, the public name of the batched query core. Sparse corpora
+have their own forest (`index/sparse_forest.py`), built on this module's
+tables, candidate blocks and coarse scores.
 """
 
 from __future__ import annotations
@@ -98,15 +99,18 @@ class ForestState:
     def to(self, device: Device) -> "ForestState":
         """This state with every tensor, its model's and tables' too, on
         `device`."""
-        def move(v):
-            if isinstance(v, torch.Tensor):
-                return v.to(device)
-            if dataclasses.is_dataclass(v):
-                return dataclasses.replace(v, **{f.name: move(getattr(v, f.name))
-                                                 for f in dataclasses.fields(v)})
-            return v
+        return state_to(self, device)
 
-        return move(self)
+
+def state_to(state, device: Device):
+    """A dataclass state with every tensor in it, nested dataclasses'
+    too, on `device`."""
+    if isinstance(state, torch.Tensor):
+        return state.to(device)
+    if dataclasses.is_dataclass(state):
+        return dataclasses.replace(state, **{f.name: state_to(getattr(state, f.name), device)
+                                             for f in dataclasses.fields(state)})
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -1049,12 +1053,18 @@ class RDFForest:
         to their unsigned values before the shift. Counted on the device."""
         if self.state is None:
             raise RuntimeError("need to fit the data first")
-        tables = self.state.tables
-        keys = from_key(tables.sorted_keys)                          # [L, cap]
-        ids = tables.sorted_ids[:, :keys.shape[1]]
-        parts = keys >> (self.layout.seg_bits + self.layout.consumed_bits)
-        l = keys.shape[0]
-        np_parts = 1 << self.layout.partition_bits
-        flat = parts + np_parts * torch.arange(l, device=keys.device)[:, None]
-        counts = torch.bincount(flat[ids >= 0], minlength=l * np_parts)
-        return counts.view(l, np_parts).cpu().numpy()
+        return sub_index_counts(self.state.tables, self.layout)
+
+
+def sub_index_counts(tables: BucketTables, layout: KeyLayout) -> np.ndarray:
+    """Live rows per (table, sub-index), int64[L, 2**partitionBits]: the
+    sub-index is the key's top bits, read after unflipping the keys to their
+    unsigned values. Counted on the tables' device."""
+    keys = from_key(tables.sorted_keys)                              # [L, cap]
+    ids = tables.sorted_ids[:, :keys.shape[1]]
+    parts = keys >> (layout.seg_bits + layout.consumed_bits)
+    l = keys.shape[0]
+    np_parts = 1 << layout.partition_bits
+    flat = parts + np_parts * torch.arange(l, device=keys.device)[:, None]
+    counts = torch.bincount(flat[ids >= 0], minlength=l * np_parts)
+    return counts.view(l, np_parts).cpu().numpy()

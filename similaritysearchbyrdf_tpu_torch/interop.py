@@ -22,11 +22,16 @@ package's 128-lane width.
 `dynamic_from_jax` builds a `DynamicForest` whose main and delta tiers hold
 two such states, with the JAX package's staged delta rows and tombstones.
 
+`sparse_from_jax_state` takes a JAX `SparseForestState`'s arrays the same
+way (its padded-COO corpus and its lane-packed tier, G = 128 // cs tables
+a row, as they are).
+
 `from_jax_flat` does the same for the JAX package's `FlatIndex`: its sketch
 loses the 128-lane padding down to the port's multiple of 32 columns, its
 exact tier the padding down to the true width, and its strided second
 sketch copy (`sketch_gmax`, a TPU tactic) is not read. `from_jax_ivf`
-carries the JAX package's `IVFState` over the same way.
+carries the JAX package's `IVFState` over the same way, and
+`from_jax_sparse_flat` its `SparseFlatIndex`.
 
 numpy has no bf16 type: a bf16 array may come as the JAX package's own
 (`ml_dtypes`) bf16 or widened to f32 by the caller. Either widens to f32
@@ -44,9 +49,10 @@ from .config import RDFConfig
 from .index.bucket_table import BucketTables, build_records
 from .index.dynamic import DynamicForest
 from .index.forest import ForestState
+from .index.sparse_forest import SparseForestState
 from .models.families import Device, HashModel, resolve_device
 from .ops.bitops import from_key, to_key
-from .ops.flat import FlatIndex
+from .ops.flat import FlatIndex, SparseFlatIndex
 from .ops.ivf import IVFFlatIndex, IVFState
 
 FIELDS = (
@@ -74,17 +80,16 @@ def unpack_lane_tier(packed: np.ndarray, num_tables: int, cs: int) -> np.ndarray
                      for t in range(num_tables)])
 
 
-def from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
-                   device: Device = None) -> ForestState:
-    """The port's `ForestState` from the JAX package's state arrays (see
-    `FIELDS`; `OPTIONAL_FIELDS` may be absent), on `device` (default: the
-    first CUDA card). A state with `corpus_lp` reranks in two stages, as
-    the JAX package's does, whatever `conf.rerank_dtype` says: that option
-    acts at the fit."""
-    device = resolve_device(device)
-    missing = [f for f in FIELDS if f not in arrays]
+def _model_and_tables(arrays: Dict[str, np.ndarray], conf: RDFConfig, fields, who: str,
+                      device: torch.device):
+    """(model, tables, t) from a JAX state's arrays: the hash model, the
+    bucket tables with their keys made the port's int32 keys (`to_key`),
+    and `t(name, dtype)`, which makes any of the arrays a tensor on
+    `device`. Raises KeyError naming what `fields` lists and `arrays`
+    lacks."""
+    missing = [f for f in fields if f not in arrays]
     if missing:
-        raise KeyError(f"from_jax_state: missing arrays {missing}")
+        raise KeyError(f"{who}: missing arrays {missing}")
 
     def t(name: str, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(np.array(arrays[name]), dtype=dtype, device=device)
@@ -108,16 +113,37 @@ def from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
         bucket_keys=bucket_keys, bucket_starts=bucket_starts, bucket_shifts=bucket_shifts,
         records=build_records(bucket_keys, bucket_starts, bucket_shifts),
     )
+    return model, tables, t
+
+
+def _lane_tier(arrays: Dict[str, np.ndarray], num_tables: int, device: torch.device):
+    """(coarse_proj, per-table tier) from the lane-packed `coarse_by_table`
+    (int8, or bf16 as bf16 or widened to f32) and its `coarse_proj`, G =
+    128 // cs tables a row."""
+    coarse_proj = torch.as_tensor(np.array(arrays["coarse_proj"]), dtype=torch.float32,
+                                  device=device)
+    packed = np.asarray(arrays["coarse_by_table"])
+    tier = unpack_lane_tier(packed, num_tables, coarse_proj.shape[1])
+    tier = (torch.as_tensor(tier, device=device) if packed.dtype == np.int8
+            else _bf16(tier, device))
+    return coarse_proj, tier
+
+
+def from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
+                   device: Device = None) -> ForestState:
+    """The port's `ForestState` from the JAX package's state arrays (see
+    `FIELDS`; `OPTIONAL_FIELDS` may be absent), on `device` (default: the
+    first CUDA card). A state with `corpus_lp` reranks in two stages, as
+    the JAX package's does, whatever `conf.rerank_dtype` says: that option
+    acts at the fit."""
+    device = resolve_device(device)
+    model, tables, t = _model_and_tables(arrays, conf, FIELDS, "from_jax_state", device)
     coarse_proj = tier = head = None
     layout = "lane"
     l = tables.num_tables
     if arrays.get("coarse_by_table") is not None:
-        coarse_proj = t("coarse_proj", torch.float32)
+        coarse_proj, tier = _lane_tier(arrays, l, device)
         cs = coarse_proj.shape[1]
-        packed = np.asarray(arrays["coarse_by_table"])
-        tier = unpack_lane_tier(packed, l, cs)
-        tier = (torch.as_tensor(tier, device=device) if packed.dtype == np.int8
-                else _bf16(tier, device))
         if arrays.get("coarse_head") is not None:
             head = _bf16(unpack_lane_tier(np.asarray(arrays["coarse_head"]), l, cs), device)
     elif arrays.get("coarse_folded") is not None:
@@ -134,6 +160,30 @@ def from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
         row_ids=t("row_ids", torch.int32), corpus_lp=corpus_lp, coarse_proj=coarse_proj,
         coarse_tier=tier, coarse_head=head, coarse_layout=layout,
     )
+
+
+# FIELDS with the padded-COO corpus in place of the dense one
+SPARSE_FIELDS = FIELDS[:-2] + ("corpus_indices", "corpus_values", "row_ids")
+
+
+def sparse_from_jax_state(arrays: Dict[str, np.ndarray], conf: RDFConfig,
+                          device: Device = None) -> SparseForestState:
+    """The port's `SparseForestState` from a JAX `SparseForestState`'s arrays
+    (`SPARSE_FIELDS`; `coarse_proj` and `coarse_by_table` when it has a
+    coarse tier), on `device` (default: the first CUDA card). The model,
+    partition projections and tables go as in `from_jax_state`; the corpus,
+    ids and the tier's projection come across as they are."""
+    device = resolve_device(device)
+    model, tables, t = _model_and_tables(arrays, conf, SPARSE_FIELDS, "sparse_from_jax_state",
+                                         device)
+    coarse_proj = tier = None
+    if arrays.get("coarse_by_table") is not None:
+        coarse_proj, tier = _lane_tier(arrays, tables.num_tables, device)
+    return SparseForestState(
+        model=model, part_proj=t("part_proj", torch.float32), tables=tables,
+        corpus_indices=t("corpus_indices", torch.int32),
+        corpus_values=t("corpus_values", torch.float32), row_ids=t("row_ids", torch.int32),
+        coarse_proj=coarse_proj, coarse_tier=tier)
 
 
 def pad_lanes(a: np.ndarray) -> np.ndarray:
@@ -249,3 +299,24 @@ def from_jax_ivf(arrays: Dict[str, np.ndarray], dim: int, device: Device = None,
                            starts=ints("starts"), ends=ints("ends"))
     index.ensure_heads()
     return index
+
+
+def from_jax_sparse_flat(arrays: Dict[str, np.ndarray], size: int,
+                         device: Device = None, **index_kw) -> SparseFlatIndex:
+    """A fitted port `SparseFlatIndex` (on `device`, default the first CUDA
+    card; `index_kw` as for `SparseFlatIndex`) from the JAX package's
+    SparseFlatIndex arrays `sketch`, `scale`, `c_idx`, `c_val` and
+    `row_ids`. The sketch loses its 128-lane padding down to the port's
+    multiple of 32 columns above `size`, the feature-space size."""
+    device = resolve_device(device)
+    missing = [f for f in ("sketch", "scale", "c_idx", "c_val", "row_ids") if f not in arrays]
+    if missing:
+        raise KeyError(f"from_jax_sparse_flat: missing arrays {missing}")
+
+    def host(name: str, dtype) -> torch.Tensor:     # a writable copy
+        return torch.from_numpy(np.array(arrays[name], dtype=dtype))
+
+    sketch = torch.from_numpy(np.array(np.asarray(arrays["sketch"])[:, :-(-size // 32) * 32]))
+    return SparseFlatIndex(device=device, **index_kw).set_state(
+        sketch, float(arrays["scale"]), host("c_idx", np.int32), host("c_val", np.float32),
+        host("row_ids", np.int32), size)

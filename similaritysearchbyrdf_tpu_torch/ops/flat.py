@@ -24,7 +24,13 @@ gives them). The TPU tactics are not ported: the strided second sketch copy
 (`stride_for_halved_gmax`, `sketch_gmax`), 128-lane padding, the VMEM tile
 plans and batch caps, `nsub`, the qmajor/qlane kernel split and the
 `FLAT_*` environment knobs, whose defaults are the constants and keywords
-below. The sparse flat engine is not ported yet.
+below.
+
+The sparse flat engine (`SparseFlatIndex`, `flat_topk_sparse`) scans an
+int8 sketch of the densified sparse corpus (`build_flat_sketch_sparse`)
+with the same grouped preselection and re-scores the candidates exactly by
+the sort-merge sparse dot (`rerank.sparse_merge_scores`): the sparse corpus
+is never densified to f32.
 """
 
 from __future__ import annotations
@@ -35,11 +41,12 @@ import numpy as np
 import torch
 
 from ..models.families import Device, resolve_device
-from ..vectors import DenseBatch
+from ..vectors import DenseBatch, SparseBatch
 from .kernels.coarse_gather import coarse_window_scores_kernel
 from .kernels.flat_groupmax import flat_groupmax_kernel
+from .hashing import densify
 from .precision import full_f32
-from .rerank import top_sorted
+from .rerank import check_sparse_size_for_merge, sparse_merge_scores, top_sorted
 
 NEG_INF = float("-inf")
 _I32_DEAD = -(2**31 - 1)   # dead-group sentinel; negation-safe (not int32 min)
@@ -49,6 +56,7 @@ _ARGPACK_MIN_ROWS = 1 << 20
 _SKETCH_COLS = 32          # sketch column padding: the int8 mma depth
 _LANES = 128               # the reference's sketch column padding (select-mode test only)
 _QUANT_CHUNK = 1 << 20     # corpus rows quantized at once
+_DENSIFY_CHUNK = 65536     # sparse rows densified at once
 _ARGPACK_L2 = "sort"
 
 
@@ -456,3 +464,153 @@ class FlatIndex:
         return {name: t.numel() * t.element_size() / n
                 for name, t in (("sketch", self.sketch), ("corpus", self.corpus),
                                 ("ids", self.row_ids))}
+
+
+# ---------------------------------------------------------------------------
+# Sparse flat engine: densified int8 sketch scan + exact sparse-merge refine
+# ---------------------------------------------------------------------------
+
+
+def build_flat_sketch_sparse(indices: torch.Tensor, values: torch.Tensor, size: int,
+                             chunk: int = _DENSIFY_CHUNK) -> Tuple[torch.Tensor, float]:
+    """(sketch int8[N, ceil(size/32)*32], scale) of a padded-COO corpus: the
+    rows densified `chunk` at a time (so the f32 intermediate never exceeds
+    chunk x width), times one global scale 127 / max|values|, rounded half
+    to even and clipped to ±127. 1M x 4096 dims cost 4.1 GB, affordable
+    where the f32 densification (16 GB) is not."""
+    n = indices.shape[0]
+    width = _round_up(size, _SKETCH_COLS)
+    scale = sketch_scale(float(values.abs().max()) if values.numel() else 0.0)
+    sketch = torch.empty((n, width), dtype=torch.int8, device=values.device)
+    for c0 in range(0, n, chunk):
+        rows = densify(indices[c0:c0 + chunk], values[c0:c0 + chunk], width)
+        sketch[c0:c0 + chunk] = quantize_sketch_rows(rows, scale)
+    return sketch, scale
+
+
+def flat_topk_sparse(sketch: torch.Tensor, corpus_indices: torch.Tensor,
+                     corpus_values: torch.Tensor, row_ids: torch.Tensor,
+                     q_indices: torch.Tensor, q_values: torch.Tensor,
+                     query_ids: Optional[torch.Tensor], k: int, refine: int = 128,
+                     r_groups: int = 24, group: int = _GROUP, exclude_self: bool = True,
+                     select_mode: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse flat search → (ids i32[B, k] user ids, scores f32[B, k]; -1
+    ids and -inf scores pad): the queries densify to the sketch's width, the
+    grouped scan (K4, then exact2's K2b re-score or argpack) preselects
+    `refine` rows, and the sort-merge sparse dot re-scores them exactly. The
+    sketch may carry padding rows past the n = len(row_ids) live ones. A
+    result is present where its score is finite, so any user id, negative
+    ones too, can be returned (the JAX package drops ids below 0); with
+    `exclude_self`, a query's own id (`query_ids`, None for none) is not."""
+    n = row_ids.shape[0]
+    qd = densify(q_indices, q_values, sketch.shape[1])
+    mode = _resolve_select_mode(select_mode, sketch.dtype, n, sketch.shape[1])
+    if mode == "argpack":
+        cand, sel_s = _argpack_candidates(sketch, qd, refine, group, n_live=n)
+    else:
+        cand, sel_s = _grouped_candidates(sketch, qd, refine, r_groups, group, mode, n_live=n)
+    pre = torch.isfinite(sel_s)
+    exact = sparse_merge_scores(corpus_indices, corpus_values, torch.where(pre, cand, -1),
+                                q_indices, q_values)
+    uid = row_ids[cand.clamp(0, n - 1).to(torch.int64)]
+    valid = pre & torch.isfinite(exact)
+    if exclude_self and query_ids is not None:
+        valid &= uid != query_ids[:, None]
+    top_s, ti = top_sorted(torch.where(valid, exact, NEG_INF), k)
+    top_u = torch.gather(uid, 1, ti)
+    return torch.where(torch.isfinite(top_s), top_u, -1), top_s
+
+
+class SparseFlatIndex:
+    """Host orchestrator for the sparse flat engine (the query surface of
+    `SparseRDFForest`; every row is scored, so there are no steps). Its
+    tensors live on `device` (default: the first CUDA card; `device="cpu"`
+    for the CPU); the sketch is stored row-padded to a multiple of 8192, as
+    `FlatIndex`'s is."""
+
+    def __init__(self, refine: int = 128, r_groups: int = 24, query_batch: int = 1024,
+                 device: Device = None):
+        self.refine = refine
+        self.r_groups = r_groups
+        self.query_batch = query_batch
+        self.device = resolve_device(device)
+        self.sketch: Optional[torch.Tensor] = None
+        self.scale = 1.0
+        self.size = 0
+        self.c_idx = self.c_val = self.row_ids = None
+
+    def set_state(self, sketch: torch.Tensor, scale: float, c_idx: torch.Tensor,
+                  c_val: torch.Tensor, row_ids: torch.Tensor, size: int) -> "SparseFlatIndex":
+        """Adopt a fitted state: the sketch [N or Npad, ceil(size/32)*32], its
+        scale, the sparse exact tier i32/f32[N, NNZ], the user ids i32[N]."""
+        n = row_ids.shape[0]
+        self.sketch = _pad_rows(sketch.to(self.device), _round_up(n, _NPAD_MULTIPLE)).contiguous()
+        self.scale = scale
+        self.c_idx = c_idx.to(self.device, torch.int32).contiguous()
+        self.c_val = c_val.to(self.device, torch.float32).contiguous()
+        self.row_ids = row_ids.to(self.device, torch.int32)
+        self.size = int(size)
+        return self
+
+    def fit(self, batch: SparseBatch) -> "SparseFlatIndex":
+        """batch: vectors.SparseBatch (numpy rows or tensors)."""
+        check_sparse_size_for_merge(int(batch.size))
+        c_idx = torch.as_tensor(batch.indices).to(self.device, torch.int32)
+        c_val = torch.as_tensor(batch.values).to(self.device, torch.float32)
+        sketch, scale = build_flat_sketch_sparse(c_idx, c_val, int(batch.size))
+        return self.set_state(sketch, scale, c_idx, c_val,
+                              torch.as_tensor(np.asarray(batch.ids, dtype=np.int32)),
+                              batch.size)
+
+    def query(self, q_indices, q_values, k: int = 10, query_ids: Optional[np.ndarray] = None,
+              exclude_self: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+        """Batch query → (ids [Q, k], scores [Q, k]) as numpy arrays; an
+        unfitted index prints the reference's message and answers -1 ids and
+        -inf scores."""
+        if self.sketch is None:
+            print("need to fit the data first")
+            return (np.full((len(q_indices), k), -1, np.int32),
+                    np.full((len(q_indices), k), -np.inf, np.float32))
+        ids, scores = self.query_device(q_indices, q_values, k, query_ids, exclude_self)
+        return ids.cpu().numpy(), scores.cpu().numpy()
+
+    def query_device(self, q_indices, q_values, k: int = 10, query_ids=None,
+                     exclude_self: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`query` without the host transfer: tensors on the index's device,
+        `effective_query_batch` queries at a time, each chunk padded to that
+        batch."""
+        if self.sketch is None:
+            raise RuntimeError("need to fit the data first")
+        qi = torch.as_tensor(q_indices).to(self.device, torch.int32)
+        qv = torch.as_tensor(q_values).to(self.device, torch.float32)
+        nq = qi.shape[0]
+        qids = (None if query_ids is None else
+                torch.as_tensor(np.asarray(query_ids), dtype=torch.int32).to(self.device))
+        bsz = effective_query_batch(nq, self.query_batch)
+        out_i, out_s = [], []
+        for s0 in range(0, nq, bsz):
+            s1 = min(s0 + bsz, nq)
+            pad = bsz - (s1 - s0)
+            ids, scores = flat_topk_sparse(
+                self.sketch, self.c_idx, self.c_val, self.row_ids, _pad_rows(qi[s0:s1], bsz),
+                _pad_rows(qv[s0:s1], bsz),
+                None if qids is None else torch.nn.functional.pad(qids[s0:s1], (0, pad)), k,
+                refine=self.refine, r_groups=self.groups_kept(k), exclude_self=exclude_self)
+            out_i.append(ids[:s1 - s0])
+            out_s.append(scores[:s1 - s0])
+        return torch.cat(out_i), torch.cat(out_s)
+
+    def groups_kept(self, k: int) -> int:
+        """The groups a query of `k` results keeps from the scan:
+        max(r_groups, 3k), as the JAX package's `SparseFlatIndex` sets it."""
+        return max(self.r_groups, 3 * k)
+
+    def bytes_per_vector(self) -> dict:
+        """Device bytes per live vector of the sketch, the sparse exact tier
+        and the ids."""
+        if self.sketch is None:
+            raise RuntimeError("need to fit the data first")
+        n = max(1, self.row_ids.shape[0])
+        return {name: t.numel() * t.element_size() / n
+                for name, t in (("sketch", self.sketch), ("indices", self.c_idx),
+                                ("values", self.c_val), ("ids", self.row_ids))}

@@ -49,6 +49,7 @@ from . import build
 
 LAUNCHES = 0          # K2 launches since the last reset (plain runs never count)
 WINDOW_LAUNCHES = 0   # K2b launches since the last reset
+_PLAIN_CHUNK = 1 << 28   # gathered tier elements the plain version makes at once
 
 
 def _cs_ok(cs: int) -> bool:
@@ -70,12 +71,22 @@ def coarse_block_scores_plain(tier: torch.Tensor, q_low: torch.Tensor,
     """tier i8 (or bf16) [L, caprows, cs], q_low bf16[B, cs], table and blk_start
     i32[B, MB] → f32[B, MB, bs] with out[b, m, j] = sum_c tier[t, s+j, c] *
     q_low[b, c], t = clip(table, 0, L-1), s = clip(blk_start, 0, caprows-bs)
-    — the CLIP gather of `index/forest.py:1150-1182`."""
-    l, caprows, _ = tier.shape
+    — the CLIP gather of `index/forest.py:1150-1182`. The rows are gathered
+    for `_PLAIN_CHUNK // (MB·bs·cs)` queries at a time, so a wide tier (the
+    4096-column sketch) makes no [B, MB, bs, cs] f32 slab."""
+    l, caprows, cs = tier.shape
+    b, mb = table.shape
     t = table.to(torch.int64).clamp(0, l - 1)
-    s = blk_start.to(torch.int64).clamp(0, caprows - bs)
-    rows = tier[t[..., None], s[..., None] + torch.arange(bs, device=tier.device)]
-    return torch.einsum("bmjc,bc->bmj", rows.to(torch.float32), q_low.to(torch.float32))
+    s = blk_start.to(torch.int64).clamp(0, caprows - bs)[..., None] + torch.arange(
+        bs, device=tier.device)
+    qf = q_low.to(torch.float32)
+    step = max(1, _PLAIN_CHUNK // max(1, mb * bs * cs))
+    out = torch.empty((b, mb, bs), dtype=torch.float32, device=tier.device)
+    for b0 in range(0, b, step):
+        rows = tier[t[b0:b0 + step, :, None], s[b0:b0 + step]]
+        out[b0:b0 + step] = torch.einsum("bmjc,bc->bmj", rows.to(torch.float32),
+                                         qf[b0:b0 + step])
+    return out
 
 
 def coarse_block_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,

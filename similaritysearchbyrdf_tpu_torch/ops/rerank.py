@@ -11,6 +11,14 @@ first). Scores are full f32, whatever the caller's TF32 setting
 A bf16 score is the JAX package's bf16 x bf16 product with f32 output
 (`preferred_element_type=float32`), computed by `precision.matmul_f32`:
 exact products, so only the summation order differs from the reference.
+
+The sparse re-ranks score a padded-COO corpus (`vectors.SparseBatch`
+rows): `rerank_sparse` gathers a densified query at each candidate's
+indices, `rerank_sparse_merge` (the one the sparse forest uses) sorts both
+sides' (index, value) pairs together and multiplies adjacent matches.
+Both compute the true sparse dot, not the reference's positional zip
+(`SimilarityCalculator.scala:40-49`), which pairs the i-th non-zero of one
+vector with the i-th of the other whatever their indices.
 """
 
 from __future__ import annotations
@@ -23,6 +31,20 @@ from .precision import matmul_f32
 
 NEG_INF = float("-inf")
 _SENTINEL = 2**31 - 1
+
+# Largest sparse feature-space size the sort-merge re-rank takes: keys pack
+# as index*2 (+1 on the query side) in int32 beside the pad keys 2**31-2 and
+# 2**31-1, so every real index must keep index*2+1 < 2**31-2.
+MAX_MERGE_FEATURE_SIZE = 2**30 - 1
+_MERGE_PAD = 2**31 - 2
+
+
+def check_sparse_size_for_merge(size: int) -> None:
+    """Refuse (at fit time) a feature space whose indices could reach the
+    sort-merge's pad keys."""
+    if size > MAX_MERGE_FEATURE_SIZE:
+        raise ValueError(f"sparse feature-space size {size} exceeds the sort-merge "
+                         f"re-rank limit {MAX_MERGE_FEATURE_SIZE} (int32 key packing)")
 
 
 def score_candidates(corpus: torch.Tensor, cand: torch.Tensor, queries: torch.Tensor,
@@ -92,3 +114,71 @@ def rerank_dense_two_stage(corpus_lp: torch.Tensor, corpus: torch.Tensor, cand: 
     coarse = score_candidates(corpus_lp, cand, queries, torch.bfloat16)
     _, c2 = _select_top(coarse, cand, m2)
     return dedup_topk(c2, score_candidates(corpus, c2, queries), k)
+
+
+def _gather_rows(corpus_indices: torch.Tensor, corpus_values: torch.Tensor,
+                 cand: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The candidates' (indices, values) rows, [B, M, NNZ] each."""
+    safe = cand.clamp(min=0).to(torch.int64)
+    return corpus_indices[safe], corpus_values[safe]
+
+
+def rerank_sparse(corpus_indices: torch.Tensor, corpus_values: torch.Tensor,
+                  cand: torch.Tensor, query_dense: torch.Tensor, k: int,
+                  dup_bound: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse-corpus re-rank over densified queries f32[B, D] → (ids i32[B,
+    k] row positions with -1 padding, scores f32[B, k]): each candidate's
+    value times the query's value at its index, summed over its non-zeros."""
+    c_idx, c_val = _gather_rows(corpus_indices, corpus_values, cand)       # [B, M, NNZ]
+    b, m, nnz = c_idx.shape
+    q_gather = torch.gather(query_dense[:, None, :].expand(b, m, -1), 2, c_idx.to(torch.int64))
+    scores = torch.where(cand >= 0, (c_val * q_gather).sum(dim=-1), NEG_INF)
+    s2, c2 = _select_top(scores, cand, _dedup_width(m, k, dup_bound))
+    return dedup_topk(c2, s2, k)
+
+
+def sparse_merge_scores(corpus_indices: torch.Tensor, corpus_values: torch.Tensor,
+                        cand: torch.Tensor, q_indices: torch.Tensor,
+                        q_values: torch.Tensor) -> torch.Tensor:
+    """Exact sparse·sparse scores f32[B, M] (-inf for cand -1) by sort-merge.
+    Per candidate, the corpus keys idx*2 and the query keys idx*2+1 sort
+    together (zero values, padding included, go to the pad keys 2**31-2 and
+    2**31-1); an index on both sides becomes an adjacent (corpus, query)
+    pair whose keys agree after `>> 1`, and the dot sums those pairs'
+    products. Indices are unique within a row, as the reference's
+    `SparseVector` keeps them (`Vector.scala:374-417`); callers bound the
+    feature space with `check_sparse_size_for_merge`."""
+    c_idx, c_val = _gather_rows(corpus_indices, corpus_values, cand)       # [B, M, NNZ]
+    b, m, _ = c_idx.shape
+    nnzq = q_indices.shape[1]
+    kc = torch.where(c_val != 0.0, c_idx.to(torch.int32) * 2, _MERGE_PAD)
+    kq = torch.where(q_values != 0.0, q_indices.to(torch.int32) * 2 + 1, _MERGE_PAD + 1)
+    keys = torch.cat([kc, kq[:, None, :].expand(b, m, nnzq)], dim=-1)    # [B, M, NNZ+NNZq]
+    vals = torch.cat([c_val, q_values[:, None, :].to(c_val.dtype).expand(b, m, nnzq)], dim=-1)
+    keys_s, order = torch.sort(keys, dim=-1, stable=True)
+    vals_s = torch.gather(vals, -1, order)
+    is_c = (keys_s & 1) == 0
+    match = ((keys_s[..., 1:] >> 1) == (keys_s[..., :-1] >> 1)) & is_c[..., :-1] & ~is_c[..., 1:]
+    scores = torch.where(match, vals_s[..., 1:] * vals_s[..., :-1], 0.0).sum(dim=-1)
+    return torch.where(cand >= 0, scores, NEG_INF)
+
+
+def rerank_sparse_merge(corpus_indices: torch.Tensor, corpus_values: torch.Tensor,
+                        cand: torch.Tensor, q_indices: torch.Tensor, q_values: torch.Tensor,
+                        k: int, dup_bound: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse·sparse re-rank by sort-merge (`sparse_merge_scores`) → (ids
+    i32[B, k] row positions with -1 padding, scores f32[B, k]); only the top
+    (k+1)*dup_bound slots are dedup-sorted."""
+    scores = sparse_merge_scores(corpus_indices, corpus_values, cand, q_indices, q_values)
+    s2, c2 = _select_top(scores, cand, _dedup_width(cand.shape[1], k, dup_bound))
+    return dedup_topk(c2, s2, k)
+
+
+def dedup_sorted(cand: torch.Tensor, sentinel: int = _SENTINEL) -> torch.Tensor:
+    """Candidate ids sorted per row, duplicates and invalid entries -1 (the
+    reference unions per-table lists into a Set,
+    `DensevectorRDFInit.scala:426-429`). No query path uses it."""
+    x, _ = torch.sort(torch.where(cand >= 0, cand, sentinel), dim=-1)
+    dup = torch.cat([torch.zeros_like(x[..., :1], dtype=torch.bool),
+                     x[..., 1:] == x[..., :-1]], dim=-1)
+    return torch.where((x == sentinel) | dup, -1, x)

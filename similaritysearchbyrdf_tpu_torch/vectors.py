@@ -5,7 +5,8 @@ reference's vector layer, `src/main/scala/mclab/lsh/vector/Vector.scala`),
 which is framework-free: vectors live in batches, a dense batch one `[N, D]`
 array, a sparse batch padded `[N, nnz_pad]` index/value arrays plus per-row
 lengths. One change: a `DenseBatch` keeps torch tensors (values and ids) as
-they are, so a corpus already on the GPU is not copied through the host. The
+they are, and a `SparseBatch` its indices and values, so a corpus already on
+the GPU is not copied through the host. The
 native C++ parser (`native/`, built with g++ on first use) reads dense files
 when it is built; the pure-Python parsers run otherwise.
 """
@@ -84,20 +85,20 @@ class SparseBatch:
     lengths: np.ndarray    # [N] int32
 
     def __post_init__(self) -> None:
-        self.ids = np.asarray(self.ids, dtype=np.int32)
-        # device-resident rows pass through (see DenseBatch.__post_init__);
-        # indices and values are normalized INDEPENDENTLY so a mixed
-        # host/device pair gets the host cast on its host half and a
-        # device cast on the device half
-        if not hasattr(self.indices, "devices"):
+        self.ids = _host(self.ids, np.int32)
+        # torch tensors (rows already on the GPU) pass through without a
+        # host round trip, cast to i32 / f32 where they live; indices and
+        # values are taken independently, so a mixed host/device pair keeps
+        # each half where it is
+        if isinstance(self.indices, torch.Tensor):
+            self.indices = self.indices.to(torch.int32)
+        else:
             self.indices = np.asarray(self.indices, dtype=np.int32)
-        elif self.indices.dtype != np.int32:
-            self.indices = self.indices.astype(np.int32)
-        if not hasattr(self.values, "devices"):
+        if isinstance(self.values, torch.Tensor):
+            self.values = self.values.to(torch.float32)
+        else:
             self.values = np.asarray(self.values, dtype=np.float32)
-        elif self.values.dtype != np.float32:
-            self.values = self.values.astype(np.float32)
-        self.lengths = np.asarray(self.lengths, dtype=np.int32)
+        self.lengths = _host(self.lengths, np.int32)
 
     @property
     def n(self) -> int:
@@ -116,12 +117,30 @@ class SparseBatch:
             self.values[start:stop], self.lengths[start:stop],
         )
 
+    def take(self, rows: np.ndarray) -> "SparseBatch":
+        """The batch of the given rows, in their order (tensor rows stay on
+        their device)."""
+        def pick(a):
+            if isinstance(a, torch.Tensor):
+                return a[torch.as_tensor(rows, device=a.device)]
+            return a[rows]
+
+        return SparseBatch(self.ids[rows], self.size, pick(self.indices), pick(self.values),
+                           self.lengths[rows])
+
     def densify(self) -> DenseBatch:
         out = np.zeros((self.n, self.size), dtype=np.float32)
         rows = np.repeat(np.arange(self.n), self.nnz_pad)
         mask = (np.arange(self.nnz_pad)[None, :] < self.lengths[:, None]).ravel()
         out[rows[mask], self.indices.ravel()[mask]] = self.values.ravel()[mask]
         return DenseBatch(self.ids, out)
+
+
+def _host(a, dtype) -> np.ndarray:
+    """A numpy array of `a` (a tensor comes to the host)."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, dtype=dtype)
 
 
 def sparse_batch_from_rows(

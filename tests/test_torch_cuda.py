@@ -1004,3 +1004,176 @@ def test_tiered_store_on_card(dev, tmp_path):
     assert np.array_equal(got_i, want_i) and np.array_equal(got_s, want_s)
     for key in (0, 2500, 5999):
         assert np.array_equal(tiered.get(key), x[key])
+
+
+# ---------------------------------------------------------------------------
+# the sparse path: its kernels at the sparse shapes, its engines on the card
+# ---------------------------------------------------------------------------
+
+
+def _sparse_rows(n, d, nnz, seed, n_clusters=150):
+    """`scripts/bench_sparse_1m.py`'s recipe: support-clustered rows, values
+    0.8 + 0.2·U normalised."""
+    rng = np.random.default_rng(seed)
+    supports = np.stack([rng.choice(d, size=nnz, replace=False) for _ in range(n_clusters)])
+    idx = supports[rng.integers(0, n_clusters, n)].astype(np.int32)
+    val = (0.8 + 0.2 * rng.random((n, nnz))).astype(np.float32)
+    return idx, val / np.linalg.norm(val, axis=1, keepdims=True)
+
+
+@pytest.mark.parametrize("b", [64, 8192])
+def test_hash_kernel_densified_sparse_d4096(dev, b):
+    """K1 at D 4096 (32 staged chunks of 128 columns) on densified sparse
+    rows, no margins: hash words equal away from near-zero dots."""
+    from similaritysearchbyrdf_tpu_torch.ops.hashing import densify
+
+    idx, val = _sparse_rows(b, 4096, 64, seed=b)
+    x = densify(torch.as_tensor(idx, device=dev), torch.as_tensor(val, device=dev), 4096)
+    rng = np.random.default_rng(7)
+    proj = torch.as_tensor(rng.normal(size=(10, 32, 4096)).astype(np.float32), device=dev)
+    perm = torch.as_tensor(np.stack([[rng.permutation(32) for _ in range(3)]
+                                     for _ in range(10)]).astype(np.int32), device=dev)
+    before = K1.LAUNCHES
+    hk, mk = K1.hash_dense_kernel(x, proj, perm)
+    assert K1.LAUNCHES == before + 1 and mk is None
+    hp, _ = K1.hash_dense_plain(x, proj, perm)
+    dots = torch.einsum("bd,tcd->btc", x.double(), proj.double())
+    near = (dots.abs() < 1e-5)[:, :, None, :].expand(-1, -1, 3, -1)
+    bits = torch.gather(near, 3, perm.long()[None].expand(b, -1, -1, -1)).long()
+    near_word = (bits << torch.arange(31, -1, -1, device=dev)).sum(-1).reshape(b, -1)
+    assert not ((hk ^ hp) & ~near_word).any()
+
+
+def test_block_kernel_sparse_tier_cs64_bit_equal(dev):
+    """K2 at the sparse tier's shape, int8 cs 64 (the generic kernel), B 64
+    x MB 2048 blocks of 8, L 30: integer queries make every sum exact, so
+    kernel and plain version agree bit for bit."""
+    rng = np.random.default_rng(64)
+    l, caprows, b, mb = 30, 20_000, 64, 2048
+    tier = torch.as_tensor(rng.integers(-127, 128, size=(l, caprows, 64)).astype(np.int8),
+                           device=dev)
+    q = torch.as_tensor(rng.integers(-64, 65, size=(b, 64)).astype(np.float32),
+                        device=dev).to(torch.bfloat16)
+    table = torch.as_tensor(rng.integers(0, l, size=(b, mb)).astype(np.int32), device=dev)
+    start = torch.as_tensor(rng.integers(0, caprows - 8, size=(b, mb)).astype(np.int32),
+                            device=dev)
+    assert K2.block_kernel_form(64, 8, b, mb) == "generic"
+    got = K2.coarse_block_scores_kernel(tier, q, table, start, 8)
+    assert torch.equal(got, K2.coarse_block_scores_plain(tier, q, table, start, 8))
+
+
+def test_window_kernel_one_table_cs4096(dev):
+    """K2b as the sparse flat engine's exact2 re-score runs it: the 4096-wide
+    int8 sketch as one table, B 1024 x 30 windows of 64 rows, every window
+    live, bf16 float queries: within the f32 summation bound."""
+    rng = np.random.default_rng(4096)
+    caprows, b, mb, win = 65_536, 1024, 30, 64
+    sk = torch.as_tensor(rng.integers(-127, 128, size=(1, caprows, 4096), dtype=np.int8),
+                         device=dev)
+    q = torch.as_tensor(rng.normal(size=(b, 4096)).astype(np.float32),
+                        device=dev).to(torch.bfloat16)
+    blk = torch.as_tensor(rng.integers(0, caprows // win, size=(b, mb)) * win,
+                          dtype=torch.int32, device=dev)
+    zeros = torch.zeros_like(blk)
+    args = (sk, q, zeros, blk, zeros, torch.full_like(blk, caprows - 100),
+            torch.ones_like(blk, dtype=torch.bool), win)
+    before = K2.WINDOW_LAUNCHES
+    got = K2.coarse_window_scores_kernel(*args)
+    assert K2.WINDOW_LAUNCHES == before + 1
+    want = K2.coarse_window_scores_plain(*args)
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    fin = torch.isfinite(want)
+    bound = 2 * 4096 * U * K2.coarse_block_scores_plain(sk.abs(), q.abs(), zeros, blk, win)
+    assert ((got - want).abs()[fin] <= bound[fin]).all()
+
+
+@pytest.mark.parametrize("b", [64, 1024])
+def test_groupmax_kernel_int8_d4096_bit_equal(dev, b):
+    """K4 at the sparse flat engine's width, int8 D 4096 (the sliced
+    mma.sync form), on 65,536 rows: bit for bit."""
+    rng = np.random.default_rng(b)
+    sk = torch.as_tensor(rng.integers(-127, 128, (65_536, 4096), dtype=np.int8), device=dev)
+    q = torch.as_tensor(rng.integers(-127, 128, (b, 4096), dtype=np.int8), device=dev)
+    assert K4.kernel_form(torch.int8, 4096) == "mma.sync"
+    got = K4.flat_groupmax_kernel(sk, q, 64)
+    assert torch.equal(got, K4.flat_groupmax_plain(sk, q, 64))
+
+
+def _sparse_on_card_and_cpu(dev, run):
+    """`run(device)` → (ids, scores) on the card and on the CPU: ids equal
+    up to exact-score ties (1e-6)."""
+    from similaritysearchbyrdf_tpu_torch.experiments.harness import equal_up_to_ties
+
+    g_ids, g_sc = run(dev)
+    c_ids, c_sc = run("cpu")
+    assert g_ids.shape == c_ids.shape
+    assert all(equal_up_to_ties(g_ids[i], g_sc[i], c_ids[i], c_sc[i], 1e-6)
+               for i in range(len(g_ids)))
+    assert (g_ids == c_ids).all(axis=1).mean() >= 0.98
+
+
+def _sparse_conf(**kw):
+    base = dict(vector_dim=512, table_num=4, permutation_num=2, family_size=40,
+                partition_bits=3, lsh_table=TableConfig(chain_length=32, bucket_overflow=48),
+                query_batch_size=32, max_candidates=4096, coarse_dim=64, coarse_refine=256,
+                seed=31, feature_data_format="sparse")
+    base.update(kw)
+    return RDFConfig(**base)
+
+
+@pytest.mark.parametrize("extra", [dict(), dict(max_candidates=32768), dict(coarse_dim=0)])
+def test_sparse_forest_on_card_matches_cpu(dev, extra):
+    from similaritysearchbyrdf_tpu_torch import SparseBatch, SparseRDFForest
+
+    idx, val = _sparse_rows(3000, 512, 16, seed=3)
+    batch = SparseBatch(np.arange(3000), 512, idx, val, np.full(3000, 16))
+    conf = _sparse_conf(**extra)
+    launches = {}
+
+    def run(device):
+        k1, k2, k2b = K1.LAUNCHES, K2.LAUNCHES, K2.WINDOW_LAUNCHES
+        forest = SparseRDFForest(conf, device=device).fit(batch)
+        out = forest.query(batch.slice(0, 128), steps=1, query_ids=np.arange(128))
+        launches[str(device)] = (K1.LAUNCHES - k1, K2.LAUNCHES - k2, K2.WINDOW_LAUNCHES - k2b)
+        return out
+
+    _sparse_on_card_and_cpu(dev, run)
+    k1, k2, k2b = launches[str(dev)]
+    assert k1 > 0 and launches["cpu"] == (0, 0, 0)
+    if conf.coarse_dim:
+        assert (k2b if conf.max_candidates >= 32768 else k2) > 0
+
+
+def test_sparse_flat_on_card_matches_cpu(dev):
+    from similaritysearchbyrdf_tpu_torch import SparseBatch, SparseFlatIndex
+
+    idx, val = _sparse_rows(3000, 4096, 64, seed=5)
+    batch = SparseBatch(np.arange(3000), 4096, idx, val, np.full(3000, 64))
+    k4, k2b = K4.LAUNCHES, K2.WINDOW_LAUNCHES
+    _sparse_on_card_and_cpu(dev, lambda device: SparseFlatIndex(device=device).fit(batch).query(
+        idx[:200], val[:200], k=10, query_ids=np.arange(200)))
+    assert K4.LAUNCHES > k4 and K2.WINDOW_LAUNCHES > k2b
+
+
+def test_sparse_front_end_on_card_matches_cpu(dev):
+    from similaritysearchbyrdf_tpu_torch import SparseBatch, SparseRDFInit
+
+    idx, val = _sparse_rows(2000, 512, 16, seed=8)
+    batch = SparseBatch(np.arange(2000), 512, idx, val, np.full(2000, 16))
+    out = {}
+    for device in (dev, "cpu"):
+        front = SparseRDFInit(device=device)
+        front.initialize_rdf_hash_map(_sparse_conf())
+        front.fit_batch(batch)
+        out[str(device)] = (front.query_batch(list(range(0, 2000, 20)), steps=1),
+                            front.get_dt_and_ht_num_distribution())
+    (g_lists, (g_dt, g_ht)), (c_lists, (c_dt, c_ht)) = out[str(dev)], out["cpu"]
+    assert np.array_equal(g_dt, c_dt) and np.array_equal(g_ht, c_ht)
+    same = sum(g == c for g, c in zip(g_lists, c_lists)) / len(g_lists)
+    assert same >= 0.98
+    # with no device named, the sparse entry points take the first card
+    from similaritysearchbyrdf_tpu_torch import SparseFlatIndex, SparseRDFForest
+
+    card = torch.device("cuda", 0)
+    assert SparseRDFInit().device == SparseRDFForest(_sparse_conf()).device == card
+    assert SparseFlatIndex().fit(batch).sketch.device == card

@@ -46,6 +46,8 @@ def test_port_imports_with_jax_blocked():
         "import similaritysearchbyrdf_tpu_torch.deploy.map_api\n"
         "import similaritysearchbyrdf_tpu_torch.deploy.multi_feature\n"
         "import similaritysearchbyrdf_tpu_torch.deploy.server\n"
+        "import similaritysearchbyrdf_tpu_torch.deploy.sparse\n"
+        "import similaritysearchbyrdf_tpu_torch.index.sparse_forest\n"
         "import similaritysearchbyrdf_tpu_torch.experiments.harness\n"
         "import similaritysearchbyrdf_tpu_torch.index.dynamic\n"
         "import similaritysearchbyrdf_tpu_torch.utils.timing\n"
@@ -74,7 +76,9 @@ def test_port_imports_with_jax_blocked():
         "exact_search", "load_dense_file", "load_ground_truth", "from_hocon_dict",
         "from_hocon_file", "RDFMap", "DynamicForest", "PStableConfig", "build_flat_sketch",
         "save_forest", "load_forest", "save_flat", "load_flat", "save_ivf", "load_ivf",
-        "TieredForest", "GenerationStore"}
+        "TieredForest", "GenerationStore", "SparseBatch", "load_sparse_file",
+        "sparse_batch_from_rows", "SparseRDFForest", "SparseFlatIndex", "flat_topk_sparse",
+        "SparseRDFInit"}
 
 
 def test_kernel_sources_are_package_data():
