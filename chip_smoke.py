@@ -116,9 +116,31 @@ device is present:
      and K1 (a fit chunk, B 8192, and a query chunk, B 64, at D 4096), K2
      (cs 64), K2b (the 4096-wide sketch as one table) and K4 (D 4096, all
      1,007,616 rows) against their plain versions on the operands the path
-     gave them, every call's launches.
+     gave them, every call's launches; then its sharded leg, 4 shards on
+     the card: `fit_sparse_sharded` queried by `make_sparse_query_fn` (the
+     classic path: steps 0, m_cap 16384, chunks of 64; K1 at D 4096) and
+     `ShardedSparseFlatIndex()` (K4 and K2b at D 4096), each recall beside
+     the single-device engines', each merge equal to the host merge of the
+     shards' own lists, K1, K4 and K2b held on shard 0's first call;
+ 16. sharded_8m (after ivf_8m): folded_8m's Deep-8M corpus with ids drawn
+     sparsely from [0, 100M) (`scripts/deep100m_capstone.py:77-83`), 8
+     shards on `cuda:0` (1,000,064 rows a forest shard): `ShardedRDFForest`
+     at folded_8m's config (K1, K3) and at the bench config in block mode
+     (K1, K2), `ShardedFlatIndex()` (K4, K2b), `ShardedIVFIndex` at
+     ivf_8m's headline point (K2b), built one at a time: fit s, recall@10
+     beside the single-device phases', qps, peak memory, launches, a device
+     profile, every id one of the corpus's, the merge equal to the host
+     merge of each shard's own lists (first 64 queries), each kernel held
+     against its plain version on shard 0's first call; sharded flat and
+     IVF recall >= 0.995. Then two gloo ranks on the card, 4 shards each
+     (this script with `--rank`), fit their halves of the first 1,048,576
+     rows through the multi-process fits; their ids must equal this
+     process's one-process 8-shard fits bit for bit. Each rank also records
+     which gloo collectives carry CUDA tensors.
 
-Each phase prints one JSON line. A kernel's `ms` is CUDA events around one
+Each phase prints one JSON line. `chip_smoke.py --rank R --port P --out DIR
+--rows N` is one rank of sharded_8m's two-process leg, started by the
+script itself. A kernel's `ms` is CUDA events around one
 call on an idle card, the wrapper's host time included; `device_ms` beside
 it is the same with the card first held busy by a ~1 ms spin, so that the
 host's work overlaps the spin and the events time the device alone
@@ -186,7 +208,13 @@ def check(cond, msg: str) -> None:
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
+# every emitted phase line by its name, for later phases to set beside theirs
+RESULTS: dict = {}
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        RESULTS[obj["phase"]] = obj
     print(json.dumps(obj), flush=True)
 
 
@@ -204,14 +232,16 @@ def clustered(n, d, n_clusters, noise, seed=7):
     return x.astype(np.float32)
 
 
-def deep_corpus(n, d=96, n_clusters=50_000, noise=0.05, seed=11, chunk=1 << 20):
+def deep_corpus(n, d=96, n_clusters=50_000, noise=0.05, seed=11, chunk=1 << 20, rows=None):
     """Deep-8M-shaped clustered corpus (scripts/bench_deep8m_coarse.py:75-83),
     drawn from the same generator in the same order, a chunk of rows at a
-    time so the float64 temporaries stay small."""
+    time so the float64 temporaries stay small. `rows` stops after the
+    first that many rows of the n-row corpus (the same values)."""
     rng = np.random.default_rng(seed)
     centers = rng.normal(size=(n_clusters, d))
     centers /= np.linalg.norm(centers, axis=1, keepdims=True)
     assign = rng.integers(0, n_clusters, n)
+    n = n if rows is None else rows
     out = np.empty((n, d), dtype=np.float32)
     for c0 in range(0, n, chunk):
         c1 = min(n, c0 + chunk)
@@ -1214,6 +1244,19 @@ def ivf_phase(xd, gt, sync, median_ms) -> dict:
     return out
 
 
+def folded_conf():
+    """`scripts/bench_deep8m_coarse.py`'s operating point of the folded tier
+    at Deep-8M (96 dims, batch 64)."""
+    from similaritysearchbyrdf_tpu_torch import RDFConfig, TableConfig
+
+    return RDFConfig(
+        vector_dim=96, table_num=10, permutation_num=3, family_size=100, partition_bits=3,
+        lsh_table=TableConfig(chain_length=32, bucket_overflow=2000), query_batch_size=64,
+        max_candidates=524288, top_k=10, coarse_dim=16, coarse_dtype="int8",
+        coarse_refine=12288, coarse_layout="folded", coarse_group=64, coarse_rows_keep=0,
+        coarse_window=4096)
+
+
 def folded_phase(dev, sync, median_ms):
     """The Deep-8M operating point of the folded tier: fit, K3 against its
     plain version at the query's real shapes, then 1,024 self-excluded
@@ -1222,19 +1265,14 @@ def folded_phase(dev, sync, median_ms):
 
     import torch
 
-    from similaritysearchbyrdf_tpu_torch import DenseBatch, RDFConfig, RDFForest, TableConfig
+    from similaritysearchbyrdf_tpu_torch import DenseBatch, RDFForest
     from similaritysearchbyrdf_tpu_torch.index import forest as F
     from similaritysearchbyrdf_tpu_torch.ops.exact import exact_search
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_fold as K3
 
     n, d, nq, qb = 8_000_000, 96, 1024, 64
     steps, budget, refine, win, m_cap, gsl = 1, 16, 12288, 4096, 524288, 64
-    conf = RDFConfig(
-        vector_dim=d, table_num=10, permutation_num=3, family_size=100, partition_bits=3,
-        lsh_table=TableConfig(chain_length=32, bucket_overflow=2000), query_batch_size=qb,
-        max_candidates=m_cap, top_k=10, coarse_dim=16, coarse_dtype="int8",
-        coarse_refine=refine, coarse_layout="folded", coarse_group=gsl, coarse_rows_keep=0,
-        coarse_window=win)
+    conf = folded_conf()
     t0 = time.perf_counter()
     x = deep_corpus(n, d)
     gen_s = time.perf_counter() - t0
@@ -1341,16 +1379,16 @@ def folded_phase(dev, sync, median_ms):
     return k3, launches, xd, gt
 
 
-def device_profile(fn, sync, reps: int = 3) -> dict:
+def device_profile(fn, sync, reps: int = 3, wall_reps: int = 5) -> dict:
     """torch.profiler over `reps` calls of `fn`: CUDA-kernel time and count
     per call (kernel events only, so no operator is counted twice), the
     largest kernels, and the idle share 1 - kernel time / unprofiled wall
-    time of the same call."""
+    time of the same call (median of `wall_reps`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    wall_ms = timed_s(fn, sync, 5) * 1e3
+    wall_ms = timed_s(fn, sync, wall_reps) * 1e3
     sync()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -1863,13 +1901,651 @@ def sparse_phase(dev, sync, median_ms) -> dict:
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
         rec["device_bound_share"] = rec["bound_ms"] / rec["device_ms"]
     out["kernels"] = kern
+    # the single-device engines go before the sharded ones are built
+    model, part_proj = forest.model, forest.part_proj
+    del forest, state, st, flat, f_calls, wit, k1_fit, k1_query_call, k2_call, tier, q_low
+    del table_i, blk_start, x, proj, perm, fk
+    torch.cuda.empty_cache()
+    out["sharded"] = sparse_sharded_leg(batch, queries, qids, gt, out, calls, model, part_proj,
+                                        dev, sync, median_ms)
     out["calls"] = calls
     out["phase_s"] = time.perf_counter() - t_phase
     emit(out)
     return out
 
 
+def sparse_sharded_leg(batch, queries, qids, gt, single: dict, calls: dict, model, part_proj,
+                       dev, sync, median_ms) -> dict:
+    """sparse_1m's corpus on 4 shards of the card: `fit_sparse_sharded` and
+    `make_sparse_query_fn` (the classic path: steps 0, m_cap 16384, 1,024
+    queries in chunks of 64; K1 at D 4096), then `ShardedSparseFlatIndex()`
+    (K4 and K2b at D 4096); each recall beside the single-device engines',
+    each merge redone on the host for the first chunk, K1, K4 and K2b held
+    against their plain versions on shard 0's first call."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch.index.bucket_table import KeyLayout
+    from similaritysearchbyrdf_tpu_torch.ops import flat as FL
+    from similaritysearchbyrdf_tpu_torch.ops import hashing as H
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_flat as SFL
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_forest as SF
+    from similaritysearchbyrdf_tpu_torch.parallel.mesh import make_forest_mesh
+
+    nq, dim = queries.n, batch.size
+    mesh = make_forest_mesh(devices=[dev] * 4)
+    conf = sparse_conf()
+    layout = KeyLayout.from_config(conf, conf.lsh_table)
+    qi, qv = queries.indices, queries.values
+    qd = torch.as_tensor(qids, device=dev)
+    out = {"shards": 4, "devices": [str(d) for d in mesh.devices],
+           "single_device_forest_recall_at_10": {
+               k: v["recall_at_10"] for k, v in single["points"].items()},
+           "single_device_flat_recall_at_10": single["flat"]["recall_at_10"]}
+    sync()
+    t0 = time.perf_counter()
+    st, _ = SF.fit_sparse_sharded(conf, batch, mesh, model=model, part_proj=part_proj)
+    sync()
+    fit_s = time.perf_counter() - t0
+    fn = SF.make_sparse_query_fn(mesh, layout, dim, steps=0, m_cap=conf.max_candidates, k=10)
+
+    def forest_query():
+        return fn(st, qi, qv, qd, chunk=conf.query_batch_size)[:2]
+
+    with recording(H, K1, limit=1) as k1c:
+        (got, sc) = launch_checked("sparse_1m", calls, "sharded_forest", forest_query, (K1,),
+                                   sync)
+    got = got.cpu().numpy()
+    check(got.shape == (nq, 10), "sparse_1m sharded forest: wrong shape")
+    want_i, want_s = host_merge(SF.query_sparse_shards(
+        st, qi[:64], qv[:64], qd[:64], layout, dim, steps=0, m_cap=conf.max_candidates,
+        k=10), 10, "above_neg_inf")
+    check(np.array_equal(got[:64], want_i) and np.array_equal(sc[:64].cpu().numpy(), want_s),
+          "sparse_1m sharded forest: the merge differs from the host merge")
+    q_s = timed_s(forest_query, sync, 2)
+    out["forest"] = {"steps": 0, "m_cap": conf.max_candidates, "chunk": conf.query_batch_size,
+                     "fit_s": fit_s, "recall_at_10": recall_at(gt, got), "qps": nq / q_s,
+                     "query_s": q_s, "launches": calls["sharded_forest"]["launches"],
+                     "profile": device_profile(forest_query, sync, reps=1, wall_reps=2)}
+    (x, proj, perm), kw1 = k1c[K1][0]
+    check(not kw1 and x.shape[1] == dim, f"unexpected K1 call: {kw1}")
+    kern = {"K1": hash_check(x, proj, perm, False, sync, median_ms,
+                             "the sharded sparse forest's shard 0")}
+    del st, k1c, x
+    torch.cuda.empty_cache()
+
+    sync()
+    t0 = time.perf_counter()
+    flat = SFL.ShardedSparseFlatIndex(mesh).fit(batch)
+    sync()
+    fit_s = time.perf_counter() - t0
+
+    def flat_query():
+        return flat.query_device(qi, qv, k=10, query_ids=qids)
+
+    with recording(FL, K4, K2B, limit=1) as f_calls:
+        got, sc = launch_checked("sparse_1m", calls, "sharded_flat", flat_query, (K4, K2B), sync)
+    got = got.cpu().numpy()
+    want_i, want_s = host_merge(
+        [FL.flat_topk_sparse(sh.sketch, sh.c_idx, sh.c_val, sh.row_ids, qi[:64], qv[:64],
+                              qd[:64], 10, refine=flat.refine, r_groups=max(flat.r_groups, 3 * 10),
+                              n_live=sh.n_live) for sh in flat.state.shards], 10, "finite")
+    check(np.array_equal(got[:64], want_i) and np.array_equal(sc[:64].cpu().numpy(), want_s),
+          "sparse_1m sharded flat: the merge differs from the host merge")
+    q_s = timed_s(flat_query, sync, 3)
+    out["flat"] = {"fit_s": fit_s, "recall_at_10": recall_at(gt, got), "qps": nq / q_s,
+                   "query_s": q_s, "launches": calls["sharded_flat"]["launches"],
+                   "profile": device_profile(flat_query, sync)}
+    fk = flat_kernels(f_calls[K4][0], f_calls[K2B][0], sync, median_ms,
+                      "the sharded sparse flat engine's shard 0", bf16=False)
+    kern["K4"], kern["K2b"] = fk["K4_int8"], fk["K2b"]
+    for rec in kern.values():
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    out["kernels"] = kern
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sharded_8m: the sharded engines, 8 shards on the card
+# ---------------------------------------------------------------------------
+
+ID_SPACE = 100_000_000          # the Deep-100M plan's id space (results/deep100m.json)
+# rows of the two-process leg: each of 8 shards a multiple of 128 rows, so
+# the one-process and the multi-process fits lay rows out alike. Cut from
+# 7,999,488: with those the whole smoke ran 529 s on an H100 (700 W), past
+# its 450 s aim (each rank drew the 8M corpus in 40 s); a rank now draws its
+# first chunk.
+TWO_PROC_ROWS = 1_048_576
+SHARDED_RECALL_MIN = 0.995      # flat_8m and ivf_8m read 1.0
+
+
+def sharded_ids(n: int = 8_000_000) -> np.ndarray:
+    """Ids drawn sparsely from [0, 100M) and shuffled, as
+    `scripts/deep100m_capstone.py:77-83` draws them."""
+    rng = np.random.default_rng(100)
+    ids = np.sort(rng.choice(ID_SPACE, size=n, replace=False)).astype(np.int32)
+    rng.shuffle(ids)
+    return ids
+
+
+def host_merge(lists, k: int, mask: str):
+    """The merge redone on the host from each shard's own (ids, scores)
+    lists: concatenated in shard order, a stable sort by score, the best
+    k, an id kept where its score is finite (or above -inf)."""
+    ids = np.concatenate([np.asarray(i.cpu()) for i, *_ in lists], axis=1)
+    sc = np.concatenate([np.asarray(s.cpu()) for _, s, *_ in lists], axis=1)
+    order = np.argsort(-sc, axis=1, kind="stable")[:, :k]
+    m_sc = np.take_along_axis(sc, order, 1)
+    keep = np.isfinite(m_sc) if mask == "finite" else m_sc > -np.inf
+    return np.where(keep, np.take_along_axis(ids, order, 1), -1), m_sc
+
+
+def fold_check(args, sync, median_ms, where: str) -> dict:
+    """K3 against its plain version on the operands a folded query gave it:
+    bit for bit; with its times and bound (the distinct folded rows of live
+    windows, the small inputs, the packed output)."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_fold as K3
+
+    folded, qi8, table, rs, wpr, rpg, mshift, emit2 = args
+    got = K3.coarse_rowmax_kernel(*args)
+    want = K3.coarse_rowmax_plain(*args)
+    pairs = list(zip(got, want)) if emit2 else [(got, want)]
+    sync()
+    bad = sum(int((g != w).sum()) for g, w in pairs)
+    check(bad == 0, f"K3 on {where} differs from its plain version in {bad} words")
+    _, capf, lanes = folded.shape
+    live = rs >= 0
+    rows = (table.long().clamp(0, folded.shape[0] - 1)[..., None] * capf
+            + rs.long().clamp(0, capf - wpr)[..., None] + torch.arange(wpr, device=rs.device))
+    distinct = int(torch.unique(rows[live]).numel()) * lanes
+    gathered = int(live.sum()) * wpr * lanes
+    out_bytes = sum(nbytes(g) for g, _ in pairs)
+    return {"shape": {"B": qi8.shape[0], "MB": rs.shape[1], "wpr": wpr, "rpg": rpg,
+                      "L": folded.shape[0], "capf": capf, "lanes": lanes, "emit2": emit2},
+            "mismatched_words": bad, "max_abs_err": 0.0,
+            "tolerance": "bit for bit (0 mismatched words)",
+            **bound(distinct + nbytes(qi8, table, rs) + out_bytes, 2 * gathered, "int8"),
+            **kernel_times(lambda: K3.coarse_rowmax_kernel(*args)),
+            "plain_ms": median_ms(lambda: K3.coarse_rowmax_plain(*args)),
+            "gathered_bytes": gathered, "distinct_bytes": distinct}
+
+
+def k1_check(call, sync, median_ms, where: str) -> dict:
+    (x, proj, perm, *rest), kw = call
+    margins = bool(rest[0] if rest else kw.get("emit_margins", False))
+    return hash_check(x, proj, perm, margins, sync, median_ms, where)
+
+
+def sharded_leg(out: dict, name: str, run, kernels, record, nq: int, gt_ids, all_ids,
+                sync, wall_reps: int = 3, profile_reps: int = 3):
+    """One engine's query on the main path: every launch count set to 0
+    just before its first call and read just after (each kernel in
+    `kernels` must have launched), the first recorded call of each
+    (module, name) in `record` kept; its recall@10 against `gt_ids`, every
+    returned id one of `all_ids`, its qps and a device profile. → (ids,
+    scores, recorded calls)."""
+    import torch
+
+    rec_calls = {}
+    reset_launches()
+    with contextlib.ExitStack() as stack:
+        for module, names in record:
+            rec_calls.update(stack.enter_context(recording(module, *names, limit=1)))
+        t0 = time.perf_counter()
+        got, sc = run()
+        sync()
+        first_s = time.perf_counter() - t0
+    launches = read_launches()
+    check(all(launches[k] > 0 for k in kernels),
+          f"sharded_8m {name}: a kernel of its path was not launched: {launches}")
+    got_np, sc_np = got.cpu().numpy(), sc.cpu().numpy()
+    check(got_np.shape == (nq, 10) and bool(torch.isfinite(sc).all()),
+          f"sharded_8m {name}: wrong shape or non-finite scores")
+    unknown = int((~np.isin(got_np, all_ids)).sum())
+    check(unknown == 0, f"sharded_8m {name}: {unknown} returned ids are not in the corpus")
+    q_s = timed_s(run, sync, wall_reps)
+    out[name].update({"recall_at_10": recall_at(gt_ids, got_np), "first_query_s": first_s,
+                      "qps": nq / q_s, "query_s": q_s,
+                      "launches": {k: v for k, v in launches.items() if v},
+                      "profile": device_profile(run, sync, reps=profile_reps,
+                                                wall_reps=wall_reps)})
+    return got_np, sc_np, rec_calls
+
+
+def sharded_phase(x8, gt8, dev, sync, median_ms) -> dict:
+    """The sharded engines on the Deep-8M corpus, 8 shards on one card
+    (the capstone's 8-shard layout), ids over a 100M id space: the sharded
+    forest at folded_8m's config (K1, K3) and at the bench config in block
+    mode (K1, K2), the sharded flat engine (K4, K2b) and the sharded IVF
+    engine at ivf_8m's headline point (K2b), built one at a time; each
+    merge redone on the host from the shards' own lists for the first
+    query chunk; every kernel held against its plain version on shard 0's
+    first call; then the two-process leg."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch import DenseBatch
+    from similaritysearchbyrdf_tpu_torch.index import forest as F
+    from similaritysearchbyrdf_tpu_torch.ops import flat as FL
+    from similaritysearchbyrdf_tpu_torch.ops import hashing as H
+    from similaritysearchbyrdf_tpu_torch.ops import ivf as IVF
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import timing
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_flat as SFL
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_forest as SF
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_ivf as SI
+    from similaritysearchbyrdf_tpu_torch.parallel.mesh import SHARD_AXIS, make_forest_mesh
+
+    t_phase = time.perf_counter()
+    n, nq = x8.shape[0], 1024
+    t0 = time.perf_counter()
+    ids = sharded_ids(n)
+    ids_s = time.perf_counter() - t0
+    gt_ids = ids[gt8]
+    ids_d = torch.as_tensor(ids, device=dev)
+    batch = DenseBatch(ids_d, x8)
+    q, qids = x8[:nq], ids_d[:nq]
+    mesh = make_forest_mesh(devices=[dev] * 8)
+    check(mesh.shape[SHARD_AXIS] == 8, "the mesh does not hold 8 shards")
+    single = {k: RESULTS.get(k, {}) for k in ("folded_8m", "flat_8m", "ivf_8m")}
+    out = {"phase": "sharded_8m", "n": n, "dim": x8.shape[1], "queries": nq, "shards": 8,
+           "devices": [str(d) for d in mesh.devices], "id_space": ID_SPACE,
+           "max_id": int(ids.max()), "ids_draw_s": ids_s,
+           "source": "scripts/deep100m_capstone.py:77-83 (ids), folded_8m's corpus"}
+    kern = {}
+
+    def fit_timed(fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, time.perf_counter() - t0
+
+    def merge_check(name, got, sc, lists, mask):
+        want_i, want_s = host_merge(lists, 10, mask)
+        b = want_i.shape[0]
+        same = bool(np.array_equal(got[:b], want_i) and np.array_equal(sc[:b], want_s))
+        check(same, f"sharded_8m {name}: the merge differs from the host merge of the "
+                    f"shards' own lists")
+        out[name]["merge_equal_to_host_merge_queries"] = b
+
+    # ---- 1. the sharded forest at folded_8m's config: K1, K3 --------------
+    t_leg = time.perf_counter()
+    qkw = dict(steps=1, probe_mode="margin", probe_budget=16)
+    conf_f = folded_conf()
+    forest = SF.ShardedRDFForest(conf_f, mesh)
+    with recording(H, K1, limit=1) as fit_k1:
+        fit_s = fit_timed(lambda: forest.fit(batch))[1]
+    st = forest.state
+    out["folded"] = {"config": "folded_8m", "fit_s": fit_s, "build_vectors_per_sec": n / fit_s,
+                     "nloc": st.nloc, "n_live": st.n_live,
+                     "index_bytes_per_vector": sum(s.tables.index_bytes()
+                                                   for s in st.shards) / n,
+                     "single_device": {k: single["folded_8m"].get(k) for k in
+                                       ("recall_at_10", "qps", "build_s")}}
+    check(st.nloc == 1_000_064, f"a forest shard holds {st.nloc} rows, not 1,000,064")
+    got, sc, calls = sharded_leg(
+        out, "folded", lambda: forest.query_device(q, query_ids=qids, **qkw),
+        (K1, "coarse_rowmax_kernel"), ((H, (K1,)), (F, ("coarse_rowmax_kernel",))),
+        nq, gt_ids, ids, sync, wall_reps=2, profile_reps=1)
+    out["folded"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    kw = forest.query_kw(**qkw)
+    k = kw.pop("k")
+    merge_check("folded", got, sc, SF.query_shards(st, q[:64], qids[:64], forest.layout, k,
+                                                   True, **kw), "above_neg_inf")
+    single_rec = single["folded_8m"].get("recall_at_10")
+    if single_rec is not None:
+        out["folded"]["recall_gap_to_single_device"] = out["folded"]["recall_at_10"] - single_rec
+    kern["K1_fit"] = k1_check(fit_k1[K1][0], sync, median_ms, "shard 0's first fit chunk")
+    kern["K1_folded"] = k1_check(calls[K1][0], sync, median_ms, "shard 0's first query chunk")
+    kern["K3"] = fold_check(calls["coarse_rowmax_kernel"][0][0], sync, median_ms,
+                            "shard 0's first query chunk")
+    out["folded"]["leg_s"] = time.perf_counter() - t_leg
+    del forest, st, calls, fit_k1
+
+    # ---- 2. the sharded forest at the bench config, block mode: K1, K2 ----
+    t_leg = time.perf_counter()
+    conf_b = timing.bench_config().replace(vector_dim=x8.shape[1])    # Deep's 96 dims
+    forest = SF.ShardedRDFForest(conf_b, mesh)
+    fit_s = fit_timed(lambda: forest.fit(batch))[1]
+    out["block"] = {"config": "bench (int8 cd 32, refine 384, m_cap 4096, batch 1024; D 96)",
+                    "fit_s": fit_s, "build_vectors_per_sec": n / fit_s}
+    got, sc, calls = sharded_leg(
+        out, "block", lambda: forest.query_device(q, query_ids=qids, **QUERY_KW), (K1, K2),
+        ((H, (K1,)), (F, (K2,))), nq, gt_ids, ids, sync)
+    out["block"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    kw = forest.query_kw(**QUERY_KW)
+    k = kw.pop("k")
+    merge_check("block", got, sc, SF.query_shards(forest.state, q[:64], qids[:64],
+                                                  forest.layout, k, True, **kw),
+                "above_neg_inf")
+    kern["K1_block"] = k1_check(calls[K1][0], sync, median_ms, "shard 0's block query")
+    (tier, q_low, table_i, blk_start, bs), kw2 = calls[K2][0]
+    check(not kw2, f"unexpected K2 call on sharded_8m: {kw2}")
+    kern["K2"] = block_kernel_check(tier, q_low, table_i, blk_start, bs, sync, median_ms)
+    out["block"]["leg_s"] = time.perf_counter() - t_leg
+    del forest, calls, tier, q_low, table_i, blk_start
+
+    # ---- 3. the sharded flat engine, grouped: K4, K2b ---------------------
+    t_leg = time.perf_counter()
+    flat, fit_s = fit_timed(lambda: SFL.ShardedFlatIndex(mesh).fit(batch))
+    out["flat"] = {"fit_s": fit_s, "nloc": flat.state.nloc,
+                   "select_mode": FL._resolve_select_mode(
+                       "auto", torch.int8, flat.state.nloc,
+                       flat.state.shards[0].sketch.shape[1]),
+                   "single_device": {k: single["flat_8m"].get(k) for k in ("recall_at_10", "qps")}}
+    got, sc, calls = sharded_leg(
+        out, "flat", lambda: flat.query_device(q, k=10, query_ids=qids), (K4, K2B),
+        ((FL, (K4, K2B)),), nq, gt_ids, ids, sync)
+    out["flat"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    check(out["flat"]["recall_at_10"] >= SHARDED_RECALL_MIN,
+          f"sharded flat recall@10 {out['flat']['recall_at_10']} is below {SHARDED_RECALL_MIN}")
+    merge_check("flat", got, sc, SFL.query_flat_shards(
+        flat.state, q[:64], qids[:64], k=10, refine=flat.refine, block=flat.block,
+        exclude_self=True, mode=flat.mode, r_groups=flat.r_groups), "finite")
+    fk = flat_kernels(calls[K4][0], calls[K2B][0], sync, median_ms, "sharded_8m's flat shard 0")
+    kern["K4"], kern["K2b_flat"] = fk["K4_int8"], fk["K2b"]
+    out["flat"]["leg_s"] = time.perf_counter() - t_leg
+    del flat, calls, fk
+
+    # ---- 4. the sharded IVF engine at ivf_8m's headline point: K2b --------
+    t_leg = time.perf_counter()
+    ivf, fit_s = fit_timed(lambda: SI.ShardedIVFIndex(
+        mesh, target_cluster=256, iters=6, seed=0, refine=128, nprobe=2, win=128).fit(batch))
+    wb = SI.ivf_window_budget_sharded(ivf.state, 2, 128)
+    out["ivf"] = {"fit_s": fit_s, "k_clusters": int(ivf.state.centroids.shape[0]), "wb": wb,
+                  "nprobe": 2, "win": 128,
+                  "single_device": {
+                      "recall_at_10": single["ivf_8m"].get("points", {}).get(
+                          "headline", {}).get("recall_at_10"),
+                      "qps": single["ivf_8m"].get("points", {}).get("headline", {}).get("qps"),
+                      "build_s": single["ivf_8m"].get("build_s")}}
+    got, sc, calls = sharded_leg(
+        out, "ivf", lambda: ivf.query_device(q, k=10, query_ids=qids), (K2B,),
+        ((IVF, (K2B,)),), nq, gt_ids, ids, sync)
+    out["ivf"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    check(out["ivf"]["recall_at_10"] >= SHARDED_RECALL_MIN,
+          f"sharded IVF recall@10 {out['ivf']['recall_at_10']} is below {SHARDED_RECALL_MIN}")
+    merge_check("ivf", got, sc, SI.query_ivf_shards(
+        ivf.state, q[:64], qids[:64], k=10, nprobe=2, win=128, wb=wb, refine=128), "finite")
+    args, kw2 = calls[K2B][0]
+    check(not kw2, f"unexpected K2b call on the sharded IVF path: {kw2}")
+    kern["K2b_ivf"] = window_check(args, sync, median_ms, "sharded_8m's IVF shard 0")
+    out["ivf"]["leg_s"] = time.perf_counter() - t_leg
+    del ivf, calls, args
+    torch.cuda.empty_cache()
+
+    for rec in kern.values():
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    out["kernels"] = kern
+    # ---- 5. two processes, four shards each, on this card -----------------
+    out["two_process"] = two_process_leg(x8, ids, dev, sync)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def two_proc_engines(mesh, x_local, ids_local, q, qids, fit, sync):
+    """The three engines of the two-process leg, fitted by `fit` (the
+    one-process or the multi-process functions) over rows this process
+    holds: the forest at the bench config (block mode), the flat engine
+    (grouped), IVF at ivf_8m's headline point. → {engine: (ids, fit s,
+    query s, launches)}."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch import DenseBatch
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import timing
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_flat as SFL
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_forest as SF
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_ivf as SI
+
+    conf = timing.bench_config().replace(vector_dim=x_local.shape[1])
+    res = {}
+
+    def run(name, build, query):
+        sync()
+        t0 = time.perf_counter()
+        index = build()
+        sync()
+        t1 = time.perf_counter()
+        reset_launches()
+        got, _ = query(index)
+        sync()
+        res[name] = (got.cpu().numpy(), t1 - t0, time.perf_counter() - t1,
+                     {k: v for k, v in read_launches().items() if v})
+        del index
+        torch.cuda.empty_cache()
+
+    def forest():
+        f = SF.ShardedRDFForest(conf, mesh)
+        f.state = fit["forest"](conf, DenseBatch(ids_local, x_local), mesh)[0]
+        return f
+
+    def flat():
+        f = SFL.ShardedFlatIndex(mesh)
+        f.state = fit["flat"](x_local, ids_local, mesh)[0]
+        return f
+
+    def ivf():
+        f = SI.ShardedIVFIndex(mesh, target_cluster=256, iters=6, seed=0, refine=128, nprobe=2,
+                               win=128)
+        f.state = fit["ivf"](x_local, ids_local, mesh, target_cluster=256, iters=6, seed=0)[0]
+        return f
+
+    run("forest", forest, lambda f: f.query_device(q, query_ids=qids, **QUERY_KW))
+    run("flat", flat, lambda f: f.query_device(q, k=10, query_ids=qids))
+    run("ivf", ivf, lambda f: f.query_device(q, k=10, query_ids=qids))
+    return res
+
+
+def two_process_leg(x8, ids, dev, sync) -> dict:
+    """Two ranks on this card over gloo, 4 of the 8 shards each: each
+    regenerates the corpus from its seed and fits the forest, flat and IVF
+    engines on its own half of the first TWO_PROC_ROWS rows
+    (`fit_*_distributed`); meanwhile this process fits the same rows on one
+    8-shard mesh. Every rank's ids must equal this process's bit for bit
+    (`tests/test_torch_multihost.py`'s contract)."""
+    import os
+    import tempfile
+
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_flat as SFL
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_forest as SF
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_ivf as SI
+    from similaritysearchbyrdf_tpu_torch.parallel.mesh import make_forest_mesh
+
+    rows = TWO_PROC_ROWS
+    tmp = tempfile.mkdtemp(prefix="rdf_two_proc_")
+    port = _free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"), "--rank",
+                               str(r), "--port", str(port), "--out", tmp, "--rows", str(rows)],
+                              cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in (0, 1)]
+    logs = ["", ""]
+    try:
+        import torch
+
+        mesh = make_forest_mesh(devices=[dev] * 8)
+        ref = two_proc_engines(mesh, x8[:rows], torch.as_tensor(ids[:rows], device=dev),
+                               x8[:1024], torch.as_tensor(ids[:1024], device=dev),
+                               {"forest": SF.fit_sharded, "flat": SFL.fit_flat_sharded,
+                                "ivf": SI.fit_ivf_sharded}, sync)
+        ref_s = time.perf_counter() - t0
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall_s = time.perf_counter() - t0
+    out = {"rows": rows, "ranks": 2, "shards_per_rank": 4, "backend": "gloo",
+           "cuts": [f"the first {rows:,} of {x8.shape[0]:,} rows"],
+           "device": str(dev), "wall_s": wall_s, "one_process_s": ref_s,
+           "one_process": {k: {"fit_s": v[1], "query_s": v[2], "launches": v[3]}
+                           for k, v in ref.items()}, "ranks_info": []}
+    for r, p in enumerate(procs):
+        res = os.path.join(tmp, f"rank{r}")
+        check(os.path.exists(res + ".npz") and os.path.exists(res + ".json"),
+              f"two-process leg: rank {r} exited {p.returncode} without its results:\n"
+              f"{logs[r][-3000:]}")
+        with np.load(res + ".npz") as z:
+            got = {k: z[k] for k in z.files}
+        with open(res + ".json") as f:
+            info = json.load(f)
+        # the collective probe runs after the results: its own outcome only
+        info["exit_code"] = p.returncode
+        if p.returncode:
+            info["log_tail"] = logs[r][-1000:]
+        if os.path.exists(res + "_probe.json"):
+            with open(res + "_probe.json") as f:
+                info["gloo_cuda_collectives"] = json.load(f)
+        for name, (want, *_) in ref.items():
+            same = bool(np.array_equal(got[name], want))
+            check(same, f"two-process leg: rank {r}'s {name} ids differ from the one-process "
+                        f"8-shard fit's ({int((got[name] != want).sum())} entries)")
+        out["ranks_info"].append(info)
+    out["ids_equal_bit_for_bit"] = True
+    return out
+
+
+def rank_worker(argv) -> int:
+    """One rank of the two-process leg: `chip_smoke.py --rank R --port P
+    --out DIR --rows N`. Joins a 2-rank gloo group on localhost, holds 4
+    shards on cuda:0, regenerates the corpus and its ids from their seeds,
+    keeps its half of the first N rows, fits and queries the three engines
+    through the multi-process fits, writes its ids and a record, then finds
+    which gloo collectives carry CUDA tensors."""
+    import os
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    args = dict(zip(argv[0::2], argv[1::2]))
+    rank, port, out, rows = (int(args["--rank"]), int(args["--port"]), args["--out"],
+                             int(args["--rows"]))
+    if not torch.cuda.is_available():
+        print("chip_smoke rank: no CUDA device", file=sys.stderr)
+        return 2
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import build
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_flat as SFL
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_forest as SF
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_ivf as SI
+    from similaritysearchbyrdf_tpu_torch.parallel.mesh import init_distributed, make_forest_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.library()
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    init_distributed(f"localhost:{port}", num_processes=2, process_id=rank, backend="gloo")
+    mesh = make_forest_mesh(devices=[dev] * 4)
+    check(mesh.n_shards == 8 and mesh.first_shard == 4 * rank, f"rank {rank}: wrong mesh")
+    t1 = time.perf_counter()
+    x = deep_corpus(8_000_000, rows=rows)
+    ids = sharded_ids(8_000_000)
+    gen_s = time.perf_counter() - t1
+    half = rows // 2
+    lo, hi = rank * half, (rank + 1) * half
+    x_local = torch.as_tensor(x[lo:hi], device=dev)
+    q = torch.as_tensor(x[:1024], device=dev)
+    qids = torch.as_tensor(ids[:1024], device=dev)
+    ids_local = torch.as_tensor(ids[lo:hi], device=dev)
+    del x
+    res = two_proc_engines(mesh, x_local, ids_local, q, qids,
+                           {"forest": SF.fit_sharded_distributed,
+                            "flat": SFL.fit_flat_sharded_distributed,
+                            "ivf": SI.fit_ivf_sharded_distributed},
+                           lambda: torch.cuda.synchronize(dev))
+    np.savez(os.path.join(out, f"rank{rank}.npz"), **{k: v[0] for k, v in res.items()})
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "rows": hi - lo, "corpus_gen_s": gen_s, "join_s": t1 - t0,
+                   "engines": {k: {"fit_s": v[1], "query_s": v[2], "launches": v[3]}
+                               for k, v in res.items()}}, f)
+    # which collectives gloo serves on CUDA tensors, and with the right
+    # values: each op's own refusal is recorded
+    base = torch.arange(8, dtype=torch.int64, device=dev)
+    t = base + rank
+    pair = torch.cat([base, base + 1])
+
+    def scattered(k):            # rank `rank`'s part of `k` split in two
+        return k[4 * rank:4 * rank + 4]
+
+    def run_all_reduce():
+        o = t.clone()
+        return dist.all_reduce(o, async_op=True), lambda: o, 2 * base + 1
+
+    def run_all_gather():
+        o = [torch.empty_like(t) for _ in range(2)]
+        return dist.all_gather(o, t, async_op=True), lambda: torch.cat(o), pair
+
+    def run_all_gather_into_tensor():
+        o = torch.empty(16, dtype=t.dtype, device=dev)
+        return dist.all_gather_into_tensor(o, t, async_op=True), lambda: o, pair
+
+    def run_broadcast():
+        o = t.clone()
+        return dist.broadcast(o, 0, async_op=True), lambda: o, base
+
+    def run_reduce():
+        o = t.clone()
+        return dist.reduce(o, 0, async_op=True), lambda: o, 2 * base + 1 if rank == 0 else None
+
+    def run_reduce_scatter_tensor():
+        o = torch.empty(4, dtype=t.dtype, device=dev)
+        return dist.reduce_scatter_tensor(o, t, async_op=True), lambda: o, scattered(2 * base + 1)
+
+    def run_all_to_all_single():
+        o = torch.empty_like(t)
+        return (dist.all_to_all_single(o, t, async_op=True), lambda: o,
+                torch.cat([scattered(base), scattered(base + 1)]))
+
+    def run_gather():
+        o = [torch.empty_like(t) for _ in range(2)] if rank == 0 else None
+        return (dist.gather(t, o, 0, async_op=True), lambda: o and torch.cat(o),
+                pair if rank == 0 else None)
+
+    def run_scatter():
+        o = torch.empty_like(t)
+        src = [base * 10, base * 20] if rank == 0 else None
+        return dist.scatter(o, src, 0, async_op=True), lambda: o, base * (10 + 10 * rank)
+
+    probes = {}
+    for name, op in (("all_reduce", run_all_reduce), ("all_gather", run_all_gather),
+                     ("all_gather_into_tensor", run_all_gather_into_tensor),
+                     ("broadcast", run_broadcast), ("reduce", run_reduce),
+                     ("reduce_scatter_tensor", run_reduce_scatter_tensor),
+                     ("all_to_all_single", run_all_to_all_single), ("gather", run_gather),
+                     ("scatter", run_scatter)):
+        try:
+            work, got, want = op()
+            work.wait(timeout=timedelta(seconds=30))
+            probes[name] = ("ok" if want is None or torch.equal(got(), want)
+                            else "served, wrong values")
+        except Exception as e:                      # the backend's refusal, recorded
+            probes[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    with open(os.path.join(out, f"rank{rank}_probe.json"), "w") as f:
+        json.dump(probes, f)
+    dist.destroy_process_group()
+    print(f"rank {rank} done", flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rank"]:
+        return rank_worker(sys.argv[1:])
     import torch
 
     if not torch.cuda.is_available():
@@ -2068,6 +2744,10 @@ def main() -> int:
 
     # ---- phase 11: the IVF engine on the same 8M corpus ----------------------
     ivf_phase(x8, gt8, sync, median_ms)
+    torch.cuda.empty_cache()
+
+    # ---- phase 16: the sharded engines on the same 8M corpus, 8 shards --------
+    sharded = sharded_phase(x8, gt8, dev, sync, median_ms)
     del x8
     torch.cuda.empty_cache()
 
@@ -2075,15 +2755,22 @@ def main() -> int:
     sparse_phase(dev, sync, median_ms)
     k4p = k4["int8_packed"]
     lib = {"library_ms": None}     # no single PyTorch call computes any of these functions
+    # each kernel's launches on sharded_8m's four query paths
+    sh_launches = {}
+    for leg in ("folded", "block", "flat", "ivf"):
+        for name, v in sharded[leg]["launches"].items():
+            sh_launches[name] = sh_launches.get(name, 0) + v
 
     emit({"kernels": [
         {"name": "hash_dense_kernel", "route": "cuda",
+         "sharded_8m_launches": sh_launches.get("hash_dense_kernel", 0),
          "source": "similaritysearchbyrdf_tpu_torch/csrc/hash_kernel.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/hash_kernel.py:103",
          "launches": launches["hash_dense_kernel"], "max_abs_err": k1["max_margin_err"],
          "ms": k1["ms"], "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], **lib},
         {"name": "coarse_block_scores_kernel", "route": "cuda",
+         "sharded_8m_launches": sh_launches.get("coarse_block_scores_kernel", 0),
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py:107",
          "launches": launches["coarse_block_scores_kernel"],
@@ -2091,6 +2778,7 @@ def main() -> int:
          "device_ms": k2["device_ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], **lib},
         {"name": "coarse_window_scores_kernel", "route": "cuda",
+         "sharded_8m_launches": sh_launches.get("coarse_window_scores_kernel", 0),
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_gather.py:544,569,590,626,647",
          "launches": win["launches"]["coarse_window_scores_kernel"],
@@ -2098,6 +2786,7 @@ def main() -> int:
          "device_ms": k2b["device_ms"], "plain_ms": k2b["plain_ms"],
          "bound_ms": k2b["bound_ms"], "bound_by": k2b["bound_by"], **lib},
         {"name": "coarse_rowmax_kernel", "route": "cuda",
+         "sharded_8m_launches": sh_launches.get("coarse_rowmax_kernel", 0),
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_fold.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/coarse_fold.py:253",
          "launches": launches_f["coarse_rowmax_kernel"],
@@ -2105,6 +2794,7 @@ def main() -> int:
          "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], **lib},
         {"name": "flat_groupmax_kernel", "route": "cuda",
+         "sharded_8m_launches": sh_launches.get("flat_groupmax_kernel", 0),
          "source": "similaritysearchbyrdf_tpu_torch/csrc/flat_groupmax.cu",
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/flat_groupmax.py:191,247,401",
          "launches": launches_flat["flat_groupmax_kernel"], "max_abs_err": k4p["max_abs_err"],

@@ -18,8 +18,11 @@ the CLI (`cli`), the dataset generators (`utils.datasets`), the native
 host parser (`native`), and the sparse path: the sparse forest
 (`SparseRDFForest`: sparse hashing through K1, the sort-merge rerank), the
 sparse flat engine (`SparseFlatIndex`, `flat_topk_sparse`) and the sparse
-front end (`SparseRDFInit`). Entry points run on the first CUDA card unless
-given `device="cpu"`. The CUDA kernels and the native parser are built on
+front end (`SparseRDFInit`), and distribution (`parallel`: the sharded
+forest, dense and sparse, the sharded flat, sparse flat and IVF engines on
+a `ForestMesh` of shards, one process or several over `torch.distributed`,
+and their save/load). Entry points run on the first CUDA card unless
+given `device="cpu"` (a mesh: `devices=["cpu"] * n`). The CUDA kernels and the native parser are built on
 first use, never at import.
 """
 
@@ -39,7 +42,8 @@ from .ops.flat import (FlatIndex, SparseFlatIndex, build_flat_sketch, flat_topk,
                        flat_topk_grouped, flat_topk_sparse)
 from .ops.ivf import IVFFlatIndex, tune_nprobe
 from .storage.persist import (GenerationStore, TieredForest, load_flat, load_forest,
-                              load_ivf, save_flat, save_forest, save_ivf)
+                              load_ivf, load_sharded_flat, load_sharded_ivf, save_flat,
+                              save_forest, save_ivf, save_sharded_flat, save_sharded_ivf)
 from .vectors import (DenseBatch, SparseBatch, load_dense_file, load_ground_truth,
                       load_sparse_file, sparse_batch_from_rows)
 
@@ -92,6 +96,18 @@ __all__ = [
     "load_flat",
     "save_ivf",
     "load_ivf",
+    "save_sharded_flat",
+    "load_sharded_flat",
+    "save_sharded_ivf",
+    "load_sharded_ivf",
     "TieredForest",
     "GenerationStore",
 ]
+
+
+def sharded_forest(*args, **kwargs):
+    """Lazy accessor for :class:`parallel.sharded_forest.ShardedRDFForest`
+    (the JAX package's `sharded_forest()`), imported on demand."""
+    from .parallel.sharded_forest import ShardedRDFForest
+
+    return ShardedRDFForest(*args, **kwargs)

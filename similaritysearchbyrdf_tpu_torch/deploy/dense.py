@@ -10,6 +10,12 @@ state the reference keeps in a singleton.
 Key lookups go through an id index built once at fit time (the fitted ids
 sorted on the device, found by `torch.searchsorted`), so a batch of keys
 costs a binary search, not a pass over every fitted id.
+
+One fault of the JAX package is not copied, as in `deploy/sparse.py`: it
+takes the -1 that pads a result or a row as "no id", so a negative user id
+drops out of key-query lists, precision and the dataTable distribution.
+Here a result is present where its score is finite, and the live rows are
+those the index holds.
 """
 
 from __future__ import annotations
@@ -49,11 +55,22 @@ class _FlatEngineAdapter:
         return self.index.query(queries, k=k or self.conf.top_k, query_ids=query_ids,
                                 exclude_self=query_ids is not None)
 
+    def live_ids(self) -> torch.Tensor:
+        """The fitted user ids, every row live whatever its id's sign."""
+        if self.index.row_ids is None:
+            raise RuntimeError("need to fit the data first")
+        return self.index.row_ids
+
     def size(self) -> int:
-        return 0 if self.index.row_ids is None else int((self.index.row_ids >= 0).sum())
+        return 0 if self.index.row_ids is None else int(self.index.row_ids.shape[0])
 
     def sub_index_distribution(self):
         raise RuntimeError("sub-index distribution is a forest concept; use engine='forest'")
+
+
+def _present(ids: np.ndarray, scores: np.ndarray) -> List[int]:
+    """A result row's ids, padding (score -inf) left out."""
+    return [int(i) for i, s in zip(ids, scores) if np.isfinite(s)]
 
 
 class DenseRDFInit:
@@ -144,9 +161,9 @@ class DenseRDFInit:
         rows = self._rows_of(np.asarray([key]))
         if int(rows[0]) < 0:
             return None
-        ids, _ = forest.query(self._vectors(rows), steps=steps,
-                              query_ids=np.asarray([key], dtype=np.int32), k=self._top_k())
-        return [i for i in ids[0].tolist() if i >= 0]
+        ids, scores = forest.query(self._vectors(rows), steps=steps,
+                                   query_ids=np.asarray([key], dtype=np.int32), k=self._top_k())
+        return _present(ids[0], scores[0])
 
     querySingleKey = query_single_key
 
@@ -163,10 +180,10 @@ class DenseRDFInit:
         found = (rows >= 0).cpu().numpy()
         if not found.any():
             return [[] for _ in keys_arr]
-        ids, _ = forest.query(self._vectors(rows[rows >= 0]), steps=steps,
-                              query_ids=keys_arr[found].astype(np.int32), k=self._top_k())
-        hits = iter(ids.tolist())
-        return [[i for i in next(hits) if i >= 0] if ok else [] for ok in found]
+        ids, scores = forest.query(self._vectors(rows[rows >= 0]), steps=steps,
+                                   query_ids=keys_arr[found].astype(np.int32), k=self._top_k())
+        hits = iter(zip(ids, scores))
+        return [_present(*next(hits)) if ok else [] for ok in found]
 
     queryBatch = query_batch
 
@@ -198,11 +215,11 @@ class DenseRDFInit:
         conf = conf or self.conf or RDFConfig()
         q = len(ground_truth)
         t0 = time.perf_counter()
-        ids, _ = self.new_multi_thread_query_batch(
+        ids, scores = self.new_multi_thread_query_batch(
             all_dense_vectors.ids[:q], all_dense_vectors.values[:q], steps=steps,
             k=conf.top_k)
         elapsed_ms = (time.perf_counter() - t0) * 1000.0
-        score = sum(len(set(int(x) for x in ids[i] if x >= 0) & ground_truth[i]) / conf.top_k
+        score = sum(len(set(_present(ids[i], scores[i])) & ground_truth[i]) / conf.top_k
                     for i in range(q))
         return ids, score / q, elapsed_ms
 
@@ -216,9 +233,8 @@ class DenseRDFInit:
         forest = self._require()
         if forest.state is None or self.conf is None:
             raise RuntimeError("need to fit the data first")
-        ids = forest.state.row_ids
         ndp = self.conf.num_data_partitions
-        dt = torch.bincount(hash_partition(ids[ids >= 0], ndp).long(), minlength=ndp)
+        dt = torch.bincount(hash_partition(forest.live_ids(), ndp).long(), minlength=ndp)
         ht = forest.sub_index_distribution().mean(axis=0)
         return dt.cpu().numpy().astype(np.float64), ht.astype(np.float64)
 

@@ -10,7 +10,9 @@ the tiers compact into one main build when the delta outgrows
 
 Removals are tombstones (the reference's `remove:1817` deletes trie nodes):
 removed ids are filtered from results and dropped at the next compaction,
-which runs as soon as more than `TOMBSTONE_LIMIT` are pending.
+which runs as soon as more than `TOMBSTONE_LIMIT` are pending. The main
+tier's live rows are those its tables hold, so a negative user id is a
+live row (the JAX package reads it as the -1 padding and drops it).
 
 The staged delta rows live on the forest's device (their ids also on the
 host, for removals), and queries merge the tiers there.
@@ -26,7 +28,7 @@ import torch
 from ..config import RDFConfig
 from ..models.families import Device, resolve_device
 from ..vectors import DenseBatch
-from .forest import NEG_INF_F32, ForestState, RDFForest
+from .forest import NEG_INF_F32, ForestState, RDFForest, live_rows
 
 
 class DynamicForest:
@@ -141,7 +143,7 @@ class DynamicForest:
         id_parts, vec_parts = [], []
         st = self.main.state
         if st is not None and self.main.size() > 0:
-            live = st.row_ids >= 0
+            live = live_rows(st.tables)
             id_parts.append(st.row_ids[live])
             vec_parts.append(st.corpus[live][:, :self.conf.vector_dim])
         ids, vecs = self._delta_rows()
@@ -165,8 +167,7 @@ class DynamicForest:
         tombs = self._tombstone_tensor()
         dead = torch.zeros_like(tombs, dtype=torch.bool)
         if self.main.state is not None:
-            rid = self.main.state.row_ids
-            dead |= torch.isin(tombs, rid[rid >= 0])
+            dead |= torch.isin(tombs, self.main.live_ids())
         ids, _ = self._delta_rows()
         if ids is not None:
             dead |= torch.isin(tombs, torch.as_tensor(ids, device=self.device))

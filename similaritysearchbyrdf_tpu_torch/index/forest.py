@@ -242,6 +242,16 @@ def build_head_tier(tier: torch.Tensor, sorted_ids: torch.Tensor, hp: int) -> to
     return out
 
 
+def head_tier_traced(tier: torch.Tensor, sorted_ids: torch.Tensor, hp: int) -> torch.Tensor:
+    """One shard's head tier, the counterpart of the JAX package's
+    `head_tier_traced` (`index/forest.py:556`), which the sharded fit calls
+    inside its shard map (no host arrays): the masked mean of
+    `build_head_tier`, over the shard's own tier and sorted ids. The JAX
+    form reads the lane-packed tier; the port's tier is per table, so the
+    two builds are one."""
+    return build_head_tier(tier, sorted_ids, hp)
+
+
 def build_coarse_tiers(conf: RDFConfig, corpus: torch.Tensor, sorted_ids: torch.Tensor,
                        proj: Optional[np.ndarray] = None):
     """(coarse_proj, coarse_tier, coarse_head) as a fit with `conf` makes
@@ -1038,8 +1048,16 @@ class RDFForest:
             scores = torch.where(keep, scores, NEG_INF_F32)
         return ids, scores
 
+    def live_ids(self) -> torch.Tensor:
+        """The user ids of the fitted rows, i32[N] in row order: the rows
+        the tables hold, whatever their ids' sign (the JAX package reads a
+        negative id as the -1 padding)."""
+        if self.state is None:
+            raise RuntimeError("need to fit the data first")
+        return self.state.row_ids[live_rows(self.state.tables)]
+
     def size(self) -> int:
-        return 0 if self.state is None else int((self.state.row_ids >= 0).sum())
+        return 0 if self.state is None else int(live_rows(self.state.tables).shape[0])
 
     def index_bytes_per_vector(self) -> float:
         if self.state is None:
@@ -1054,6 +1072,13 @@ class RDFForest:
         if self.state is None:
             raise RuntimeError("need to fit the data first")
         return sub_index_counts(self.state.tables, self.layout)
+
+
+def live_rows(tables: BucketTables) -> torch.Tensor:
+    """The corpus rows the tables hold, int64[N] ascending: padding rows are
+    known by position (the fit gives them the -1 row), never by their id."""
+    rows = tables.sorted_ids[0]
+    return rows[rows >= 0].sort().values.to(torch.int64)
 
 
 def sub_index_counts(tables: BucketTables, layout: KeyLayout) -> np.ndarray:

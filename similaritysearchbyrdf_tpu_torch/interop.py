@@ -33,6 +33,13 @@ sketch copy (`sketch_gmax`, a TPU tactic) is not read. `from_jax_ivf`
 carries the JAX package's `IVFState` over the same way, and
 `from_jax_sparse_flat` its `SparseFlatIndex`.
 
+`from_jax_sharded_state` takes a JAX sharded forest's arrays (dense or
+sparse) with their leading [ndev] axis and builds each shard with
+`from_jax_state` or `sparse_from_jax_state`; `from_jax_sharded_flat` and
+`from_jax_sharded_ivf` do the same for the sharded flat and IVF engines.
+The TPU layouts of the sharded states (`ids128`, `sketch_gmax`) are not
+read.
+
 numpy has no bf16 type: a bf16 array may come as the JAX package's own
 (`ml_dtypes`) bf16 or widened to f32 by the caller. Either widens to f32
 exactly and narrows back to the same bf16 values.
@@ -52,8 +59,11 @@ from .index.forest import ForestState
 from .index.sparse_forest import SparseForestState
 from .models.families import Device, HashModel, resolve_device
 from .ops.bitops import from_key, to_key
-from .ops.flat import FlatIndex, SparseFlatIndex
+from .ops.flat import _NPAD_MULTIPLE, FlatIndex, SparseFlatIndex, _pad_rows, _round_up
 from .ops.ivf import IVFFlatIndex, IVFState
+from .parallel.sharded_flat import FlatShard, ShardedFlatIndex, ShardedFlatState
+from .parallel.sharded_forest import ShardedForestState, ShardedSparseForestState
+from .parallel.sharded_ivf import ShardedIVFIndex, ShardedIVFState
 
 FIELDS = (
     "model.proj", "model.perm", "model.b", "model.sampling_perm", "part_proj",
@@ -320,3 +330,133 @@ def from_jax_sparse_flat(arrays: Dict[str, np.ndarray], size: int,
     return SparseFlatIndex(device=device, **index_kw).set_state(
         sketch, float(arrays["scale"]), host("c_idx", np.int32), host("c_val", np.float32),
         host("row_ids", np.int32), size)
+
+
+# ---------------------------------------------------------------------------
+# sharded states: the JAX package's arrays carry a leading [ndev] axis (the
+# flat engine's are row-sharded: [ndev * nloc, ...])
+# ---------------------------------------------------------------------------
+
+# the JAX ShardedForestState's fields held once for every shard
+_REPLICATED = ("model.proj", "model.perm", "model.b", "model.sampling_perm", "part_proj",
+               "coarse_proj")
+_TABLE_FIELDS = ("sorted_keys", "sorted_ids", "bucket_keys", "bucket_starts", "bucket_shifts")
+
+
+def _shard_arrays(arrays: Dict[str, np.ndarray], s: int) -> Dict[str, np.ndarray]:
+    """Shard s of a JAX sharded forest state's arrays, keyed as
+    `from_jax_state` takes them (the tables under `tables.`); `ids128` (a
+    TPU view of the sorted ids) is dropped."""
+    out = {}
+    for name, a in arrays.items():
+        if a is None or name == "ids128":
+            continue
+        if name in _REPLICATED:
+            out[name] = a
+        else:
+            out[f"tables.{name}" if name in _TABLE_FIELDS else name] = np.asarray(a)[s]
+    return out
+
+
+def _trailing_live(row_ids: np.ndarray) -> int:
+    """The live rows of a JAX shard, whose padding is its trailing run of
+    -1 ids (the JAX package fills its shards in row order)."""
+    live = np.flatnonzero(np.asarray(row_ids) != -1)
+    return int(live[-1]) + 1 if live.size else 0
+
+
+def from_jax_sharded_state(arrays: Dict[str, np.ndarray], conf: RDFConfig, mesh):
+    """The port's sharded forest state (`parallel.sharded_forest`) from a
+    JAX `ShardedForestState`'s or `ShardedSparseForestState`'s arrays,
+    keyed by field (`"sorted_keys"`, `"corpus"`, ...; the model as
+    `"model.proj"`, ...), the sharded ones with their leading [ndev] axis:
+    shard s is `from_jax_state` (a dense state: the lane tier unpacked) or
+    `sparse_from_jax_state` (arrays with `corpus_indices`) of its slice, on
+    `mesh.devices[s]`. The mesh holds the ndev shards in one process."""
+    ndev = np.asarray(arrays["row_ids"]).shape[0]
+    if mesh.n_local != ndev:
+        raise ValueError(f"the state has {ndev} shards, this process's mesh {mesh.n_local}")
+    sparse = "corpus_indices" in arrays
+    shards, n_live = [], []
+    for s, dev in enumerate(mesh.devices):
+        part = _shard_arrays(arrays, s)
+        shards.append(sparse_from_jax_state(part, conf, dev) if sparse
+                      else from_jax_state(part, conf, dev))
+        n_live.append(_trailing_live(part["row_ids"]))
+    nloc = np.asarray(arrays["row_ids"]).shape[1]
+    if sparse:
+        return ShardedSparseForestState(shards=shards, n_live=n_live, nloc=nloc,
+                                        dim=conf.vector_dim)
+    return ShardedForestState(shards=shards, n_live=n_live, nloc=nloc)
+
+
+def from_jax_sharded_flat(arrays: Dict[str, np.ndarray], dim: int, mesh,
+                          n_live: Optional[list] = None, **index_kw):
+    """A fitted port `ShardedFlatIndex` (`index_kw` as for it) from the JAX
+    package's `ShardedFlatState` arrays `sketch`, `corpus` and `row_ids`
+    ([ndev * nloc, ...] in shard order, as `save_sharded_flat` writes them),
+    on `mesh` (any shard count dividing the rows, as the JAX loader allows).
+    The sketch loses its 128-lane padding down to the port's multiple of 32
+    columns above `dim`, the exact tier down to `dim`; `sketch_gmax` (a TPU
+    layout) is not read. `n_live` gives each shard's live rows (a saved
+    port index records them); without it, a shard's padding is its trailing
+    run of -1 ids."""
+    sketch = np.asarray(arrays["sketch"])[:, :_round_up(dim, 32)]
+    bf16 = sketch.dtype != np.int8
+    rid = np.asarray(arrays["row_ids"], dtype=np.int32)
+    rows = rid.shape[0]
+    if rows % mesh.n_shards:
+        raise ValueError(f"stored rows ({rows}) not divisible by mesh shards ({mesh.n_shards})")
+    nloc = rows // mesh.n_shards
+    index = ShardedFlatIndex(mesh=mesh, sketch_dtype="bfloat16" if bf16 else "int8",
+                             **index_kw)
+    shards = []
+    for i, dev in enumerate(mesh.devices):
+        lo = (mesh.first_shard + i) * nloc
+        sk = (_bf16(sketch[lo:lo + nloc], dev) if bf16
+              else torch.as_tensor(np.array(sketch[lo:lo + nloc]), device=dev))
+        shards.append(FlatShard(
+            sketch=_pad_rows(sk, _round_up(nloc, _NPAD_MULTIPLE)).contiguous(),
+            corpus=torch.as_tensor(np.array(np.asarray(arrays["corpus"])[lo:lo + nloc, :dim],
+                                            dtype=np.float32), device=dev),
+            row_ids=torch.as_tensor(np.array(rid[lo:lo + nloc]), device=dev),
+            n_live=(_trailing_live(rid[lo:lo + nloc]) if n_live is None
+                    else int(n_live[mesh.first_shard + i]))))
+    index.state = ShardedFlatState(shards=shards, nloc=nloc, first_shard=mesh.first_shard)
+    return index
+
+
+def from_jax_sharded_ivf(arrays: Dict[str, np.ndarray], dim: int, mesh, **index_kw):
+    """A fitted port `ShardedIVFIndex` (`index_kw` as for it) from the JAX
+    package's `ShardedIVFState` arrays `sketch`, `corpus`, `row_ids`,
+    `starts` and `ends` (leading [ndev] axis) and `centroids`, on a mesh of
+    as many shards (the per-shard cluster layouts are tied to the count).
+    Widths lose their 128-lane padding down to the port's multiple of 32
+    columns above `dim`; the head tier is built anew when `index_kw` asks
+    for pruning."""
+    ndev = np.asarray(arrays["row_ids"]).shape[0]
+    if ndev != mesh.n_shards:
+        raise ValueError(f"saved for {ndev} shards, the mesh has {mesh.n_shards} (per-shard "
+                         "cluster layouts are tied to the shard count)")
+    dp = -(-dim // 32) * 32
+    index = ShardedIVFIndex(mesh=mesh, **index_kw)
+    shards = []
+    for i, dev in enumerate(mesh.devices):
+        s = mesh.first_shard + i
+
+        def part(name):
+            return np.asarray(arrays[name])[s]
+
+        sk = part("sketch")[:, :dp]
+        shards.append(IVFState(
+            sketch=(torch.as_tensor(np.array(sk), device=dev) if sk.dtype == np.int8
+                    else _bf16(sk, dev)),
+            corpus=torch.as_tensor(np.array(part("corpus")[:, :dp], dtype=np.float32),
+                                   device=dev),
+            row_ids=torch.as_tensor(np.array(part("row_ids"), dtype=np.int32), device=dev),
+            centroids=_bf16(np.asarray(arrays["centroids"])[:, :dp], dev),
+            starts=torch.as_tensor(np.array(part("starts"), dtype=np.int32), device=dev),
+            ends=torch.as_tensor(np.array(part("ends"), dtype=np.int32), device=dev)))
+    index.state = ShardedIVFState(shards=shards, first_shard=mesh.first_shard)
+    index.ensure_heads()
+    return index

@@ -103,20 +103,23 @@ def _pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
     return a if a.shape[0] == rows else torch.nn.functional.pad(a, (0, 0, 0, rows - a.shape[0]))
 
 
-def build_flat_sketch(corpus: torch.Tensor, dtype: str = "int8") -> Tuple[torch.Tensor, float]:
+def build_flat_sketch(corpus: torch.Tensor, dtype: str = "int8",
+                      scale: Optional[float] = None) -> Tuple[torch.Tensor, float]:
     """(sketch [N, ceil(D/32)*32], scale): int8 with one global scale
     127 / max|x| (computed in float64, applied as its f32 value, rounded
     half to even and clipped to ±127, the reference's order), or bf16 with
     scale 1.0. `amax` comes from one `aminmax` pass and the quantization
-    runs `_QUANT_CHUNK` rows at a time, so no full-size temporary is made."""
+    runs `_QUANT_CHUNK` rows at a time, so no full-size temporary is made.
+    A given `scale` is used as it is (a shard takes the whole corpus's)."""
     n, d = corpus.shape
     width = _round_up(d, _SKETCH_COLS)
     if dtype == "bfloat16":
         return _pad_cols(corpus.to(torch.bfloat16), width), 1.0
     if dtype != "int8":
         raise ValueError(f"unsupported flat sketch dtype: {dtype}")
-    lo, hi = torch.aminmax(corpus) if corpus.numel() else (torch.zeros(()), torch.zeros(()))
-    scale = sketch_scale(max(-float(lo), float(hi)))
+    if scale is None:
+        lo, hi = torch.aminmax(corpus) if corpus.numel() else (torch.zeros(()), torch.zeros(()))
+        scale = sketch_scale(max(-float(lo), float(hi)))
     sketch = torch.zeros((n, width), dtype=torch.int8, device=corpus.device)
     for c0 in range(0, n, _QUANT_CHUNK):
         sketch[c0:c0 + _QUANT_CHUNK, :d] = quantize_sketch_rows(corpus[c0:c0 + _QUANT_CHUNK],
@@ -148,19 +151,26 @@ def _quantize_queries(queries: torch.Tensor, sketch: torch.Tensor) -> torch.Tens
     return _pad_cols(q_lp, sketch.shape[1]).contiguous()
 
 
-def _exact_refine(corpus, row_ids, queries, cand, pre_valid, query_ids, k, exclude_self):
+def _exact_refine(corpus, row_ids, queries, cand, pre_valid, query_ids, k, exclude_self,
+                  n_live=None):
     """Exact f32 re-score of the candidate rows + final top-k → (ids i32[B,
     k] with -1 padding, scores f32[B, k]). A bf16 corpus widens to f32
-    before the dot, which runs in full f32 whatever the TF32 setting."""
+    before the dot, which runs in full f32 whatever the TF32 setting.
+
+    A result is present where its score is finite. Padding rows are known
+    by position, never by their id: rows from `n_live` on (None: every row
+    of `row_ids` is live), so any user id, a negative one too, can be
+    returned (the JAX package drops ids below 0). With `exclude_self`, a
+    query's own id (`query_ids`, None for none) is left out."""
     n = row_ids.shape[0]
     safe = cand.clamp(0, n - 1).to(torch.int64)
     rows = corpus[safe].to(torch.float32)                           # [B, R, D]
     with full_f32():
         exact = torch.bmm(rows, queries[:, :, None].to(torch.float32))[..., 0]
     uid = row_ids[safe]
-    valid = pre_valid & (uid >= 0)
-    if exclude_self:
-        valid &= uid != query_ids[:, None]
+    valid = pre_valid if n_live is None else pre_valid & (cand < n_live)
+    if exclude_self and query_ids is not None:
+        valid = valid & (uid != query_ids[:, None])
     exact = torch.where(valid, exact, NEG_INF)
     top_s, ti = top_sorted(exact, k)
     top_u = torch.gather(uid, 1, ti)
@@ -169,11 +179,13 @@ def _exact_refine(corpus, row_ids, queries, cand, pre_valid, query_ids, k, exclu
 
 def flat_topk(sketch: torch.Tensor, corpus: torch.Tensor, row_ids: torch.Tensor,
               queries: torch.Tensor, query_ids: torch.Tensor, k: int, refine: int = 128,
-              block: int = 1 << 20, exclude_self: bool = True
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              block: int = 1 << 20, exclude_self: bool = True,
+              n_live: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blocked sketch scan → (ids i32[B, k] user ids, scores f32[B, k]); -1
-    pads. The sketch may carry padding rows past the n = len(row_ids) live
-    ones; they are never candidates. Scores are an f32 matmul of f32 copies
+    pads. The sketch may carry padding rows past the n = len(row_ids)
+    scanned ones; they are never candidates. Rows from `n_live` on are
+    scanned but never results (a shard's padding, `_exact_refine`). Scores
+    are an f32 matmul of f32 copies
     of the sketch block (exact for int8 below D 1024, where every partial
     sum is an integer below 2^24; int32 matmul is refused on the card); peak
     memory is one [B, block] score tile plus the running [B, refine]
@@ -193,7 +205,8 @@ def flat_topk(sketch: torch.Tensor, corpus: torch.Tensor, row_ids: torch.Tensor,
         best_s, sel = top_sorted(cat_s, refine)
         best_i = torch.gather(cat_i, 1, sel)
     return _exact_refine(corpus, row_ids, queries, best_i,
-                         (best_i >= 0) & torch.isfinite(best_s), query_ids, k, exclude_self)
+                         (best_i >= 0) & torch.isfinite(best_s), query_ids, k, exclude_self,
+                         n_live)
 
 
 def packed_groupmax_qmajor(sk: torch.Tensor, q_i8: torch.Tensor, group: int = _GROUP
@@ -350,13 +363,15 @@ def flat_topk_grouped(sketch: torch.Tensor, corpus: torch.Tensor, row_ids: torch
                       refine: int = 128, r_groups: int = 32, group: int = _GROUP,
                       exclude_self: bool = True, select_mode: str = "auto",
                       select_sg: Optional[int] = None, argpack_l2: str = _ARGPACK_L2,
-                      gmax_emit_sg: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                      gmax_emit_sg: int = 0, n_live: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Grouped flat scan → (ids i32[B, k], scores f32[B, k]): K4 group
     maxima (never the [B, N] scores), then the exact2 or argpack candidate
     stage (`_resolve_select_mode`), then the exact f32 re-score of the top
     `refine` rows. Group-max preselection with r_groups >= 3k cannot drop a
     true top-k row; recall is bound by the sketch, as in `flat_topk`.
-    `gmax_emit_sg` makes K4 emit the argpack select's level-1 tier."""
+    `gmax_emit_sg` makes K4 emit the argpack select's level-1 tier; rows
+    from `n_live` on are scanned but never results, as in `flat_topk`."""
     n = row_ids.shape[0]
     mode = _resolve_select_mode(select_mode, sketch.dtype, n, sketch.shape[1])
     if mode == "argpack":
@@ -366,7 +381,7 @@ def flat_topk_grouped(sketch: torch.Tensor, corpus: torch.Tensor, row_ids: torch
         cand, sel_s = _grouped_candidates(sketch, queries, refine, r_groups, group, mode,
                                           select_sg, n_live=n)
     return _exact_refine(corpus, row_ids, queries, cand, torch.isfinite(sel_s), query_ids, k,
-                         exclude_self)
+                         exclude_self, n_live)
 
 
 class FlatIndex:
@@ -432,9 +447,8 @@ class FlatIndex:
             raise RuntimeError("need to fit the data first")
         q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         nq = q.shape[0]
-        qids = (torch.as_tensor(query_ids, dtype=torch.int32).to(self.device)
-                if query_ids is not None
-                else torch.full((nq,), -1, dtype=torch.int32, device=self.device))
+        qids = (None if query_ids is None
+                else torch.as_tensor(query_ids, dtype=torch.int32).to(self.device))
         bsz = effective_query_batch(nq, self.query_batch)
         # no-drop guideline for the group preselection: at least 3k groups
         rg = max(self.r_groups, 3 * k)
@@ -442,7 +456,7 @@ class FlatIndex:
         for s0 in range(0, nq, bsz):
             s1 = min(s0 + bsz, nq)
             qc = _pad_rows(q[s0:s1], bsz)
-            qi = torch.nn.functional.pad(qids[s0:s1], (0, bsz - (s1 - s0)), value=-1)
+            qi = None if qids is None else torch.nn.functional.pad(qids[s0:s1], (0, bsz - (s1 - s0)))
             if self.mode == "grouped":
                 ids, scores = flat_topk_grouped(self.sketch, self.corpus, self.row_ids, qc, qi,
                                                 k, refine=self.refine, r_groups=rg,
@@ -472,15 +486,18 @@ class FlatIndex:
 
 
 def build_flat_sketch_sparse(indices: torch.Tensor, values: torch.Tensor, size: int,
-                             chunk: int = _DENSIFY_CHUNK) -> Tuple[torch.Tensor, float]:
+                             chunk: int = _DENSIFY_CHUNK, scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, float]:
     """(sketch int8[N, ceil(size/32)*32], scale) of a padded-COO corpus: the
     rows densified `chunk` at a time (so the f32 intermediate never exceeds
-    chunk x width), times one global scale 127 / max|values|, rounded half
-    to even and clipped to ±127. 1M x 4096 dims cost 4.1 GB, affordable
-    where the f32 densification (16 GB) is not."""
+    chunk x width), times one global scale 127 / max|values| (or the
+    `scale` given), rounded half to even and clipped to ±127. 1M x 4096
+    dims cost 4.1 GB, affordable where the f32 densification (16 GB) is
+    not."""
     n = indices.shape[0]
     width = _round_up(size, _SKETCH_COLS)
-    scale = sketch_scale(float(values.abs().max()) if values.numel() else 0.0)
+    if scale is None:
+        scale = sketch_scale(float(values.abs().max()) if values.numel() else 0.0)
     sketch = torch.empty((n, width), dtype=torch.int8, device=values.device)
     for c0 in range(0, n, chunk):
         rows = densify(indices[c0:c0 + chunk], values[c0:c0 + chunk], width)
@@ -493,7 +510,8 @@ def flat_topk_sparse(sketch: torch.Tensor, corpus_indices: torch.Tensor,
                      q_indices: torch.Tensor, q_values: torch.Tensor,
                      query_ids: Optional[torch.Tensor], k: int, refine: int = 128,
                      r_groups: int = 24, group: int = _GROUP, exclude_self: bool = True,
-                     select_mode: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+                     select_mode: str = "auto", n_live: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sparse flat search → (ids i32[B, k] user ids, scores f32[B, k]; -1
     ids and -inf scores pad): the queries densify to the sketch's width, the
     grouped scan (K4, then exact2's K2b re-score or argpack) preselects
@@ -501,7 +519,9 @@ def flat_topk_sparse(sketch: torch.Tensor, corpus_indices: torch.Tensor,
     sketch may carry padding rows past the n = len(row_ids) live ones. A
     result is present where its score is finite, so any user id, negative
     ones too, can be returned (the JAX package drops ids below 0); with
-    `exclude_self`, a query's own id (`query_ids`, None for none) is not."""
+    `exclude_self`, a query's own id (`query_ids`, None for none) is not.
+    Rows from `n_live` on are scanned but never results (a shard's
+    padding, whose zero rows score 0)."""
     n = row_ids.shape[0]
     qd = densify(q_indices, q_values, sketch.shape[1])
     mode = _resolve_select_mode(select_mode, sketch.dtype, n, sketch.shape[1])
@@ -514,6 +534,8 @@ def flat_topk_sparse(sketch: torch.Tensor, corpus_indices: torch.Tensor,
                                 q_indices, q_values)
     uid = row_ids[cand.clamp(0, n - 1).to(torch.int64)]
     valid = pre & torch.isfinite(exact)
+    if n_live is not None:
+        valid &= cand < n_live
     if exclude_self and query_ids is not None:
         valid &= uid != query_ids[:, None]
     top_s, ti = top_sorted(torch.where(valid, exact, NEG_INF), k)

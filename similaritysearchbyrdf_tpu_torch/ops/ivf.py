@@ -79,6 +79,12 @@ def _kmeans_assign(x: torch.Tensor, centroids: torch.Tensor,
     return out
 
 
+def cluster_bits(amax: float, n: int) -> int:
+    """The fixed-point shift of the cluster sums: as large as keeps any sum
+    of n rows of values below `amax` in magnitude below 2^62."""
+    return 62 - math.frexp(amax)[1] - n.bit_length()      # |x| < 2^frexp exponent
+
+
 def _cluster_sums(x: torch.Tensor, assign: torch.Tensor, k: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(f64[K, D] sums, int64[K] counts) of the rows with assign >= 0. Each
@@ -86,10 +92,19 @@ def _cluster_sums(x: torch.Tensor, assign: torch.Tensor, k: int
     with integer adds, which give one result in any order: bits is as
     large as keeps any sum of N rows below 2^62, so a bf16 corpus loses at
     most its values below 2^-bits (below 2^-39 for 8M unit rows)."""
+    n = x.shape[0]
+    bits = cluster_bits(float(x.abs().max()) if n else 0.0, n)
+    sums, counts = cluster_sums_fixed(x, assign, k, bits)
+    return sums.to(torch.float64) * 2.0 ** -bits, counts
+
+
+def cluster_sums_fixed(x: torch.Tensor, assign: torch.Tensor, k: int, bits: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int64[K, D] sums of the rows with assign >= 0, each value scaled by
+    2^bits and rounded, int64[K] counts): integer sums, so sums of parts
+    (shards, processes) add up to the whole's in any order."""
     n, d = x.shape
     live = assign >= 0
-    amax = float(x.abs().max()) if n else 0.0
-    bits = 62 - math.frexp(amax)[1] - n.bit_length()      # |x| < 2^frexp exponent
     sums = torch.zeros((k, d), dtype=torch.int64, device=x.device)
     for c0 in range(0, n, _UPDATE_CHUNK):
         a = assign[c0:c0 + _UPDATE_CHUNK]
@@ -98,7 +113,18 @@ def _cluster_sums(x: torch.Tensor, assign: torch.Tensor, k: int
         fixed = torch.round(x[c0:c0 + _UPDATE_CHUNK][lv].to(torch.float64) * 2.0 ** bits)
         sums.index_add_(0, a[lv].to(torch.int64), fixed.to(torch.int64))
     counts = torch.bincount(assign[live].to(torch.int64), minlength=k)
-    return sums.to(torch.float64) * 2.0 ** -bits, counts
+    return sums, counts
+
+
+def update_centroids(sums: torch.Tensor, counts: torch.Tensor, centroids: torch.Tensor
+                     ) -> torch.Tensor:
+    """New centroids bf16[K, D] from f64 cluster sums and counts: the mean;
+    an empty cluster keeps its centroid; every centroid scaled to unit
+    norm."""
+    mean = (sums / counts.clamp(min=1)[:, None].to(torch.float64)).to(torch.float32)
+    new_c = torch.where((counts > 0)[:, None], mean, centroids.to(torch.float32))
+    norm = torch.linalg.vector_norm(new_c, dim=1, keepdim=True)
+    return (new_c / norm.clamp(min=1e-20)).to(torch.bfloat16)
 
 
 def _kmeans_iter(x: torch.Tensor, centroids: torch.Tensor, valid: torch.Tensor,
@@ -111,10 +137,7 @@ def _kmeans_iter(x: torch.Tensor, centroids: torch.Tensor, valid: torch.Tensor,
     k = centroids.shape[0]
     assign = torch.where(valid, _kmeans_assign(x, centroids, chunk), -1)
     sums, counts = _cluster_sums(x, assign, k)
-    mean = (sums / counts.clamp(min=1)[:, None].to(torch.float64)).to(torch.float32)
-    new_c = torch.where((counts > 0)[:, None], mean, centroids.to(torch.float32))
-    norm = torch.linalg.vector_norm(new_c, dim=1, keepdim=True)
-    return (new_c / norm.clamp(min=1e-20)).to(torch.bfloat16), assign
+    return update_centroids(sums, counts, centroids), assign
 
 
 def kmeans(x: torch.Tensor, valid: torch.Tensor, k: int, iters: int = 8, seed: int = 0,
@@ -174,16 +197,32 @@ class IVFState(NamedTuple):
     heads: Optional[torch.Tensor] = None
 
 
-def build_ivf_heads(sketch: torch.Tensor, row_ids: torch.Tensor, hp: int) -> torch.Tensor:
+def ivf_live_rows(starts: torch.Tensor, ends: torch.Tensor, npad: int) -> torch.Tensor:
+    """bool[npad]: the rows some cluster holds, [starts[c], ends[c]) for
+    every c. The layout marks its rows by position, so a row whose user id
+    is negative is live too (the JAX package reads the -1 id as padding)."""
+    edge = torch.zeros(npad + 1, dtype=torch.int32, device=starts.device)
+    lo = starts[:-1].to(torch.int64).clamp(max=npad)
+    hi = ends.to(torch.int64).clamp(max=npad)
+    edge.index_add_(0, lo, torch.ones_like(lo, dtype=torch.int32))
+    edge.index_add_(0, hi, torch.full_like(hi, -1, dtype=torch.int32))
+    return torch.cumsum(edge, 0)[:npad] > 0
+
+
+def build_ivf_heads(sketch: torch.Tensor, row_ids: torch.Tensor, hp: int,
+                    live: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Head tier bf16[ceil(Npad/hp), Dp]: row g is the mean of the live
     sketch rows [g*hp, (g+1)*hp) (the 8-alignment pad rows are zero and
     would dilute it), summed in f32 and divided by the live count. A pool
     may straddle two clusters: it is a proxy, masked per window at query
-    time by head-row/window overlap."""
+    time by head-row/window overlap. `live` is the layout's live rows
+    (`ivf_live_rows`); without it, the rows whose id is >= 0, as the JAX
+    package takes them."""
     n, dp = sketch.shape
     h = -(-n // hp)
     s = _pad_rows(sketch, h * hp).view(h, hp, dp).to(torch.float32)
-    m = torch.nn.functional.pad(row_ids >= 0, (0, h * hp - n)).view(h, hp, 1).to(torch.float32)
+    live = row_ids >= 0 if live is None else live
+    m = torch.nn.functional.pad(live, (0, h * hp - n)).view(h, hp, 1).to(torch.float32)
     return ((s * m).sum(dim=1) / m.sum(dim=1).clamp(min=1.0)).to(torch.bfloat16)
 
 
@@ -375,7 +414,7 @@ def _ivf_prune_windows(heads: torch.Tensor, hp: int, qb: torch.Tensor, blk: torc
 
 def ivf_topk(sketch: torch.Tensor, corpus: torch.Tensor, row_ids: torch.Tensor,
              centroids: torch.Tensor, starts: torch.Tensor, ends: torch.Tensor,
-             queries: torch.Tensor, query_ids: torch.Tensor, k: int, nprobe: int = 32,
+             queries: torch.Tensor, query_ids: Optional[torch.Tensor], k: int, nprobe: int = 32,
              win: int = 256, wb: Optional[int] = None, refine: int = 128,
              exclude_self: bool = True, heads: Optional[torch.Tensor] = None,
              head_pool: int = 0, keep: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -384,7 +423,10 @@ def ivf_topk(sketch: torch.Tensor, corpus: torch.Tensor, row_ids: torch.Tensor,
     by K2b → top-`refine` rows → exact f32 re-score. `wb` windows per query
     (default: every window of the corpus plus one round-up per cluster;
     callers pass `ivf_window_budget`). With `heads`, `head_pool` (dividing
-    `win`) and 0 < keep < wb, the windows are pruned to `keep` first."""
+    `win`) and 0 < keep < wb, the windows are pruned to `keep` first. A
+    row is a candidate only inside its cluster's [start, end), so padding
+    is known by position and any user id can be returned; `query_ids`
+    None excludes nothing."""
     npad, dp = sketch.shape
     kc = centroids.shape[0]
     b = queries.shape[0]
@@ -431,12 +473,13 @@ def tune_nprobe(index: "IVFFlatIndex", sample_queries: np.ndarray, target_recall
         raise RuntimeError("need to fit the data first")
     kc = int(st.centroids.shape[0])
     q = np.asarray(sample_queries, np.float32)
-    ref_ids, _ = index.query(q, k=k, exclude_self=False, nprobe=kc)
-    ref_sets = [set(map(int, r[r >= 0])) for r in ref_ids]
+    ref_ids, ref_sc = index.query(q, k=k, exclude_self=False, nprobe=kc)
+    # a result is present where its score is finite (any id, negative too)
+    ref_sets = [set(map(int, r[np.isfinite(s)])) for r, s in zip(ref_ids, ref_sc)]
     denom = max(sum(len(s) for s in ref_sets), 1)
     for p in sorted(set(min(c, kc) for c in candidates)):
-        ids, _ = index.query(q, k=k, exclude_self=False, nprobe=p)
-        hits = sum(len(ref_sets[i] & set(map(int, ids[i][ids[i] >= 0])))
+        ids, sc = index.query(q, k=k, exclude_self=False, nprobe=p)
+        hits = sum(len(ref_sets[i] & set(map(int, ids[i][np.isfinite(sc[i])])))
                    for i in range(len(ref_sets)))
         if hits / denom >= target_recall:
             index.nprobe = p
@@ -484,8 +527,10 @@ class IVFFlatIndex:
         """Build the derived head tier when window pruning is configured."""
         if self.state is None or not self.head_pool:
             return
-        self.state = self.state._replace(heads=build_ivf_heads(
-            self.state.sketch, self.state.row_ids, self.head_pool))
+        st = self.state
+        self.state = st._replace(heads=build_ivf_heads(
+            st.sketch, st.row_ids, self.head_pool,
+            live=ivf_live_rows(st.starts, st.ends, st.sketch.shape[0])))
 
     def query(self, queries, k: int = 10, query_ids: Optional[np.ndarray] = None,
               exclude_self: bool = True, nprobe: Optional[int] = None,
@@ -510,9 +555,8 @@ class IVFFlatIndex:
         st = self.state
         q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         nq = q.shape[0]
-        qids = (torch.as_tensor(query_ids, dtype=torch.int32).to(self.device)
-                if query_ids is not None
-                else torch.full((nq,), -1, dtype=torch.int32, device=self.device))
+        qids = (None if query_ids is None
+                else torch.as_tensor(query_ids, dtype=torch.int32).to(self.device))
         npb = nprobe or self.nprobe
         bsz = effective_query_batch(nq, self.query_batch)
         wb = self.wb or ivf_window_budget(st.starts, st.ends, npb, self.win)
@@ -521,7 +565,7 @@ class IVFFlatIndex:
         for s0 in range(0, nq, bsz):
             s1 = min(s0 + bsz, nq)
             qc = _pad_rows(q[s0:s1], bsz)
-            qi = torch.nn.functional.pad(qids[s0:s1], (0, bsz - (s1 - s0)), value=-1)
+            qi = None if qids is None else torch.nn.functional.pad(qids[s0:s1], (0, bsz - (s1 - s0)))
             ids, scores = ivf_topk(st.sketch, st.corpus, st.row_ids, st.centroids, st.starts,
                                    st.ends, qc, qi, k, nprobe=npb, win=self.win, wb=wb,
                                    refine=self.refine, exclude_self=exclude_self,

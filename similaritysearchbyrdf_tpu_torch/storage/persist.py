@@ -24,8 +24,13 @@ the interop: the port writes the JAX package's `<path>.npz` and
 with a Bloom summary of their ids (`-summary.npz`) and their bucket
 boundaries (`-keysummary.npz`), resident in an LRU by device bytes;
 `TieredForest` queries a device tier and every generation its probe keys
-can reach, and merges the tiers' top-k. Sharded save and load are not
-ported yet.
+can reach, and merges the tiers' top-k.
+
+The sharded flat and IVF engines (`save_sharded_flat` / `load_sharded_flat`,
+`save_sharded_ivf` / `load_sharded_ivf`) write the JAX package's sharded
+files from one-process meshes: the flat shards concatenated in shard order
+(loadable on any shard count that divides the rows), the IVF shards stacked
+on a leading shard axis (loadable on the saved count only).
 """
 
 from __future__ import annotations
@@ -45,7 +50,8 @@ from ..config import RDFConfig
 from ..index.bucket_table import ID_PAD
 from ..index.forest import ForestState, RDFForest, _probe_hashes, build_coarse_tiers, probe_key_set
 from ..index.partitioner import partition_of_hash
-from ..interop import FIELDS, from_jax_flat, from_jax_ivf, from_jax_state, jax_state_arrays, pad_lanes
+from ..interop import (FIELDS, from_jax_flat, from_jax_ivf, from_jax_sharded_flat,
+                       from_jax_sharded_ivf, from_jax_state, jax_state_arrays, pad_lanes)
 from ..models.families import Device, HashModel, resolve_device
 from ..ops.bitops import from_key
 from ..ops.hashing import hash_dense
@@ -570,3 +576,110 @@ def load_ivf(path: str, device: Device = None):
         index.state = index.state._replace(**narrow)
         index.ensure_heads()
     return index
+
+
+# ---------------------------------------------------------------------------
+# The sharded flat and IVF engines (one-process meshes)
+# ---------------------------------------------------------------------------
+
+
+def _one_process(index) -> None:
+    if index.state is None:
+        raise RuntimeError("nothing to save: fit first")
+    if index.mesh.process_count > 1:
+        raise RuntimeError("a multi-process save is not supported: each process holds only "
+                           "its own shards")
+
+
+def save_sharded_flat(index, path: str) -> None:
+    """Write a fitted `ShardedFlatIndex` to `<path>.npz` / `<path>.json`,
+    the JAX package's files: the shards' sketch, exact tier and ids
+    concatenated in shard order ([S * nloc, ...], the JAX package's
+    row-sharded arrays), widths padded to 128 lanes, bf16 widened to f32.
+    The JSON adds the port's `dim` and each shard's live rows (`n_live`),
+    which the JAX package ignores."""
+    _one_process(index)
+    sh = index.state.shards
+    nloc = index.state.nloc
+    np.savez_compressed(
+        path + ".npz",
+        sketch=pad_lanes(np.concatenate([_host_f32(s.sketch[:nloc]) for s in sh])),
+        corpus=pad_lanes(np.concatenate([_host_f32(s.corpus) for s in sh])),
+        row_ids=np.concatenate([s.row_ids.cpu().numpy().astype(np.int32) for s in sh]))
+    with open(path + ".json", "w") as f:
+        json.dump(dict(engine="sharded_flat", sketch_dtype=index.sketch_dtype,
+                       refine=index.refine, block=index.block, ndev=index.mesh.n_shards,
+                       mode=index.mode, r_groups=index.r_groups, gmax_halved=False,
+                       version=1, dim=int(sh[0].corpus.shape[1]),
+                       n_live=[int(s.n_live) for s in sh]), f)
+
+
+def load_sharded_flat(path: str, mesh=None):
+    """A `ShardedFlatIndex` saved by either package's `save_sharded_flat`,
+    on `mesh` (default: one shard a visible card). Rows are independent
+    under the flat engine's local top-k and merge, so the mesh may hold
+    another shard count, as long as it divides the stored rows (each
+    shard's live rows are then its rows up to the last id that is not -1).
+    A JAX file's strided sketch copy (`gmax_halved`) is derived and a TPU
+    layout: it is not rebuilt."""
+    from ..parallel.mesh import make_forest_mesh
+
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    if meta["engine"] != "sharded_flat":
+        raise ValueError(f"{path}.json holds a {meta['engine']!r} index, not a sharded flat one")
+    with np.load(path + ".npz") as z:
+        arrays = {name: z[name] for name in z.files}
+    mesh = mesh or make_forest_mesh()
+    n_live = meta.get("n_live") if meta.get("ndev") == mesh.n_shards else None
+    return from_jax_sharded_flat(
+        arrays, meta.get("dim") or _true_width(arrays["corpus"]), mesh, n_live=n_live,
+        refine=meta["refine"], block=meta["block"], mode=meta.get("mode", "grouped"),
+        r_groups=meta.get("r_groups", 24))
+
+
+def save_sharded_ivf(index, path: str) -> None:
+    """Write a fitted `ShardedIVFIndex` to `<path>.npz` / `<path>.json`, the
+    JAX package's files: every array with its leading [S] shard axis
+    (centroids once, as f32), widths padded to 128 lanes. The per-shard
+    cluster layouts are tied to the shard count, which the JSON records."""
+    _one_process(index)
+    sh = index.state.shards
+
+    def stack(name, fn=lambda a: a):
+        return np.stack([fn(_host_f32(getattr(s, name))) for s in sh])
+
+    np.savez_compressed(
+        path + ".npz", sketch=stack("sketch", pad_lanes), corpus=stack("corpus", pad_lanes),
+        row_ids=stack("row_ids").astype(np.int32),
+        centroids=pad_lanes(_host_f32(index.state.centroids)),
+        starts=stack("starts").astype(np.int32), ends=stack("ends").astype(np.int32))
+    with open(path + ".json", "w") as f:
+        json.dump(dict(engine="sharded_ivf", target_cluster=index.target_cluster,
+                       nprobe=index.nprobe, win=index.win, refine=index.refine,
+                       iters=index.iters, seed=index.seed, wb=index.wb,
+                       head_pool=index.head_pool, keep=index.keep, ndev=len(sh), version=1,
+                       dim=int(sh[0].corpus.shape[1])), f)
+
+
+def load_sharded_ivf(path: str, mesh=None):
+    """A `ShardedIVFIndex` saved by either package's `save_sharded_ivf`, on
+    `mesh` (default: one shard a visible card), which must hold the saved
+    shard count; the head tier is rebuilt when the index prunes."""
+    from ..parallel.mesh import make_forest_mesh
+
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    if meta["engine"] != "sharded_ivf":
+        raise ValueError(f"{path}.json holds a {meta['engine']!r} index, not a sharded IVF one")
+    with np.load(path + ".npz") as z:
+        arrays = {name: z[name] for name in z.files}
+    mesh = mesh or make_forest_mesh()
+    if mesh.n_shards != meta["ndev"]:
+        raise ValueError(f"saved for {meta['ndev']} shards, the mesh has {mesh.n_shards} "
+                         "(per-shard cluster layouts are tied to the shard count)")
+    dim = meta.get("dim") or _true_width(arrays["corpus"].reshape(-1, arrays["corpus"].shape[-1]))
+    return from_jax_sharded_ivf(
+        arrays, dim, mesh, target_cluster=meta["target_cluster"], nprobe=meta["nprobe"],
+        win=meta["win"], refine=meta["refine"], iters=meta["iters"], seed=meta["seed"],
+        wb=meta.get("wb"), head_pool=meta.get("head_pool", 0), keep=meta.get("keep", 0))

@@ -1177,3 +1177,174 @@ def test_sparse_front_end_on_card_matches_cpu(dev):
     card = torch.device("cuda", 0)
     assert SparseRDFInit().device == SparseRDFForest(_sparse_conf()).device == card
     assert SparseFlatIndex().fit(batch).sketch.device == card
+
+
+# ---------------------------------------------------------------------------
+# the sharded engines: 4 shards on the card against the CPU path
+# ---------------------------------------------------------------------------
+
+
+def _meshes(dev):
+    from similaritysearchbyrdf_tpu_torch.parallel.mesh import make_forest_mesh
+
+    return make_forest_mesh(devices=[dev] * 4), make_forest_mesh(devices=["cpu"] * 4)
+
+
+def _to_cpu(obj):
+    """A sharded state (dataclasses, named tuples, lists of them) with every
+    tensor on the CPU."""
+    import dataclasses
+
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if isinstance(obj, list):
+        return [_to_cpu(o) for o in obj]
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{f.name: _to_cpu(getattr(obj, f.name))
+                                           for f in dataclasses.fields(obj)})
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_to_cpu(o) for o in obj))
+    return obj
+
+
+def _launches(kernels):
+    return [(K2.LAUNCHES, K2.WINDOW_LAUNCHES) if m is K2 else m.LAUNCHES for m in kernels]
+
+
+def _sharded_on_card_and_cpu(dev, fit, query, kernels, tol):
+    """An engine fitted on 4 shards of the card (`fit(mesh)`), queried there
+    (`query(engine)` → ids, scores) and again with its state moved to 4 CPU
+    shards: the card launched every module in `kernels`, the CPU none; ids
+    equal up to exact-score ties (-inf at the same places), on >= 98% of
+    queries outright."""
+    card, cpu = _meshes(dev)
+    engine = fit(card)
+    before = _launches(kernels)
+    g_ids, g_sc = query(engine)
+    after = _launches(kernels)
+    assert all(a != b for a, b in zip(after, before)), (before, after)
+    engine.state, engine.mesh = _to_cpu(engine.state), cpu
+    if hasattr(engine, "_query_fns"):
+        engine._query_fns = {}
+    c_ids, c_sc = query(engine)
+    assert _launches(kernels) == after
+    assert g_ids.shape == c_ids.shape
+    fin = np.isfinite(c_sc)
+    assert (np.isfinite(g_sc) == fin).all()
+    assert all(equal_up_to_ties(g_ids[i][fin[i]], g_sc[i][fin[i]], c_ids[i][fin[i]],
+                                c_sc[i][fin[i]], tol) for i in range(len(g_ids)))
+    assert (g_ids == c_ids).all(axis=1).mean() >= 0.98
+
+
+@pytest.mark.parametrize("name,extra,kernels", [
+    ("block", dict(), (K1, K2)),
+    ("window", dict(max_candidates=32768, coarse_window=64, coarse_head_pool=8,
+                    coarse_keep=64), (K1, K2)),
+    ("folded", dict(coarse_layout="folded", coarse_window=256, coarse_refine=1024,
+                    max_candidates=8192), (K1, K3)),
+    ("classic", dict(coarse_dim=0), (K1,)),
+])
+def test_sharded_forest_on_card_matches_cpu(dev, name, extra, kernels):
+    from similaritysearchbyrdf_tpu_torch import sharded_forest
+
+    x = _flat_corpus(6000, 32, 41)
+    ids = np.arange(6000, dtype=np.int32) * 7 - 20_000      # negative ids too
+    conf = _front_conf().replace(**extra)
+    _sharded_on_card_and_cpu(
+        dev, lambda mesh: sharded_forest(conf, mesh=mesh).fit(DenseBatch(ids, x)),
+        lambda f: f.query(x[:128], steps=1, query_ids=ids[:128]), kernels, tol=2 * 32 * U)
+
+
+@pytest.mark.parametrize("mode,kernels", [("grouped", (K4, K2)), ("scan", ())])
+def test_sharded_flat_on_card_matches_cpu(dev, mode, kernels):
+    from similaritysearchbyrdf_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
+
+    x = _flat_corpus(20_000, 96, 43)
+    ids = np.arange(20_000, dtype=np.int32)
+    _sharded_on_card_and_cpu(
+        dev, lambda mesh: ShardedFlatIndex(mesh=mesh, mode=mode).fit(DenseBatch(ids, x)),
+        lambda f: f.query(x[:256], k=10, query_ids=ids[:256]), kernels, tol=2 * 96 * U)
+
+
+def test_sharded_ivf_on_card_matches_cpu(dev):
+    from similaritysearchbyrdf_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+
+    x = _flat_corpus(20_000, 96, 47)
+    ids = np.arange(20_000, dtype=np.int32)
+    _sharded_on_card_and_cpu(
+        dev, lambda mesh: ShardedIVFIndex(mesh=mesh, target_cluster=128, nprobe=8, win=64,
+                                          head_pool=16, keep=8).fit(DenseBatch(ids, x)),
+        lambda f: f.query(x[:256], k=10, query_ids=ids[:256]), (K2,), tol=2 * 96 * U)
+
+
+def test_sharded_ivf_fit_on_card_equals_across_meshes(dev):
+    """The k-means sums are integers: 8 shards and 4 shards of the card
+    reach the same centroids bit for bit (the assignment is row by row)."""
+    from similaritysearchbyrdf_tpu_torch.parallel.mesh import make_forest_mesh
+    from similaritysearchbyrdf_tpu_torch.parallel.sharded_ivf import fit_ivf_sharded
+
+    x = _flat_corpus(16_384, 96, 49)
+    ids = np.arange(16_384, dtype=np.int32)
+    cents = [fit_ivf_sharded(x, ids, make_forest_mesh(devices=[dev] * s), target_cluster=128,
+                             iters=4)[0].centroids for s in (8, 4)]
+    assert torch.equal(cents[0], cents[1])
+
+
+def test_sharded_sparse_engines_on_card_match_cpu(dev):
+    import torch as T
+
+    from similaritysearchbyrdf_tpu_torch import SparseBatch
+    from similaritysearchbyrdf_tpu_torch.index.bucket_table import KeyLayout
+    from similaritysearchbyrdf_tpu_torch.parallel import sharded_forest as SF
+    from similaritysearchbyrdf_tpu_torch.parallel.sharded_flat import ShardedSparseFlatIndex
+
+    idx, val = _sparse_rows(4000, 4096, 64, seed=9)
+    batch = SparseBatch(np.arange(4000), 4096, idx, val, np.full(4000, 64))
+    conf = _sparse_conf(vector_dim=4096, coarse_dim=0, max_candidates=16384)
+    layout = KeyLayout.from_config(conf, conf.lsh_table)
+
+    class Forest:                     # the sparse query function as an engine
+        def __init__(self, mesh):
+            self.mesh = mesh
+            self.state, _ = SF.fit_sparse_sharded(conf, batch, mesh)
+
+        def query(self):
+            fn = SF.make_sparse_query_fn(self.mesh, layout, 4096, steps=0, m_cap=16384, k=10)
+            d = self.mesh.devices[0]
+            ids, sc, _ = fn(self.state, T.as_tensor(idx[:128], device=d),
+                            T.as_tensor(val[:128], device=d),
+                            T.arange(128, dtype=T.int32, device=d), chunk=64)
+            return ids.cpu().numpy(), sc.cpu().numpy()
+
+    _sharded_on_card_and_cpu(dev, Forest, lambda f: f.query(), (K1,), tol=1e-6)
+    _sharded_on_card_and_cpu(
+        dev, lambda mesh: ShardedSparseFlatIndex(mesh=mesh).fit(batch),
+        lambda f: f.query(idx[:128], val[:128], k=10, query_ids=np.arange(128)), (K4, K2),
+        tol=1e-6)
+
+
+def test_sharded_save_load_on_card(dev, tmp_path):
+    """Each sharded engine saved from the card and loaded back on it
+    answers alike; with no devices named, the mesh is one shard on the
+    card."""
+    from similaritysearchbyrdf_tpu_torch import (load_sharded_flat, load_sharded_ivf,
+                                                 save_sharded_flat, save_sharded_ivf)
+    from similaritysearchbyrdf_tpu_torch.parallel.mesh import make_forest_mesh
+    from similaritysearchbyrdf_tpu_torch.parallel.sharded_flat import ShardedFlatIndex
+    from similaritysearchbyrdf_tpu_torch.parallel.sharded_ivf import ShardedIVFIndex
+
+    mesh = _meshes(dev)[0]
+    x = _flat_corpus(10_000, 64, 53)
+    batch = DenseBatch(np.arange(10_000, dtype=np.int32), x)
+    for engine, save, load in ((ShardedFlatIndex(mesh=mesh), save_sharded_flat,
+                                load_sharded_flat),
+                               (ShardedIVFIndex(mesh=mesh, target_cluster=64), save_sharded_ivf,
+                                load_sharded_ivf)):
+        engine.fit(batch)
+        want = engine.query(x[:64], k=10, query_ids=np.arange(64))
+        save(engine, str(tmp_path / "idx"))
+        got = load(str(tmp_path / "idx"), mesh).query(x[:64], k=10, query_ids=np.arange(64))
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    one = make_forest_mesh()
+    assert one.devices == tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))

@@ -57,6 +57,11 @@ def test_port_imports_with_jax_blocked():
         "import similaritysearchbyrdf_tpu_torch.storage.crypto\n"
         "import similaritysearchbyrdf_tpu_torch.storage.bloom\n"
         "import similaritysearchbyrdf_tpu_torch.cli\n"
+        "import similaritysearchbyrdf_tpu_torch.parallel.mesh\n"
+        "import similaritysearchbyrdf_tpu_torch.parallel.sharded_forest\n"
+        "import similaritysearchbyrdf_tpu_torch.parallel.sharded_flat\n"
+        "import similaritysearchbyrdf_tpu_torch.parallel.sharded_ivf\n"
+        "assert callable(p.sharded_forest)\n"
         "from similaritysearchbyrdf_tpu_torch.native import loader\n"
         "from similaritysearchbyrdf_tpu_torch.ops.kernels import build\n"
         "assert build._lib is None, 'kernels were built at import'\n"
@@ -78,7 +83,8 @@ def test_port_imports_with_jax_blocked():
         "save_forest", "load_forest", "save_flat", "load_flat", "save_ivf", "load_ivf",
         "TieredForest", "GenerationStore", "SparseBatch", "load_sparse_file",
         "sparse_batch_from_rows", "SparseRDFForest", "SparseFlatIndex", "flat_topk_sparse",
-        "SparseRDFInit"}
+        "SparseRDFInit", "save_sharded_flat", "load_sharded_flat", "save_sharded_ivf",
+        "load_sharded_ivf"}
 
 
 def test_kernel_sources_are_package_data():
