@@ -43,9 +43,9 @@ device is present:
      its bytes, rate and bound share as in phase 4);
   8. kernels_flat: K4 (flat group-max) against its plain version at the
      Deep-8M flat query's shapes (int8 packed, unpacked, packed with the
-     supergroup tier: the wgmma form), and its sliced mma.sync form at
-     200k x 800 (random int8), each with the form it took and the share of
-     its bound it reached;
+     supergroup tier: the wgmma form), and its K-looped wgmma form at 200k
+     x 800 (random int8), each with the form it took and the share of its
+     bound it reached;
   9. flat_8m: `FlatIndex()` at its defaults (int8, argpack) on folded_8m's
      corpus and ground truth: fit, 1,024 queries, recall, qps, bytes,
      peak device memory;
@@ -113,10 +113,13 @@ device is present:
      again on the CPU path (equal up to exact-score ties), the
      `SparseFlatIndex()` on the same corpus (build, bytes, recall, qps, a
      profile; recall again with more groups kept and more rows re-scored),
-     and K1 (a fit chunk, B 8192, and a query chunk, B 64, at D 4096), K2
-     (cs 64), K2b (the 4096-wide sketch as one table) and K4 (D 4096, all
-     1,007,616 rows) against their plain versions on the operands the path
-     gave them, every call's launches; then its sharded leg, 4 shards on
+     and K1 (a fit chunk, B 8192, and a query chunk, B 64, at D 4096: its
+     wide form), K2 (cs 64), K2b (the 4096-wide sketch as one table) and K4
+     (D 4096, all 1,007,616 rows: its K-looped form) against their plain
+     versions on the operands the path gave them, K1 and K4 with their
+     product alone beside them (`product_ms`: a full-f32 `torch.matmul`,
+     `torch._int_mm` in row slabs; a yardstick the port never calls), every
+     call's launches; then its sharded leg, 4 shards on
      the card: `fit_sparse_sharded` queried by `make_sparse_query_fn` (the
      classic path: steps 0, m_cap 16384, chunks of 64; K1 at D 4096) and
      `ShardedSparseFlatIndex()` (K4 and K2b at D 4096), each recall beside
@@ -1598,9 +1601,9 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
                     **kernel_times(lambda: K4.flat_groupmax_kernel(sk, q8, 64, **kw)),
                     "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk, q8, 64, **kw))}
         k4[name]["bound_share"] = k4[name]["bound_ms"] / k4[name]["ms"]
-    # the sliced form (D staged in 256-byte slices) at the JAX package's
-    # high-D flat workload, 200k x 784 (sketch width 800), exact2's unpacked
-    # call: seeded random int8 values
+    # the K-looped form (int8 past D 192) at the JAX package's high-D flat
+    # workload, 200k x 784 (sketch width 800), exact2's unpacked call:
+    # seeded random int8 values
     gen = torch.Generator(device=dev).manual_seed(784)
     sk_hd = torch.randint(-127, 128, (204_800, 800), generator=gen, device=dev, dtype=torch.int8)
     q_hd = torch.randint(-127, 128, (nq, 800), generator=gen, device=dev, dtype=torch.int8)
@@ -1608,16 +1611,15 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
     want = K4.flat_groupmax_plain(sk_hd, q_hd, 64)
     sync()
     bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-    check(bad == 0, f"K4's sliced form differs from its plain version in {bad} words")
-    k4["int8_sliced_200k_d800"] = {
+    check(bad == 0, f"K4 at D 800 differs from its plain version in {bad} words")
+    hd = k4["int8_200k_d800"] = {
         "shape": {"B": nq, "Npad": sk_hd.shape[0], "D": 800, "group": 64},
-        "form": K4.kernel_form(sk_hd.dtype, 800) + ", D in slices",
+        "form": K4.kernel_form(sk_hd.dtype, 800),
         "mismatched_words": bad, "max_abs_err": float((got - want).abs().max()),
         **bound(nbytes(sk_hd, q_hd, got), 2.0 * nq * sk_hd.shape[0] * 800, "int8"),
         **kernel_times(lambda: K4.flat_groupmax_kernel(sk_hd, q_hd, 64)),
         "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk_hd, q_hd, 64))}
-    k4["int8_sliced_200k_d800"]["bound_share"] = (k4["int8_sliced_200k_d800"]["bound_ms"]
-                                                  / k4["int8_sliced_200k_d800"]["ms"])
+    hd["bound_share"] = hd["bound_ms"] / hd["ms"]
     del sk_hd, q_hd, got, want
     emit({"phase": "kernels_flat", "K4": k4})
 
@@ -1719,6 +1721,7 @@ def sparse_phase(dev, sync, median_ms) -> dict:
     from similaritysearchbyrdf_tpu_torch.ops import hashing as H
     from similaritysearchbyrdf_tpu_torch.ops.exact import exact_topk_sparse
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2M
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import hash_kernel as K1M
     from similaritysearchbyrdf_tpu_torch.ops.precision import full_f32
     from similaritysearchbyrdf_tpu_torch.ops.rerank import top_sorted
 
@@ -1878,13 +1881,15 @@ def sparse_phase(dev, sync, median_ms) -> dict:
 
     # ---- the kernels on the path's own operands ---------------------------
     kern = {}
-    (x, proj, perm), kw1 = k1_fit[K1][0]
-    check(not kw1 and x.shape == (conf.fit_batch_size, dim), f"unexpected K1 fit call: {kw1}")
-    kern["K1_fit"] = hash_check(x, proj, perm, False, sync, median_ms, "a sparse_1m fit chunk")
-    (x, proj, perm), kw1 = k1_query_call
-    check(not kw1 and x.shape == (conf.query_batch_size, dim), f"unexpected K1 call: {kw1}")
-    kern["K1_query"] = hash_check(x, proj, perm, False, sync, median_ms,
-                                  "a sparse_1m query chunk")
+    for name, call, b in (("K1_fit", k1_fit[K1][0], conf.fit_batch_size),
+                          ("K1_query", k1_query_call, conf.query_batch_size)):
+        (x, proj, perm), kw1 = call
+        check(not kw1 and x.shape == (b, dim), f"unexpected K1 call {name}: {kw1}")
+        kern[name] = {"form": K1M.kernel_form(dim),
+                      **hash_check(x, proj, perm, False, sync, median_ms, f"sparse_1m's {name}")}
+        pmat = proj.reshape(-1, dim)
+        with full_f32():
+            kern[name]["product_ms"] = median_ms(lambda: torch.matmul(x, pmat.T))
     (tier, q_low, table_i, blk_start, bs), kw2 = k2_call
     check(not kw2, f"unexpected K2 call on sparse_1m: {kw2}")
     k2 = block_kernel_check(tier, q_low, table_i, blk_start, bs, sync, median_ms)
@@ -1895,7 +1900,14 @@ def sparse_phase(dev, sync, median_ms) -> dict:
     fk = flat_kernels(f_calls[K4][0], f_calls[K2B][0], sync, median_ms, "sparse_1m",
                       bf16=False)
     check(fk["K4_int8"]["shape"]["D"] == dim, f"unexpected K4 call on sparse_1m: {fk}")
-    kern["K4"] = {**fk["K4_int8"], "form": fk["K4_int8"]["form"] + ", D in slices"}
+    kern["K4"] = fk["K4_int8"]
+    (sk4, q4, _), _ = f_calls[K4][0]
+
+    def int_mm_slabs():
+        for r0 in range(0, sk4.shape[0], 131_072):
+            torch._int_mm(q4, sk4[r0:r0 + 131_072].t())
+
+    kern["K4"]["product_ms"] = median_ms(int_mm_slabs)
     kern["K2b"] = fk["K2b"]
     for rec in kern.values():
         rec["bound_share"] = rec["bound_ms"] / rec["ms"]
@@ -1904,7 +1916,7 @@ def sparse_phase(dev, sync, median_ms) -> dict:
     # the single-device engines go before the sharded ones are built
     model, part_proj = forest.model, forest.part_proj
     del forest, state, st, flat, f_calls, wit, k1_fit, k1_query_call, k2_call, tier, q_low
-    del table_i, blk_start, x, proj, perm, fk
+    del table_i, blk_start, x, proj, perm, pmat, fk, sk4, q4
     torch.cuda.empty_cache()
     out["sharded"] = sparse_sharded_leg(batch, queries, qids, gt, out, calls, model, part_proj,
                                         dev, sync, median_ms)
@@ -2752,8 +2764,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 15: the sparse path at 1M x 4096 --------------------------------
-    sparse_phase(dev, sync, median_ms)
+    sparse = sparse_phase(dev, sync, median_ms)
     k4p = k4["int8_packed"]
+
+    def at_sparse(rec, launches):
+        """A kernel record of sparse_1m (its form, times and bound), with its
+        launches on the call that gave its operands."""
+        return {"shape": rec["shape"], "form": rec["form"], "launches": launches,
+                **{k: rec[k] for k in ("ms", "device_ms", "plain_ms", "product_ms",
+                                        "bound_ms", "bound_by")}}
+
+    sk_calls = sparse["calls"]
     lib = {"library_ms": None}     # no single PyTorch call computes any of these functions
     # each kernel's launches on sharded_8m's four query paths
     sh_launches = {}
@@ -2768,7 +2789,12 @@ def main() -> int:
          "replaces": "similaritysearchbyrdf_tpu/ops/pallas/hash_kernel.py:103",
          "launches": launches["hash_dense_kernel"], "max_abs_err": k1["max_margin_err"],
          "ms": k1["ms"], "device_ms": k1["device_ms"], "plain_ms": k1["plain_ms"],
-         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], **lib},
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], **lib,
+         "form": K1.kernel_form(x.shape[1]),
+         "sparse_1m_fit": at_sparse(sparse["kernels"]["K1_fit"],
+                                    sk_calls["fit"]["launches"]["hash_dense_kernel"]),
+         "sparse_1m_query": at_sparse(sparse["kernels"]["K1_query"],
+                                      sk_calls["steps0_rf2048"]["launches"]["hash_dense_kernel"])},
         {"name": "coarse_block_scores_kernel", "route": "cuda",
          "sharded_8m_launches": sh_launches.get("coarse_block_scores_kernel", 0),
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
@@ -2800,7 +2826,9 @@ def main() -> int:
          "launches": launches_flat["flat_groupmax_kernel"], "max_abs_err": k4p["max_abs_err"],
          "ms": k4p["ms"], "device_ms": k4p["device_ms"], "plain_ms": k4p["plain_ms"],
          "bound_ms": k4p["bound_ms"],
-         "bound_by": k4p["bound_by"], **lib},
+         "bound_by": k4p["bound_by"], **lib, "form": k4p["form"],
+         "sparse_1m": at_sparse(sparse["kernels"]["K4"],
+                                sk_calls["flat"]["launches"]["flat_groupmax_kernel"])},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

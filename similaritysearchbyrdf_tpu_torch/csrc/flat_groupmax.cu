@@ -19,9 +19,11 @@
 //
 // Bound: operations. At the Deep-8M shape (Npad 8,003,584, D 96, B 1024,
 // int8) a call does 1.57e12 int8 operations (0.80 ms at 1,979 TOPS) and
-// moves 768 MB of sketch and 512 MB of output (0.38 ms at 3.35 TB/s).
+// moves 768 MB of sketch and 512 MB of output (0.38 ms at 3.35 TB/s); at
+// the sparse flat engine's (Npad 1,007,616, D 4096, B 1024) 8.45e12
+// operations (4.27 ms) against 4.2 GB of sketch (1.26 ms).
 //
-// Two forms, chosen by shape in `rdf_flat_groupmax`:
+// Three forms, chosen by shape in `rdf_flat_groupmax`:
 //
 // The wgmma form (int8, D up to kWgMaxD = 192). A persistent grid, one CTA
 // per SM, of five warpgroups: four consumers and a producer. Each CTA keeps
@@ -59,31 +61,55 @@
 // warpgroups' products only in part; two warpgroups, a strict turnstile
 // between them, or three-way maxima were each slower.
 //
-// The mma.sync form (bf16, and int8 past D 192): the product runs on the
-// tensor cores through mma.sync
-// (m16n8k32 s8 -> s32, or m16n8k16 bf16 -> f32: both take a 32-byte slice
-// of a row per step, so the fragments load alike), with the queries as the
-// M operand and the sketch rows as N. A CTA of `nw` warps owns 64*nw
-// consecutive sketch rows, staged once in shared memory, and walks all B
-// queries in blocks of 128, each block staged by cp.async while the previous
-// one is scored; a warp owns 64 of the rows and scores 32 queries at a time
-// (rows padded by 16 bytes in shared memory, so every ldmatrix is free of
-// bank conflicts). A 16x8 accumulator tile holds a query's scores for 8 rows
-// across the 4 lanes of a quad, so a group's max is a max over registers
-// and two shuffles; packing is one multiply-add per score. Per-64-row maxima
-// of a 128-query block go through shared memory, one barrier per block,
-// where groups wider than 64 rows and the supergroup tier are folded and
-// written coalesced; the supergroup tier uses atomicMax on an output the
-// wrapper fills with INT32_MIN, which is order-free and so deterministic.
-// Where whole rows of a sketch tile of at least 4 warps (and of G rows) and
-// of two query blocks do not fit in shared memory (int8 D past 416, bf16 D
-// past 192), the sliced form stages D in 256-byte slices
-// instead: for every 32 queries it stages each slice of the CTA's rows and
-// of those queries in turn, and the accumulators stay in registers across
-// slices, so any D works, at the cost of reading the sketch tile again for
-// every 32 queries.
-// mma.sync reaches only part of the tensor-core peak, and its operands
-// pass through ldmatrix for every 32 queries.
+// The K-looped form (int8, D past kWgMaxD): a GEMM with the wgmma form's
+// epilogue. Its tile is 128 queries (M) x 256 sketch rows (N), held by two
+// consumer warpgroups of 64 queries x 256 rows each: 128 s32 accumulators
+// a thread (setmaxnreg gives the consumers 232 registers, the producer 40),
+// which stay in registers across the whole D loop, so each sketch byte is
+// staged once per 128 queries. One producer thread brings 128-byte D-slabs
+// of both operands by TMA, in wgmma's 128-byte swizzle (descriptor: swizzle
+// 128B, 1024 bytes between 8-row groups; a k-step is 32 bytes further into
+// the swizzled row), through a 4-stage mbarrier ring; the consumers run
+// four m64n256k32 s8 products on each slab as it lands and keep one slab's
+// products in flight while they wait for the next, so copies overlap
+// products. A persistent grid of one CTA per SM walks the tiles row block
+// first: the query tiles of one 256-row block run on concurrent CTAs, so
+// the sketch comes from HBM about once and its re-reads (one per 128
+// queries) from L2, as the JAX kernel's docstring asks of its grid
+// (`ops/pallas/flat_groupmax.py:15-19`). The epilogue is the wgmma form's:
+// a max over registers and a quad exchange per group, keys by one IMAD,
+// the supergroup tier by order-free atomicMax, query-major stores. G 512
+// is wider than a consumer's 256 rows: there the two consumers take the
+// same 64 queries against the two halves of a 512-row tile, and fold their
+// group maxima through shared memory (a 3-stage ring of 72 KB stages).
+// Any D that is a multiple of 32 works: TMA zero-fills the last slab past
+// D, and rows past B or Npad. Measured on an NVIDIA H100 80GB HBM3 at a
+// 700 W power limit (timing.py K4_sparse_1m, 5 pairs against the sliced
+// mma.sync form it replaced, in one call: B 1024 x 1,007,616 x 4096, G 64,
+// unpacked): 4.93-5.08 ms device, 84-87% of the 4.27 ms bound, from
+// 45.7-46.0; cuBLAS's int8 product alone (`torch._int_mm`) takes 9.2-9.5
+// ms on the same operands. The sketch's re-reads (one per 128 queries,
+// about 47 GB a call) come from L2 and did not bound it, so no cluster
+// multicast was added.
+//
+// The mma.sync form (bf16): the product runs on the tensor cores through
+// mma.sync m16n8k16 bf16 -> f32, with the queries as the M operand and the
+// sketch rows as N. A CTA of `nw` warps owns 64*nw consecutive sketch rows,
+// staged once in shared memory, and walks all B queries in blocks of 128,
+// each block staged by cp.async while the previous one is scored; a warp
+// owns 64 of the rows and scores 32 queries at a time (rows padded by 16
+// bytes in shared memory, so every ldmatrix is free of bank conflicts). A
+// 16x8 accumulator tile holds a query's scores for 8 rows across the 4
+// lanes of a quad, so a group's max is a max over registers and two
+// shuffles. Per-64-row maxima of a 128-query block go through shared
+// memory, one barrier per block, where groups wider than 64 rows are folded
+// and written coalesced. Where whole rows of a sketch tile of at least 4
+// warps (and of G rows) and of two query blocks do not fit in shared memory
+// (D past 192), the sliced form stages D in 256-byte slices instead: for
+// every 32 queries it stages each slice of the CTA's rows and of those
+// queries in turn, and the accumulators stay in registers across slices,
+// so any D works, at the cost of reading the sketch tile again for every
+// 32 queries. bf16 K4 is on no measured path.
 // The TPU kernels' strided (halved) sketch copy, nsub pipelining, in-kernel
 // transpose and lane-reduction variant were Mosaic layout tactics and have
 // no counterpart.
@@ -140,66 +166,19 @@ __device__ __forceinline__ void stage_rows(uint8_t* dst, const uint8_t* src, lon
   cp_async_commit();
 }
 
-// the product and the reduction of one input type: a score's key (the
-// packed key, the int score, or the bf16 path's f32 score), the max of
-// keys, and the output word a key becomes
-template <bool BF16, bool PACK>
-struct Kind;
-
-template <bool PACK>
-struct Kind<false, PACK> {   // int8 x int8 -> int32
-  using T = int;
-  static __device__ __forceinline__ void mma(T (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  // score * group + member: the shift of the reference, in unsigned
-  // arithmetic (the caller guarantees it does not overflow)
-  static __device__ __forceinline__ T key(T s, unsigned group, unsigned member) {
-    if constexpr (PACK) {
-      return (int)((unsigned)s * group + member);
-    } else {
-      return s;
-    }
-  }
-  static __device__ __forceinline__ T max(T a, T b) { return a > b ? a : b; }
-  static __device__ __forceinline__ T of_bits(int w) { return w; }
-  static __device__ __forceinline__ int bits(T v) { return v; }
-  static __device__ __forceinline__ int word(T v) {
-    if constexpr (PACK) {
-      return v;
-    } else {
-      return __float_as_int((float)v);   // exact below 2^24, else rounded to nearest
-    }
-  }
-};
-
-template <>
-struct Kind<true, false> {   // bf16 x bf16 -> f32
-  using T = float;
-  static __device__ __forceinline__ void mma(T (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-        "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ T key(T s, unsigned, unsigned) { return s; }
-  static __device__ __forceinline__ T max(T a, T b) { return fmaxf(a, b); }
-  static __device__ __forceinline__ T of_bits(int w) { return __int_as_float(w); }
-  static __device__ __forceinline__ int bits(T v) { return __float_as_int(v); }
-  static __device__ __forceinline__ int word(T v) { return __float_as_int(v); }
-};
+// bf16 x bf16 -> f32: a 32-byte slice of a row (16 values) per step
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 // acc += 32 staged queries x a warp's 64 staged rows over `ksteps` 32-byte
 // steps of D; abase and bbase are this lane's ldmatrix addresses
-template <class K, typename T>
-__device__ __forceinline__ void mma_rows(T (&acc)[2][8][4], const uint8_t* abase,
+__device__ __forceinline__ void mma_rows(float (&acc)[2][8][4], const uint8_t* abase,
                                          const uint8_t* bbase, int stride, int ksteps) {
   for (int ks = 0; ks < ksteps; ++ks) {
     uint32_t a[2][4];
@@ -211,8 +190,8 @@ __device__ __forceinline__ void mma_rows(T (&acc)[2][8][4], const uint8_t* abase
       ldmatrix_x4(b, bbase + (size_t)n * 8 * stride + ks * 32);
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
-        K::mma(acc[m][n], a[m], b[0], b[1]);
-        K::mma(acc[m][n + 1], a[m], b[2], b[3]);
+        mma_bf16(acc[m][n], a[m], b[0], b[1]);
+        mma_bf16(acc[m][n + 1], a[m], b[2], b[3]);
       }
     }
   }
@@ -221,13 +200,10 @@ __device__ __forceinline__ void mma_rows(T (&acc)[2][8][4], const uint8_t* abase
 // UG = min(G, 64): rows per reduction unit inside a warp. A warp yields
 // 64 / UG units per query; the store stage folds G / UG units per group.
 // SLICED: D staged in kSlice-byte slices (see the head of the file).
-template <bool BF16, bool PACK, int UG, bool SLICED>
+template <int UG, bool SLICED>
 __global__ void __launch_bounds__(256, SLICED ? 1 : 2)
-flat_groupmax_kernel(const uint8_t* __restrict__ sk, const uint8_t* __restrict__ q,
-                     int* __restrict__ out, int* __restrict__ sgout, int npad, int B,
-                     int dbytes, int group, int esg) {
-  using K = Kind<BF16, PACK>;
-  using T = typename K::T;
+flat_groupmax_bf16(const uint8_t* __restrict__ sk, const uint8_t* __restrict__ q,
+                   float* __restrict__ out, int npad, int B, int dbytes, int group) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int nw = blockDim.x >> 5;
   const int rows = nw * kRowsPerWarp;                 // sketch rows of this CTA
@@ -236,7 +212,7 @@ flat_groupmax_kernel(const uint8_t* __restrict__ sk, const uint8_t* __restrict__
   const int qrows = SLICED ? kQTile : 2 * kQBlock;    // staged query rows
   uint8_t* sks = smem;                                               // [rows][stride]
   uint8_t* qs = smem + (size_t)rows * stride;                        // [qrows][stride]
-  int* obuf = reinterpret_cast<int*>(qs + (size_t)qrows * stride);   // [2][kQBlock][units]
+  float* obuf = reinterpret_cast<float*>(qs + (size_t)qrows * stride);   // [2][kQBlock][units]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;                            // row of a fragment (groupID)
@@ -246,8 +222,6 @@ flat_groupmax_kernel(const uint8_t* __restrict__ sk, const uint8_t* __restrict__
   const int upg = group / UG;                         // units per group
   const int cta_groups = units / upg;
   const long long group0 = row0 / group;
-  // a score's member is mbase + (its row within the warp's 64), wrapped to G
-  const unsigned mbase = (unsigned)(tig * 2) + (group > 64 ? (warp * 64) & (group - 1) : 0);
 
   if constexpr (!SLICED) {
     stage_rows(sks, sk, row0, rows, npad, dbytes, dbytes, stride);
@@ -272,15 +246,15 @@ flat_groupmax_kernel(const uint8_t* __restrict__ sk, const uint8_t* __restrict__
                  dbytes, dbytes, stride);
     }
     const uint8_t* qb = qs + (size_t)(SLICED ? 0 : blk & 1) * kQBlock * stride;
-    int* ob = obuf + (blk & 1) * kQBlock * units;
+    float* ob = obuf + (blk & 1) * kQBlock * units;
     for (int st = 0; st < kSteps && q0 + st * kQTile < B; ++st) {   // CTA-uniform
-      T acc[2][8][4];
+      float acc[2][8][4];
 #pragma unroll
       for (int m = 0; m < 2; ++m)
 #pragma unroll
         for (int n = 0; n < 8; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[m][n][e] = 0;
+          for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
       if constexpr (SLICED) {
         // each slice of D: the CTA's rows and these 32 queries, staged once
         // the previous slice is consumed
@@ -291,10 +265,10 @@ flat_groupmax_kernel(const uint8_t* __restrict__ sk, const uint8_t* __restrict__
           stage_rows(qs, q + d0, q0 + st * kQTile, kQTile, B, dbytes, w, stride);
           cp_async_wait_all();
           __syncthreads();
-          mma_rows<K>(acc, qs + a_off, bbase, stride, w >> 5);
+          mma_rows(acc, qs + a_off, bbase, stride, w >> 5);
         }
       } else {
-        mma_rows<K>(acc, qb + (size_t)(st * kQTile) * stride + a_off, bbase, stride, dbytes >> 5);
+        mma_rows(acc, qb + (size_t)(st * kQTile) * stride + a_off, bbase, stride, dbytes >> 5);
       }
 
       // each unit of UG rows: a max over registers (2 rows per n8 tile,
@@ -302,30 +276,27 @@ flat_groupmax_kernel(const uint8_t* __restrict__ sk, const uint8_t* __restrict__
       constexpr int kTilesPerUnit = UG / 8;
 #pragma unroll
       for (int u = 0; u < 8 / kTilesPerUnit; ++u) {
-        T v[2][2];
+        float v[2][2];
 #pragma unroll
         for (int t = 0; t < kTilesPerUnit; ++t) {
           const int n = u * kTilesPerUnit + t;
-          const unsigned m0 = mbase + ((n * 8) & (UG - 1));
 #pragma unroll
           for (int m = 0; m < 2; ++m)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const T k = K::max(K::key(acc[m][n][2 * h], group, m0),
-                                 K::key(acc[m][n][2 * h + 1], group, m0 + 1));
-              v[m][h] = t == 0 ? k : K::max(v[m][h], k);
+              const float k = fmaxf(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
+              v[m][h] = t == 0 ? k : fmaxf(v[m][h], k);
             }
         }
 #pragma unroll
         for (int m = 0; m < 2; ++m)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            T w = v[m][h];
-            w = K::max(w, __shfl_xor_sync(kFull, w, 1));
-            w = K::max(w, __shfl_xor_sync(kFull, w, 2));
+            float w = v[m][h];
+            w = fmaxf(w, __shfl_xor_sync(kFull, w, 1));
+            w = fmaxf(w, __shfl_xor_sync(kFull, w, 2));
             if (tig == 0) {
-              ob[(st * kQTile + m * 16 + h * 8 + g) * units + warp * (kRowsPerWarp / UG) + u] =
-                  K::bits(w);
+              ob[(st * kQTile + m * 16 + h * 8 + g) * units + warp * (kRowsPerWarp / UG) + u] = w;
             }
           }
       }
@@ -338,26 +309,10 @@ flat_groupmax_kernel(const uint8_t* __restrict__ sk, const uint8_t* __restrict__
       const int ql = i / cta_groups, j = i - ql * cta_groups;
       const long long grp = group0 + j;
       if (q0 + ql >= B || grp >= ng) continue;
-      const int* src = ob + ql * units + j * upg;
-      T v = K::of_bits(src[0]);
-      for (int u = 1; u < upg; ++u) v = K::max(v, K::of_bits(src[u]));
-      out[(size_t)(q0 + ql) * ng + grp] = K::word(v);
-    }
-    if (PACK && esg > 0) {   // supergroups of esg groups (packed keys only)
-      const int span = min(esg * upg, units);        // units of one supergroup in this CTA
-      const int nsg_cta = units / span;
-      const int nsg = ng / esg;
-      for (int i = threadIdx.x; i < kQBlock * nsg_cta; i += blockDim.x) {
-        const int ql = i / nsg_cta, s = i - ql * nsg_cta;
-        const long long grp = group0 + (long long)s * span / upg;
-        if (q0 + ql >= B || grp >= ng) continue;
-        const int* src = ob + ql * units + s * span;
-        int v = src[0];
-        for (int u = 1; u < span; ++u) {
-          if (grp + u / upg < ng) v = max(v, src[u]);
-        }
-        atomicMax(sgout + (size_t)(q0 + ql) * nsg + grp / esg, v);
-      }
+      const float* src = ob + ql * units + j * upg;
+      float v = src[0];
+      for (int u = 1; u < upg; ++u) v = fmaxf(v, src[u]);
+      out[(size_t)(q0 + ql) * ng + grp] = v;
     }
   }
 }
@@ -369,52 +324,49 @@ size_t smem_bytes(int nw, int dbytes, bool sliced) {
   const size_t rows = (size_t)nw * kRowsPerWarp;
   const size_t staged = sliced ? (rows + kQTile) * (kSlice + 16)
                                : (rows + 2 * kQBlock) * (size_t)(dbytes + 16);
-  return staged + 2u * kQBlock * (rows / UG) * sizeof(int);
+  return staged + 2u * kQBlock * (rows / UG) * sizeof(float);
 }
 
-template <bool BF16, bool PACK, int UG, bool SLICED>
-int launch_form(const void* sk, const void* q, void* out, void* sgout, int npad, int B,
-                int dbytes, int group, int esg, int nw, size_t smem, cudaStream_t stream) {
-  auto kern = flat_groupmax_kernel<BF16, PACK, UG, SLICED>;
+template <int UG, bool SLICED>
+int launch_bf16_form(const void* sk, const void* q, void* out, int npad, int B, int dbytes,
+                     int group, int nw, size_t smem, cudaStream_t stream) {
+  auto kern = flat_groupmax_bf16<UG, SLICED>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = nw * kRowsPerWarp;
   const unsigned grid = (unsigned)((npad + rows - 1) / rows);
   kern<<<grid, nw * 32, smem, stream>>>(static_cast<const uint8_t*>(sk),
-                                        static_cast<const uint8_t*>(q), static_cast<int*>(out),
-                                        static_cast<int*>(sgout), npad, B, dbytes, group, esg);
+                                        static_cast<const uint8_t*>(q), static_cast<float*>(out),
+                                        npad, B, dbytes, group);
   return (int)cudaGetLastError();
 }
 
-template <bool BF16, bool PACK, int UG>
-int launch(const void* sk, const void* q, void* out, void* sgout, int npad, int B, int dbytes,
-           int group, int esg, cudaStream_t stream) {
+template <int UG>
+int launch_bf16(const void* sk, const void* q, void* out, int npad, int B, int dbytes, int group,
+                cudaStream_t stream) {
   // whole rows with 8 or 4 warps (512 or 256 rows) per CTA where they fit
   // and hold a group, else D in slices with the most warps that fit
   for (int nw = 8; nw >= 4; nw >>= 1) {
     const size_t smem = smem_bytes<UG>(nw, dbytes, false);
     if (smem <= (size_t)kMaxSmem && nw * kRowsPerWarp >= group)
-      return launch_form<BF16, PACK, UG, false>(sk, q, out, sgout, npad, B, dbytes, group, esg,
-                                                nw, smem, stream);
+      return launch_bf16_form<UG, false>(sk, q, out, npad, B, dbytes, group, nw, smem, stream);
   }
   for (int nw = 8; nw >= 1; nw >>= 1) {
     const size_t smem = smem_bytes<UG>(nw, dbytes, true);
     if (smem <= (size_t)kMaxSmem && nw * kRowsPerWarp >= group)
-      return launch_form<BF16, PACK, UG, true>(sk, q, out, sgout, npad, B, dbytes, group, esg,
-                                               nw, smem, stream);
+      return launch_bf16_form<UG, true>(sk, q, out, npad, B, dbytes, group, nw, smem, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool BF16, bool PACK>
-int dispatch(const void* sk, const void* q, void* out, void* sgout, int npad, int B, int dbytes,
-             int group, int esg, cudaStream_t st) {
+int dispatch_bf16(const void* sk, const void* q, void* out, int npad, int B, int dbytes,
+                  int group, cudaStream_t st) {
   switch (group < 64 ? group : 64) {
-    case 8: return launch<BF16, PACK, 8>(sk, q, out, sgout, npad, B, dbytes, group, esg, st);
-    case 16: return launch<BF16, PACK, 16>(sk, q, out, sgout, npad, B, dbytes, group, esg, st);
-    case 32: return launch<BF16, PACK, 32>(sk, q, out, sgout, npad, B, dbytes, group, esg, st);
-    default: return launch<BF16, PACK, 64>(sk, q, out, sgout, npad, B, dbytes, group, esg, st);
+    case 8: return launch_bf16<8>(sk, q, out, npad, B, dbytes, group, st);
+    case 16: return launch_bf16<16>(sk, q, out, npad, B, dbytes, group, st);
+    case 32: return launch_bf16<32>(sk, q, out, npad, B, dbytes, group, st);
+    default: return launch_bf16<64>(sk, q, out, npad, B, dbytes, group, st);
   }
 }
 
@@ -543,7 +495,6 @@ struct Span {
   static constexpr int NU = kN / U;                         // units per subtile
   static constexpr int SS = G <= 16 ? 1 : (G == 32 ? 2 : kSubs);   // subtiles per span
   static constexpr int V = G <= 64 ? SS * kN / G : kRB / G; // groups per span
-  static constexpr int W = V >= 4 ? V / 4 : 1;              // groups a lane holds
 };
 
 // what a consumer thread needs to place its results
@@ -558,9 +509,10 @@ struct Site {
 // pins the accumulators in place: the compiler sees the registers change
 // here, so it moves no read of them above a wgmma wait, nor any write of them
 // below a product's issue
-__device__ __forceinline__ void fence_acc(int (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // one 128-row subtile: d = query tile * sketch subtile^T over KS 32-byte
@@ -577,13 +529,12 @@ __device__ __forceinline__ void issue_subtile(int (&d)[64], uint64_t da, uint64_
   wg_commit();
 }
 
-// the span is complete: reduce-scatter its group maxima over the quad, then
-// store them (and fold the supergroup tier); grp0 is the span's first group
-template <int G, bool PACK>
-__device__ __forceinline__ void flush_span(int (&span)[2][Span<G>::V], int grp0,
-                                           const Site& s) {
-  using S = Span<G>;
-  constexpr int V = S::V, W = S::W;
+// a span of V consecutive groups is complete: reduce-scatter its group
+// maxima over the quad, then store them (and fold the supergroup tier);
+// grp0 is the span's first group. Both wgmma forms end in it.
+template <int V, bool PACK>
+__device__ __forceinline__ void flush_span(int (&span)[2][V], int grp0, const Site& s) {
+  constexpr int W = V >= 4 ? V / 4 : 1;                     // groups a lane holds
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     int v[V];
@@ -714,7 +665,7 @@ __device__ __forceinline__ void subtile_epilogue(const int (&acc)[64], int (&spa
     }
   }
   if constexpr (SUB % S::SS == S::SS - 1)
-    flush_span<G, PACK>(span, rb * (kRB / G) + (G <= 64 ? (SUB / S::SS) * S::V : 0), s);
+    flush_span<S::V, PACK>(span, rb * (kRB / G) + (G <= 64 ? (SUB / S::SS) * S::V : 0), s);
 }
 
 template <int G, bool PACK, int KS>
@@ -835,17 +786,20 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 2-D map of an int8 [rows, D] matrix in boxes of 32 bytes x box_rows,
-// written to shared memory in the 32-byte swizzle
-bool make_map(CUtensorMap* map, const void* ptr, long long rows, int D, int box_rows) {
+// a 2-D map of an int8 [rows, D] matrix in boxes of box_cols bytes x
+// box_rows, written to shared memory in the 32-byte swizzle (box_cols 32,
+// the wgmma form) or the 128-byte swizzle (box_cols 128, the K-looped form)
+bool make_map(CUtensorMap* map, const void* ptr, long long rows, int D, int box_cols,
+              int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)D};
-  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            box_cols == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
 }
@@ -873,7 +827,7 @@ int launch_wgmma(const void* sk, const void* q, void* out, void* sgout, int npad
   nch = (B + qc - 1) / qc;
   const int gx = min(nrb, max(1, sms / nch));
   CUtensorMap sk_map, q_map;
-  if (!make_map(&sk_map, sk, npad, D, kBoxRows) || !make_map(&q_map, q, B, D, kM))
+  if (!make_map(&sk_map, sk, npad, D, 32, kBoxRows) || !make_map(&q_map, q, B, D, 32, kM))
     return (int)cudaErrorInvalidValue;
   const size_t smem = wg_smem(D, qc);
   void (*kern)(CUtensorMap, CUtensorMap, int*, int*, int, int, int, int, int, int) = nullptr;
@@ -909,6 +863,292 @@ int dispatch_wgmma(const void* sk, const void* q, void* out, void* sgout, int np
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// The K-looped form (int8, D past kWgMaxD); see the head of the file.
+
+constexpr int kKlSlab = 128;               // bytes of D per ring stage: one 128-byte swizzle row
+constexpr int kKlN = 256;                  // sketch rows per consumer (wgmma N)
+constexpr int kKlThreads = 3 * 128;        // two consumer warpgroups and a producer
+constexpr int kKlProducerRegs = 40;        // setmaxnreg: the producer gives registers back
+constexpr int kKlConsumerRegs = 232;       // and the consumers take them (128 accumulators)
+
+// RT = 1 (G up to 256): the consumers take 64 queries each of a 128-query
+// tile, against the same 256 rows. RT = 2 (G 512): both take the tile's 64
+// queries, against the two 256-row halves of a 512-row tile, and fold.
+template <int RT>
+struct KlTile {
+  static constexpr int kQ = 128 / RT;                        // queries per tile
+  static constexpr int kR = kKlN * RT;                       // sketch rows per tile
+  static constexpr int kStageBytes = (kR + kQ) * kKlSlab;    // sketch rows, then queries
+  static constexpr int kStages = RT == 1 ? 4 : 3;
+  static constexpr int kFoldInts = RT == 1 ? 0 : 2 * 2 * 128;   // [tile parity][h][thread]
+  static constexpr size_t kSmem = 1024 + (size_t)kStages * kStageBytes +
+                                  kFoldInts * sizeof(int) + 2 * kStages * sizeof(uint64_t);
+};
+
+// wgmma descriptor of a K-major tile in the 128-byte swizzle: rows of 128
+// bytes, 1024 bytes (8 rows) between 8-row groups; the tile starts on a
+// 1024-byte swizzle atom, and k-step k starts 32k bytes into its rows
+__device__ __forceinline__ uint64_t kl_desc(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d (+)= A[64 x 32] * B[256 x 32]^T in int8 -> int32; scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the two consumer warpgroups meet (named barrier 1; the producer is not in it)
+__device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;" ::: "memory"); }
+
+// the epilogue's shape for group width G over spans of SW columns
+template <int G, int SW>
+struct KlSpan {
+  static constexpr int U = G < 64 ? G : 64;          // columns per reduction unit
+  static constexpr int V = SW >= G ? SW / G : 1;     // groups (or one group's part) per span
+  static constexpr int NU = SW / U;                  // units per span
+};
+
+// span SP of a consumer's 256 rows: the group maxima (keys, with PACK) of
+// the thread's two query rows; col0 is the rows' offset in their group when
+// G is wider than 256 rows (else 0)
+template <int G, bool PACK, int SW, int SP>
+__device__ __forceinline__ void kl_span_max(const int (&acc)[128],
+                                            int (&span)[2][KlSpan<G, SW>::V], int col0,
+                                            const Site& s) {
+  using S = KlSpan<G, SW>;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int u = 0; u < S::NU; ++u) {
+      // acc[4i + 2h + e] is column 8i + 2 tig + e of row h
+      constexpr int kVals = S::U / 4;
+      int v[kVals];
+#pragma unroll
+      for (int j = 0; j < kVals; ++j) {
+        const int i = (SP * SW + u * S::U) / 8 + (j >> 1), e = j & 1;
+        const int sc = acc[4 * i + 2 * h + e];
+        // as in subtile_epilogue: one IMAD by the run-time G, the member's
+        // offset within the unit; the rest of the offset after the max
+        v[j] = PACK ? (int)((unsigned)sc * (unsigned)s.group + (unsigned)(8 * (j >> 1) + e)) : sc;
+      }
+      int m = max_all<kVals>(v);
+      const int col = col0 + SP * SW + u * S::U;   // the unit's first row in the tile
+      if constexpr (PACK) m += (col & (G - 1)) + 2 * s.tig;
+      const int slot = (u * S::U) / G;
+      if constexpr (S::U < G) {   // several units per group: fold into the group's slot
+        if ((u * S::U) % (G < SW ? G : SW) != 0) m = max(span[h][slot], m);
+      }
+      span[h][slot] = m;
+    }
+  }
+}
+
+template <int G, bool PACK>
+__global__ void __launch_bounds__(kKlThreads, 1)
+flat_groupmax_kloop(const __grid_constant__ CUtensorMap sk_map,
+                    const __grid_constant__ CUtensorMap q_map, int* __restrict__ out,
+                    int* __restrict__ sgout, int npad, int B, int D, int group, int esg) {
+  constexpr int RT = G > kKlN ? 2 : 1;
+  using T = KlTile<RT>;
+  constexpr int SW = G <= 16 ? 128 : kKlN;           // columns per span: at least 8 groups
+  constexpr int V = KlSpan<G, SW>::V;
+  extern __shared__ __align__(1024) uint8_t ksmem[];
+  uint8_t* base = ksmem + ((1024 - (smem_addr(ksmem) & 1023)) & 1023);
+  int* fold = reinterpret_cast<int*>(base + (size_t)T::kStages * T::kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(fold + T::kFoldInts);
+  uint64_t* empty = full + T::kStages;
+  const int mt = (B + T::kQ - 1) / T::kQ;
+  const int tiles = mt * ((npad + T::kR - 1) / T::kR);
+  const int slabs = (D + kKlSlab - 1) / kKlSlab;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < T::kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);                          // the consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {   // producer warpgroup: one thread issues every copy
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kKlProducerRegs));
+    if (threadIdx.x != 256) return;
+    int st = 0;
+    unsigned phase = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int n = tile / mt, m = tile - n * mt;       // row block first
+      for (int sl = 0; sl < slabs; ++sl) {
+        mbar_wait(&empty[st], phase ^ 1);
+        mbar_expect_tx(&full[st], (unsigned)T::kStageBytes);
+        uint8_t* dst = base + (size_t)st * T::kStageBytes;
+#pragma unroll
+        for (int h = 0; h < RT; ++h)
+          tma_load(dst + h * kKlN * kKlSlab, &sk_map, sl * kKlSlab, n * T::kR + h * kKlN,
+                   &full[st]);
+        tma_load(dst + T::kR * kKlSlab, &q_map, sl * kKlSlab, m * T::kQ, &full[st]);
+        if (++st == T::kStages) {
+          st = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg scores 64 queries x 256 rows of each tile; warp
+  // w of it rows 16w + (lane / 4) and + 8 of its queries
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kKlConsumerRegs));
+  const int wg = threadIdx.x >> 7;
+  const int tid = threadIdx.x & 127;
+  const int lane = threadIdx.x & 31;
+  Site site{out, sgout, B, npad / G, esg ? npad / G / esg : 0, esg ? __ffs(esg) - 1 : -1,
+            group, lane, lane & 3, 0};
+  const int row_in_wg = (tid >> 5) * 16 + (lane >> 2);
+  const int a_off = (T::kR + (RT == 1 ? wg * 64 : 0)) * kKlSlab;   // this warpgroup's queries
+  const int b_off = RT == 1 ? 0 : wg * kKlN * kKlSlab;              // and sketch rows
+  int st = 0;
+  unsigned phase = 0;
+  int parity = 0;                                       // of the fold buffer (RT = 2)
+  int acc[128];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n = tile / mt, m = tile - n * mt;
+    int prev = 0;
+    for (int sl = 0; sl < slabs; ++sl) {
+      mbar_wait(&full[st], phase);
+      const uint8_t* stage = base + (size_t)st * T::kStageBytes;
+      const uint64_t da = kl_desc(stage + a_off), db = kl_desc(stage + b_off);
+      fence_acc(acc);
+      wg_fence();
+#pragma unroll
+      for (int k = 0; k < kKlSlab / 32; ++k)   // k-step k: 32k bytes into the swizzled rows
+        wgmma_s8_n256(acc, da + 2 * k, db + 2 * k, (sl > 0 || k > 0) ? 1 : 0);
+      wg_commit();
+      wg_wait<1>();                                     // the previous slab's products are done
+      if (sl > 0) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[prev]);
+      }
+      prev = st;
+      if (++st == T::kStages) {
+        st = 0;
+        phase ^= 1;
+      }
+    }
+    wg_wait<0>();
+    fence_acc(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[prev]);
+
+    site.row = m * T::kQ + (RT == 1 ? wg * 64 : 0) + row_in_wg;
+    int span[2][V];
+    if constexpr (RT == 1) {
+      kl_span_max<G, PACK, SW, 0>(acc, span, 0, site);
+      flush_span<V, PACK>(span, n * (kKlN / G), site);
+      if constexpr (SW < kKlN) {
+        kl_span_max<G, PACK, SW, 1>(acc, span, 0, site);
+        flush_span<V, PACK>(span, n * (kKlN / G) + SW / G, site);
+      }
+    } else {
+      // each consumer holds its 256 rows' part of the 512-row group; the
+      // second hands its maxima to the first through shared memory
+      kl_span_max<G, PACK, SW, 0>(acc, span, wg * kKlN, site);
+      int* f = fold + parity * 256;
+      if (wg == 1) {
+        f[tid] = span[0][0];
+        f[128 + tid] = span[1][0];
+      }
+      consumers_sync();
+      parity ^= 1;
+      if (wg == 0) {
+        span[0][0] = max(span[0][0], f[tid]);
+        span[1][0] = max(span[1][0], f[128 + tid]);
+        flush_span<V, PACK>(span, n, site);
+      }
+    }
+  }
+}
+
+template <int G, bool PACK>
+int launch_kloop(const void* sk, const void* q, void* out, void* sgout, int npad, int B, int D,
+                 int esg, cudaStream_t stream) {
+  using T = KlTile<(G > kKlN ? 2 : 1)>;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap sk_map, q_map;
+  if (!make_map(&sk_map, sk, npad, D, kKlSlab, kKlN) ||
+      !make_map(&q_map, q, B, D, kKlSlab, T::kQ))
+    return (int)cudaErrorInvalidValue;
+  const int tiles = ((B + T::kQ - 1) / T::kQ) * ((npad + T::kR - 1) / T::kR);
+  auto kern = flat_groupmax_kloop<G, PACK>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<(unsigned)(tiles < sms ? tiles : sms), kKlThreads, T::kSmem, stream>>>(
+      sk_map, q_map, static_cast<int*>(out), static_cast<int*>(sgout), npad, B, D, G, esg);
+  return (int)cudaGetLastError();
+}
+
+template <bool PACK>
+int dispatch_kloop(const void* sk, const void* q, void* out, void* sgout, int npad, int B, int D,
+                   int group, int esg, cudaStream_t st) {
+  switch (group) {
+    case 8: return launch_kloop<8, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 16: return launch_kloop<16, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 32: return launch_kloop<32, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 64: return launch_kloop<64, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 128: return launch_kloop<128, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 256: return launch_kloop<256, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 512: return launch_kloop<512, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // sketch [npad, D] and q [B, D], both int8 (bf16 = 0) or both bf16 (bf16 =
@@ -926,13 +1166,13 @@ extern "C" int rdf_flat_groupmax(const void* sk, const void* q, void* out, void*
   if (group < 8 || group > 512 || (group & (group - 1)) || npad % group || D <= 0 || D % 32 ||
       (pack && bf16) || (esg && (!pack || (esg & (esg - 1)) || (npad / group) % esg)))
     return (int)cudaErrorInvalidValue;
-  const int dbytes = bf16 ? 2 * D : D;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (!bf16 && D <= kWgMaxD) {   // the wgmma form; by shape, never as a fallback
+  // the form by shape, never as a fallback
+  if (bf16) return dispatch_bf16(sk, q, out, npad, B, 2 * D, group, st);
+  if (D <= kWgMaxD) {
     if (pack) return dispatch_wgmma<true>(sk, q, out, sgout, npad, B, D, group, esg, st);
     return dispatch_wgmma<false>(sk, q, out, sgout, npad, B, D, group, esg, st);
   }
-  if (bf16) return dispatch<true, false>(sk, q, out, sgout, npad, B, dbytes, group, esg, st);
-  if (pack) return dispatch<false, true>(sk, q, out, sgout, npad, B, dbytes, group, esg, st);
-  return dispatch<false, false>(sk, q, out, sgout, npad, B, dbytes, group, esg, st);
+  if (pack) return dispatch_kloop<true>(sk, q, out, sgout, npad, B, D, group, esg, st);
+  return dispatch_kloop<false>(sk, q, out, sgout, npad, B, D, group, esg, st);
 }

@@ -94,8 +94,10 @@ def library() -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.rdf_hash_dense.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
+            lib.rdf_hash_dense.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
             lib.rdf_hash_dense.restype = i
+            lib.rdf_hash_dense_splits.argtypes = [i, i, i]
+            lib.rdf_hash_dense_splits.restype = i
             lib.rdf_coarse_block_scores.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
             lib.rdf_coarse_block_scores.restype = i
             lib.rdf_coarse_block_form.argtypes = [i] * 5

@@ -9,10 +9,12 @@ with its fused supergroup tier `emit_sg`). For a sketch [Npad, D] and queries
 [B, Npad] scores: f32, or with `pack_arg` (int8 only) the int32 key
 `(score << log2 group) | member` of each group's best row. On the H100 it is
 bound by operations (int8 tensor-core products, `csrc/flat_groupmax.cu`):
-int8 up to D 192 runs a TMA-fed, warp-specialised wgmma kernel, bf16 and
-wider int8 the mma.sync form (`kernel_form`). int8 dots are exact, so
-kernel and plain version agree bit for bit; bf16 dots accumulate in f32 and
-agree within the f32 summation bound.
+int8 up to D 192 runs a TMA-fed, warp-specialised wgmma kernel with the
+query chunk resident, wider int8 a K-looped wgmma GEMM of 128-query x
+256-row tiles with the same epilogue, bf16 the mma.sync form
+(`kernel_form`). int8 dots are exact, so kernel and plain version agree bit
+for bit; bf16 dots accumulate in f32 and agree within the f32 summation
+bound.
 
 `flat_groupmax_kernel` launches the kernel for CUDA tensors and runs
 `flat_groupmax_plain` for CPU tensors; a CUDA tensor never takes the plain
@@ -59,10 +61,12 @@ def _check_args(sketch: torch.Tensor, q: torch.Tensor, group: int, pack_arg: boo
 
 def kernel_form(dtype: torch.dtype, d: int) -> str:
     """Which form of the kernel a call takes, as `rdf_flat_groupmax`
-    chooses by shape: the wgmma form for int8 up to `WGMMA_MAX_D`, else
-    the mma.sync form (which stages D in slices where whole rows do not
-    fit: int8 past D 416, bf16 past 192)."""
-    return "wgmma" if dtype == torch.int8 and d <= WGMMA_MAX_D else "mma.sync"
+    chooses by shape: for int8 the wgmma form up to `WGMMA_MAX_D` and the
+    K-looped wgmma form past it; for bf16 the mma.sync form (which stages
+    D in slices where whole rows do not fit: past D 192)."""
+    if dtype != torch.int8:
+        return "mma.sync"
+    return "wgmma" if d <= WGMMA_MAX_D else "wgmma_kloop"
 
 
 def flat_groupmax_plain(sketch: torch.Tensor, q: torch.Tensor, group: int = 64,
@@ -106,8 +110,7 @@ def flat_groupmax_kernel(sketch: torch.Tensor, q: torch.Tensor, group: int = 64,
                          pack_arg: bool = False, emit_sg: int = 0) -> GroupMax:
     """K4 on CUDA tensors, its plain version on CPU tensors. Same contract
     as `flat_groupmax_plain`; on the card D must be a multiple of 32 (any
-    width: past what shared memory holds whole, the kernel stages D in
-    slices) and group at most `MAX_GROUP`."""
+    width) and group at most `MAX_GROUP`."""
     global LAUNCHES
     if sketch.device.type == "cpu":
         return flat_groupmax_plain(sketch, q, group, pack_arg, emit_sg)

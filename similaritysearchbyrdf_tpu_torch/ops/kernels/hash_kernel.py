@@ -6,11 +6,17 @@ behind `pallas_hash_dense`, `make_pallas_hash_fn` and `_call`). The kernel
 bit-pack, and also emits the bit margins that margin probing needs
 (`hash_dense_with_margins`), so one kernel serves fit and query. The dot
 stays in full f32 FMA, summed in column order, so that no hash bit moves
-with TF32 or tensor-core rounding. Its work is small (B x 100 x 320 FMAs at
-the bench config) and its bytes smaller than its latency: the kernel stages
-a tile of 64 rows and one table's projection in shared memory by
-asynchronous copies, and each warp keeps 8 rows' dots in registers, so one
-shared load of the projection feeds 8 independent FMA chains.
+with TF32 or tensor-core rounding. Two forms, chosen by D (`kernel_form`):
+at the dense paths' D 96-100 the work is small (B x 100 x 320 FMAs at the
+bench config) and its bytes smaller than its latency, and the narrow form
+stages a tile of 64 rows and one table's projection in shared memory by
+asynchronous copies, each warp keeping 8 rows' dots in registers, so one
+shared load of the projection feeds 8 independent FMA chains. From
+`WIDE_MIN_D` on (the sparse path's densified rows, D 4096) operations bound
+it, and the wide form runs a register-tiled f32 GEMM over 320 rows x 2
+tables a CTA, split over D when the rows do not fill the card (partial
+dots in scratch this wrapper allocates, added in ascending split order by
+a second kernel that packs the hashes).
 
 `hash_dense_kernel` launches the kernel for CUDA tensors and runs
 `hash_dense_plain` for CPU tensors; a CUDA tensor never takes the plain
@@ -26,7 +32,16 @@ import torch
 from ..bitops import HASH_DTYPE, pack_bits_msb_first
 from . import build
 
-LAUNCHES = 0   # kernel launches since the last reset (plain runs never count)
+LAUNCHES = 0   # kernel launches since the last reset (plain runs never count; the wide
+               # form's GEMM and its epilogue kernel count as one launch)
+WIDE_MIN_D = 384   # the narrowest D the wide form takes (`kWideMinD` in the source)
+_SPLITS: dict = {}   # (device, B, D, T) -> the wide form's splits of D
+
+
+def kernel_form(d: int) -> str:
+    """Which form of the kernel a call takes, as `rdf_hash_dense` chooses
+    by shape: the narrow form below `WIDE_MIN_D`, the wide form from it."""
+    return "wide" if d >= WIDE_MIN_D else "narrow"
 
 
 def hash_dense_plain(x: torch.Tensor, proj: torch.Tensor, perm: torch.Tensor,
@@ -85,9 +100,21 @@ def hash_dense_kernel(x: torch.Tensor, proj: torch.Tensor, perm: torch.Tensor,
                if emit_margins else None)
     if b == 0:
         return hashes, margins
-    err = build.library().rdf_hash_dense(
+    lib = build.library()
+    key = (dev.index, b, d, t)
+    splits = _SPLITS.get(key)
+    if splits is None:
+        splits = lib.rdf_hash_dense_splits(b, d, t)
+        if splits < 0:
+            raise RuntimeError("hash_dense_kernel: the wide form found no CUDA device")
+        _SPLITS[key] = splits
+    # the wide form's partial dots, [splits, B, T*32] (the narrow form needs none)
+    scratch = (torch.empty((splits, b, t * 32), dtype=torch.float32, device=dev)
+               if splits else None)
+    err = lib.rdf_hash_dense(
         x.data_ptr(), proj.data_ptr(), perm.data_ptr(), hashes.data_ptr(),
-        margins.data_ptr() if emit_margins else None, b, d, t, c, p, build.stream(dev))
+        margins.data_ptr() if emit_margins else None,
+        scratch.data_ptr() if splits else None, b, d, t, c, p, build.stream(dev))
     build.check(err, "rdf_hash_dense")
     LAUNCHES += 1
     return hashes, margins

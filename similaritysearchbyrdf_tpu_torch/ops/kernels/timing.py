@@ -35,7 +35,17 @@ clock around `query_device` and a sync (its qps is 1,024 / that time).
 `K1_one_row` times K1 on one row (B 1, margins) and `floor_one_block` K2 on
 one block: what a launch costs whatever its work. `host` times the K1 and
 K2 wrappers' host work step by step on the host clock (`wrapper_host_us`),
-at K1_bench_query's and K2_bench's operands.
+at K1_bench_query's and K2_bench's operands. The sparse_1m entries time the
+two kernels at the sparse path's D 4096: `K4_sparse_1m` the sparse flat
+engine's scan (int8, B 1024 x 1,007,616 x 4096, G 64, unpacked),
+`K1_sparse_fit` and `K1_sparse_query` the hash of densified rows (B 8192
+and 64, T 10, P 3, C 32, no margins); beside each, `product_ms` times the
+product alone (device time, as `device_ms`) as a yardstick the port never
+calls (`torch._int_mm` in slabs
+of 131,072 rows for K4, a full-f32 `torch.matmul` for K1), which is not the
+same function. `K1_width` times K1 at D 128-1024 (B 64 and 8192 without
+margins, B 1024 with), the widths around the narrow and wide forms'
+crossover.
 `--only K3` times only the entries whose names start with one of the given
 prefixes. Prints the card's name and power limit, then one JSON line of
 medians of `--reps` timings (ms) after 3 warm-up calls, two per kernel
@@ -261,7 +271,7 @@ def main() -> int:
     def wanted(*names):
         return not args.only or any(n.startswith(p) for n in names for p in args.only)
 
-    out, device, info = {}, {}, {}
+    out, device, info, product = {}, {}, {}, {}
 
     def timed(name, fn):
         t = kernel_times(fn, args.reps)
@@ -400,12 +410,50 @@ def main() -> int:
             torch.cuda.synchronize(dev)
             times.append((time.perf_counter() - t0) * 1e3)
         out["flat_8m_query"] = float(np.median(times[3:]))
+    if wanted("K1_sparse_fit", "K1_sparse_query"):
+        from ..precision import full_f32
+
+        # sparse_1m's hash model shapes at D 4096: T 10 chains of C 32, P 3
+        kgen = torch.Generator(device=dev).manual_seed(2)
+        proj = torch.randn((10, 32, 4096), generator=kgen, device=dev)
+        perm = torch.stack([torch.stack([torch.randperm(32, generator=kgen, device=dev)
+                                         for _ in range(3)]) for _ in range(10)]).to(torch.int32)
+        pmat = proj.view(320, 4096)
+        for name, b in (("K1_sparse_fit", 8192), ("K1_sparse_query", 64)):
+            if wanted(name):
+                x = torch.randn((b, 4096), generator=kgen, device=dev)
+                timed(name, lambda: K1.hash_dense_kernel(x, proj, perm))
+                with full_f32():
+                    product[name] = median_event_ms(lambda: torch.matmul(x, pmat.T), args.reps,
+                                                    busy=True)
+    if wanted("K1_width"):
+        wgen = torch.Generator(device=dev).manual_seed(3)
+        for d in (128, 192, 256, 384, 512, 1024):
+            proj = torch.randn((10, 32, d), generator=wgen, device=dev)
+            perm = torch.stack([torch.stack([torch.randperm(32, generator=wgen, device=dev)
+                                             for _ in range(3)])
+                                for _ in range(10)]).to(torch.int32)
+            for b, margins in ((64, False), (1024, True), (8192, False)):
+                x = torch.randn((b, d), generator=wgen, device=dev)
+                timed(f"K1_width_d{d}_b{b}", lambda: K1.hash_dense_kernel(x, proj, perm, margins))
+    if wanted("K4_sparse_1m"):
+        sk, q8 = i8(1_007_616, 4096), i8(1024, 4096)
+        timed("K4_sparse_1m", lambda: K4.flat_groupmax_kernel(sk, q8, 64))
+
+        def int_mm_slabs():
+            for r0 in range(0, sk.shape[0], 131_072):
+                torch._int_mm(q8, sk[r0:r0 + 131_072].t())
+
+        product["K4_sparse_1m"] = median_event_ms(int_mm_slabs, args.reps, busy=True)
+        del sk
+        torch.cuda.empty_cache()
     if wanted("floor"):
         # the timer's floor: K2 on one 8-row block, about the least any launch does
         t1, q1, i1 = i8(1, 64, 32), bf16(1, 32), ints(0, 1, (1, 1))
         timed("floor_one_block", lambda: K2.coarse_block_scores_kernel(t1, q1, i1, i1, 8))
     print(json.dumps({"checkout": os.getcwd(), "reps": args.reps, "ms": out,
-                      "device_ms": device, **info}), flush=True)
+                      "device_ms": device, **({"product_ms": product} if product else {}),
+                      **info}), flush=True)
     return 0
 
 

@@ -86,6 +86,19 @@ def test_hash_kernel_rows_and_widths(dev, b, d):
     _check_hash(dev, b, d, 10 if b <= 1024 else 3, p, c, b * 1000 + d)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("b", [1, 64, 8192])
+@pytest.mark.parametrize("d", [1000, 4096, 5000])
+def test_hash_kernel_wide_form(dev, d, b, offset):
+    """The wide form (split-K f32 GEMM, then the epilogue kernel) at the
+    sparse path's D 4096 and at D 1000 and 5000 (a short last k-slab, and a
+    D that is no multiple of 32), at the query's B 64 (split across CTAs),
+    the fit's B 8192 and one row; margins and none; rows one float into
+    their buffer (4-byte copies)."""
+    assert K1.kernel_form(d) == "wide"
+    _check_hash(dev, b, d, 10, 3, 32, d + b + offset, offset=offset)
+
+
 @pytest.mark.parametrize("p", [1, 2, 3, 4])
 @pytest.mark.parametrize("c", [5, 17, 32])
 def test_hash_kernel_chains_and_permutations(dev, c, p):
@@ -418,11 +431,26 @@ def test_groupmax_kernel_int8_matches_plain(dev, npad, group, d, b):
     """int8 dots are exact: K4 equals its plain version bit for bit, at
     ragged B and N (2816 rows end in a half 512-row block; at 3072 a
     supergroup spans blocks). D up to 128 takes the wgmma form (B 64 and 128
-    fill one and two 64-query tiles; 1024 is the flat engine's batch), 224
-    the mma.sync form, 800 and 1056 its sliced form (D staged in 256-byte
-    slices, the last one partial); at 1056 query 0's score on row 3 passes
-    2^24 and is odd, so unpacked it is rounded once to f32 on both sides."""
+    fill one and two 64-query tiles; 1024 is the flat engine's batch), 224,
+    800 and 1056 the K-looped form (1056 ends in a part-filled 128-byte
+    slab); at 1056 query 0's score on row 3 passes 2^24 and is odd, so
+    unpacked it is rounded once to f32 on both sides."""
     _check_groupmax_int8(dev, npad, group, d, b)
+
+
+@pytest.mark.parametrize("b", [1, 63, 1000])
+@pytest.mark.parametrize("group", [8, 64, 512])
+@pytest.mark.parametrize("d", [224, 448, 800, 1056, 2080, 4096])
+def test_groupmax_kernel_kloop_bit_equal(dev, d, group, b):
+    """int8 past D 192 takes the K-looped wgmma form: bit for bit at every
+    width up to the sparse path's 4096 (448 and 1056 end in a part-filled
+    128-byte slab), G 8 (spans of 128 rows), 64 and 512 (two consumers fold
+    a 512-row group), packed where the key fits int32 (D up to 2080 at G 64,
+    224 at G 512) and with the supergroup tier; 2,624 rows end in a 64-row
+    part of a 256-row tile (G 512: 2,560 rows, five tiles), B 63 and 1000
+    end in part-filled query tiles."""
+    assert K4.kernel_form(torch.int8, d) == "wgmma_kloop"
+    _check_groupmax_int8(dev, 2560 if group == 512 else 2624, group, d, b)
 
 
 @pytest.mark.parametrize("group", [8, 16, 32, 64])
@@ -1023,8 +1051,8 @@ def _sparse_rows(n, d, nnz, seed, n_clusters=150):
 
 @pytest.mark.parametrize("b", [64, 8192])
 def test_hash_kernel_densified_sparse_d4096(dev, b):
-    """K1 at D 4096 (32 staged chunks of 128 columns) on densified sparse
-    rows, no margins: hash words equal away from near-zero dots."""
+    """K1 at D 4096 (the wide form) on densified sparse rows, no margins:
+    hash words equal away from near-zero dots."""
     from similaritysearchbyrdf_tpu_torch.ops.hashing import densify
 
     idx, val = _sparse_rows(b, 4096, 64, seed=b)
@@ -1089,12 +1117,12 @@ def test_window_kernel_one_table_cs4096(dev):
 
 @pytest.mark.parametrize("b", [64, 1024])
 def test_groupmax_kernel_int8_d4096_bit_equal(dev, b):
-    """K4 at the sparse flat engine's width, int8 D 4096 (the sliced
-    mma.sync form), on 65,536 rows: bit for bit."""
+    """K4 at the sparse flat engine's width, int8 D 4096 (the K-looped
+    wgmma form), on 65,536 rows: bit for bit."""
     rng = np.random.default_rng(b)
     sk = torch.as_tensor(rng.integers(-127, 128, (65_536, 4096), dtype=np.int8), device=dev)
     q = torch.as_tensor(rng.integers(-127, 128, (b, 4096), dtype=np.int8), device=dev)
-    assert K4.kernel_form(torch.int8, 4096) == "mma.sync"
+    assert K4.kernel_form(torch.int8, 4096) == "wgmma_kloop"
     got = K4.flat_groupmax_kernel(sk, q, 64)
     assert torch.equal(got, K4.flat_groupmax_plain(sk, q, 64))
 
