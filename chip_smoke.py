@@ -323,6 +323,7 @@ def block_kernel_check(tier, q_low, table_i, blk_start, bs, sync, median_ms) -> 
     gathered and distinct bytes."""
     import torch
 
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import build
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
 
     b, mb = table_i.shape
@@ -335,6 +336,10 @@ def block_kernel_check(tier, q_low, table_i, blk_start, bs, sync, median_ms) -> 
           f"K2 ({tier.dtype}, cs {tier.shape[2]}) exceeds the f32 bound: max err "
           f"{float(s_err.max())}")
     caprows, cs = tier.shape[1], tier.shape[2]
+    lib_form = ("generic", "b8")[build.library().rdf_coarse_block_form(
+        cs, bs, b, mb, int(tier.dtype == torch.bfloat16))]
+    check(lib_form == K2.block_kernel_form(cs, bs, b, mb, tier.dtype == torch.bfloat16),
+          f"K2's form mirror disagrees with the library at cs {cs}: {lib_form}")
     row_bytes = cs * tier.element_size()
     blk_rows = (table_i.long().clamp(0, tier.shape[0] - 1)[..., None] * caprows
                 + blk_start.long().clamp(0, caprows - bs)[..., None]
@@ -406,10 +411,11 @@ def hash_check(x, proj, perm, margins: bool, sync, median_ms, where: str) -> dic
 def window_check(args, sync, median_ms, where: str) -> dict:
     """K2b against its plain version on the operands a path gave it (any
     tier type, any number of tables; a sketch is a one-table tier): within
-    the f32 bound, the same -inf slots; with its times, bound, and gathered
-    and distinct bytes."""
+    the f32 bound, the same -inf slots, the same words on a second call;
+    with its form, times, bound, and gathered and distinct bytes."""
     import torch
 
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import build
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
 
     tier, q_low, table, blk_start, start, end, live, win = args
@@ -423,14 +429,25 @@ def window_check(args, sync, median_ms, where: str) -> dict:
     err = (got - want).abs()[fin]
     check(bool((err <= 2 * tier.shape[2] * U32 * s_abs[fin]).all()),
           f"K2b on {where} exceeds the f32 bound: max err {float(err.max())}")
+    again = K2.coarse_window_scores_kernel(*args)
+    check(bool(torch.equal(again.view(torch.int32), got.view(torch.int32))),
+          f"K2b on {where} gives other words on a second call")
+    del again
     # bytes: the distinct tier rows of valid slots, the small inputs, the scores
     l, caprows, cs = tier.shape
+    lib_form = ("generic", "w64", "window_major")[build.library().rdf_coarse_window_form(
+        cs, win, *blk_start.shape, int(tier.dtype == torch.bfloat16))]
+    check(lib_form == K2.window_kernel_form(cs, win, *blk_start.shape,
+                                            tier.dtype == torch.bfloat16),
+          f"K2b's form mirror disagrees with the library on {where}: {lib_form}")
     slot_rows = (table.long().clamp(0, l - 1)[..., None] * caprows
                  + blk_start.long()[..., None] + torch.arange(win, device=tier.device))
     rows_read = int(torch.unique(slot_rows[fin]).numel())
     row_bytes = cs * tier.element_size()
-    out = {"shape": {"B": q_low.shape[0], "MB": blk_start.shape[1], "win": win, "L": l,
+    b, mb = blk_start.shape
+    out = {"shape": {"B": b, "MB": mb, "win": win, "L": l,
                      "caprows": caprows, "cs": cs, "tier": str(tier.dtype)},
+           "form": K2.window_kernel_form(cs, win, b, mb, tier.dtype == torch.bfloat16),
            "live_window_share": float(live.float().mean()),
            "valid_slot_share": float(fin.float().mean()),
            "max_abs_err": float(err.max()),
@@ -835,8 +852,9 @@ def persist_phase(big, conf_l, xl, xl_d, gt, recall_block, sync, median_ms) -> d
     host merge of the generations' own lists, the second query reading
     nothing from disk, `get` of 100 keys. K1 and K2 on the loaded forest's
     first query, K4 and K2b on the loaded flat index's, and K2b on the
-    loaded IVF index's are held against their plain versions; the native
-    parser reads a dense text file of 10,000 rows."""
+    loaded IVF index's are held against their plain versions, and the
+    loaded IVF index's query is profiled; the native parser reads a dense
+    text file of 10,000 rows."""
     import os
     import tempfile
 
@@ -979,7 +997,9 @@ def persist_phase(big, conf_l, xl, xl_d, gt, recall_block, sync, median_ms) -> d
                       "file_bytes_per_vector": file_bytes(path) / n_ivf,
                       "recall_at_10": recall_at(gt_ivf, got.cpu().numpy()),
                       "ids_bit_equal": True,
-                      "qps": calls["loaded ivf query"]["qps"]}
+                      "qps": calls["loaded ivf query"]["qps"],
+                      "profile": device_profile(
+                          lambda: loaded.query_device(q, k=10, query_ids=qids), sync)}
         del ivf, loaded, got, sc, want_ids, want_sc
         os.remove(path + ".npz")
         torch.cuda.empty_cache()
@@ -2737,7 +2757,7 @@ def main() -> int:
     dynamic_phase(big, conf_l, xl_d, sync, median_ms)
 
     # ---- phase 14: persistence at 1M ------------------------------------------
-    persist_phase(big, conf_l, xl, xl_d, gt_l, recall_l, sync, median_ms)
+    persist = persist_phase(big, conf_l, xl, xl_d, gt_l, recall_l, sync, median_ms)
     del big, xl, ql
     torch.cuda.empty_cache()
 
@@ -2768,11 +2788,11 @@ def main() -> int:
     k4p = k4["int8_packed"]
 
     def at_sparse(rec, launches):
-        """A kernel record of sparse_1m (its form, times and bound), with its
-        launches on the call that gave its operands."""
+        """A kernel record of another path (its form, times and bound), with
+        its launches on the call that gave its operands."""
         return {"shape": rec["shape"], "form": rec["form"], "launches": launches,
                 **{k: rec[k] for k in ("ms", "device_ms", "plain_ms", "product_ms",
-                                        "bound_ms", "bound_by")}}
+                                        "bound_ms", "bound_by", "max_abs_err") if k in rec}}
 
     sk_calls = sparse["calls"]
     lib = {"library_ms": None}     # no single PyTorch call computes any of these functions
@@ -2802,7 +2822,10 @@ def main() -> int:
          "launches": launches["coarse_block_scores_kernel"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
          "device_ms": k2["device_ms"], "plain_ms": k2["plain_ms"],
-         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], **lib},
+         "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], **lib, "form": k2["form"],
+         "sparse_1m": at_sparse(
+             sparse["kernels"]["K2"],
+             sk_calls["steps0_rf2048"]["launches"]["coarse_block_scores_kernel"])},
         {"name": "coarse_window_scores_kernel", "route": "cuda",
          "sharded_8m_launches": sh_launches.get("coarse_window_scores_kernel", 0),
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_gather.cu",
@@ -2810,7 +2833,15 @@ def main() -> int:
          "launches": win["launches"]["coarse_window_scores_kernel"],
          "max_abs_err": k2b["max_abs_err"], "ms": k2b["ms"],
          "device_ms": k2b["device_ms"], "plain_ms": k2b["plain_ms"],
-         "bound_ms": k2b["bound_ms"], "bound_by": k2b["bound_by"], **lib},
+         "bound_ms": k2b["bound_ms"], "bound_by": k2b["bound_by"], **lib, "form": k2b["form"],
+         "sparse_1m": at_sparse(sparse["kernels"]["K2b"],
+                                sk_calls["flat"]["launches"]["coarse_window_scores_kernel"]),
+         "sparse_1m_sharded_shard0": at_sparse(
+             sparse["sharded"]["kernels"]["K2b"],
+             sk_calls["sharded_flat"]["launches"]["coarse_window_scores_kernel"]),
+         "persist_1m_ivf": at_sparse(
+             persist["kernels"]["K2b_ivf"],
+             persist["calls"]["loaded ivf query"]["launches"]["coarse_window_scores_kernel"])},
         {"name": "coarse_rowmax_kernel", "route": "cuda",
          "sharded_8m_launches": sh_launches.get("coarse_rowmax_kernel", 0),
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_fold.cu",

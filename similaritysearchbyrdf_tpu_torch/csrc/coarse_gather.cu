@@ -15,8 +15,15 @@
 // query). Every int8 x bf16 and bf16 x bf16 product is exact in f32; only
 // the summation order differs from the reference.
 //
-// Generic design (every shape but the two main paths', which take kernels
-// of their own below): one warp per (query, block), looping grid-stride over
+// Forms, chosen by shape (rdf_coarse_block_form, rdf_coarse_window_form):
+// K2's int8 8-slot blocks of 32 or 64 columns take block_scores_b8_kernel,
+// K2b's int8 64-slot windows of 32 or 128 columns window_scores_w64_kernel,
+// and K2b's int8 windows of at least 32 KB the window-major form
+// (window_major_kernel, after three small grouping passes), which reads a
+// window once for all the queries that ask for it. Every other shape, and
+// every bf16 tier, takes the generic kernels.
+//
+// Generic design: one warp per (query, block), looping grid-stride over
 // all B*MB blocks. A row of cs bytes is cs/8 8-column chunks; it takes LPR lanes,
 // the next power of two of its chunks up to 32, so a warp pass covers 32/LPR
 // rows (8 rows at cs 32: the whole 256-byte block in one coalesced 8-byte
@@ -407,40 +414,46 @@ window_scores_w64_kernel(const int8_t* __restrict__ tier, const __nv_bfloat16* _
   }
 }
 
-// K2 at the block-mode main shape: an int8 tier of CS 32 columns read in
-// blocks of 8 rows (the bench config's B 1024 x MB 512). A block is 256
-// contiguous bytes, 16 lanes x 16 bytes, so one warp-wide 16-byte load
-// covers two blocks: lanes 0-15 the first, 16-31 the second, lane l holding
-// columns 16 (l % 2) .. +15 of row (l % 16) / 2.
+// K2 at the block-mode main shapes: an int8 tier read in blocks of 8 rows
+// of CS = 32 columns (the bench config's B 1024 x MB 512) or 64 (the sparse
+// tier's B 64 x MB 2048). A block is 8 * CS contiguous bytes. One warp-wide
+// 16-byte load covers 512 bytes: two blocks at cs 32 (lanes 0-15 the first,
+// 16-31 the second, lane l holding columns 16 (l % 2) .. +15 of row
+// (l % 16) / 2), one at cs 64 (lane l holding columns 16 (l % 4) .. +15 of
+// row l / 4).
 //
 // What held the generic kernel back here: one (query, block) per warp and
 // iteration, each behind a 64-bit divide and the dependent table/start and
-// query loads, one 8-byte load per lane in flight, 32 I2F conversions per
-// score and a 4-level shuffle reduction. This kernel follows K2b's
+// query loads, one 8-byte load per lane in flight, an I2F conversion per
+// column and a 3- or 4-level shuffle reduction. This kernel follows K2b's
 // window_scores_w64_kernel: a persistent grid whose CTAs take grid-stride
 // steps of 32 consecutive blocks; a step's table ids and starts are loaded
-// one per lane a step ahead, clipped, and broadcast by shuffle. A CTA is
-// two warps; each takes 16 consecutive blocks of a step and issues all 8 of
-// their 16-byte loads per lane before its first FMA; a lane keeps its 16
-// query columns in
+// one per lane a step ahead, clipped, and broadcast by shuffle. Each warp
+// takes kPerWarp consecutive blocks of a step (16 at cs 32 in CTAs of two
+// warps, 8 at cs 64 in CTAs of four) and issues all 8 of their 16-byte loads
+// per lane before its first FMA; a lane keeps its 16 query columns in
 // registers while its blocks' query stays the same (a whole step at MB 512);
-// int8 becomes f32 by byte permute and one FADD (i8_to_f32); one shuffle
-// level folds each row's two halves, leaving every lane four scores, which
-// the warp writes as four coalesced 128-byte stores of four consecutive
-// blocks each. Two warps of 16 blocks were faster than four of 8 (0.037
-// against 0.043 ms on chip_smoke.py's operands) and as fast as one of 32.
-// On an NVIDIA H100 80GB HBM3 at a 700 W power limit it takes 0.0370 ms of
-// device time on those operands (134 MB gathered, mostly from L2, against
-// a bound of 0.0121 ms), where the generic kernel takes 0.1046.
+// int8 becomes f32 by byte permute and one FADD (i8_to_f32); log2(CS / 16)
+// shuffle levels fold each row's parts, and the warp writes the scores as
+// coalesced 128-byte stores of four consecutive blocks at cs 32, four
+// blocks' 8 rows at cs 64. Two warps of 16 blocks were faster than four of 8
+// at cs 32 (0.037 against 0.043 ms on chip_smoke.py's operands) and as fast
+// as one of 32. On an NVIDIA H100 80GB HBM3 at a 700 W power limit it takes
+// 0.0370 ms of device time at cs 32 on those operands (134 MB gathered,
+// mostly from L2, against a bound of 0.0121 ms), where the generic kernel
+// takes 0.1046.
+template <int CS>
 struct Blk8 {
   static constexpr int kBs = 8;
-  static constexpr int kCs = 32;
-  static constexpr int kLpr = kCs / 16;                     // lanes per row
-  static constexpr int kThreads = 64;
+  static constexpr int kCs = CS;
+  static constexpr int kLpr = CS / 16;                      // lanes per row
+  static constexpr int kBlocksPerLoad = 32 / (kBs * kLpr);  // blocks a warp-wide load covers
+  static constexpr int kLanesPerBlock = 32 / kBlocksPerLoad;
+  static constexpr int kLoads = 8;     // warp-wide 16-byte loads before the first FMA
+  static constexpr int kPerWarp = kLoads * kBlocksPerLoad;  // consecutive blocks per warp
   static constexpr int kStep = 32;   // blocks a CTA takes at a time: one's small inputs a lane
-  static constexpr int kPerWarp = kStep / (kThreads / 32);  // consecutive blocks per warp
-  static constexpr int kLoads = kPerWarp / 2;               // warp-wide loads, two blocks each
-  static constexpr int kMinCtas = 8;   // launch bound: at most 128 registers a thread
+  static constexpr int kThreads = 32 * kStep / kPerWarp;
+  static constexpr int kMinCtas = 512 / kThreads;  // launch bound: at most 128 registers a thread
 };
 
 // the 16 bf16 query columns at src as f32
@@ -455,14 +468,15 @@ __device__ __forceinline__ void load_query16(const __nv_bfloat16* src, float* qf
   }
 }
 
-__global__ void __launch_bounds__(Blk8::kThreads, Blk8::kMinCtas)
+template <int CS>
+__global__ void __launch_bounds__(Blk8<CS>::kThreads, Blk8<CS>::kMinCtas)
 block_scores_b8_kernel(const int8_t* __restrict__ tier, const __nv_bfloat16* __restrict__ q,
                        const int* __restrict__ table, const int* __restrict__ start,
                        float* __restrict__ out, int L, int caprows, int n, int MB) {
-  using S = Blk8;
+  using S = Blk8<CS>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int half = lane >> 4;                     // which block of a load's pair
+  const int part = lane / S::kLanesPerBlock;      // which block of a load's pair (cs 32)
   const int col0 = 16 * (lane % S::kLpr);
   const int n_steps = (n + S::kStep - 1) / S::kStep;
 
@@ -495,11 +509,12 @@ block_scores_b8_kernel(const int8_t* __restrict__ tier, const __nv_bfloat16* __r
     int vq[S::kLoads];
 #pragma unroll
     for (int k = 0; k < S::kLoads; ++k) {         // every 16-byte load before the first FMA
-      const int src = first + 2 * k + half;       // the lane holding this block's inputs
+      const int src = first + S::kBlocksPerLoad * k + part;  // the lane holding its inputs
       const long long r0 = __shfl_sync(kFull, row0, src);
       vq[k] = __shfl_sync(kFull, bq, src);
       v[k] = make_uint4(0u, 0u, 0u, 0u);
-      if (step + src < n) v[k] = __ldg(reinterpret_cast<const uint4*>(tier + r0) + (lane & 15));
+      if (step + src < n)
+        v[k] = __ldg(reinterpret_cast<const uint4*>(tier + r0) + lane % S::kLanesPerBlock);
     }
     float p[S::kLoads];
 #pragma unroll
@@ -511,11 +526,474 @@ block_scores_b8_kernel(const int8_t* __restrict__ tier, const __nv_bfloat16* __r
       p[k] = dot16_i8(v[k], qf);
     }
     fold_rows<S::kLoads, 1, S::kLpr>(p, lane);
-    // lane l holds row (l % 16) / 2 of blocks 4j + 2 (l % 2) + l / 16, j = 0, 1, ...
+    // lane l holds row (l % kLanesPerBlock) / kLpr of the block of load
+    // kLpr * j + l % kLpr; at cs 32 blocks 4j + 2 (l % 2) + l / 16, at cs 64
+    // blocks 4j + l % 4
+    const int row = (lane % S::kLanesPerBlock) / S::kLpr;
 #pragma unroll
     for (int j = 0; j < S::kLoads / S::kLpr; ++j) {
-      const int blk = step + first + 4 * j + 2 * (lane % S::kLpr) + half;
-      if (blk < n) out[(size_t)blk * S::kBs + ((lane & 15) >> 1)] = p[j];
+      const int blk =
+          step + first + S::kBlocksPerLoad * (S::kLpr * j + lane % S::kLpr) + part;
+      if (blk < n) out[(size_t)blk * S::kBs + row] = p[j];
+    }
+  }
+}
+
+// K2b's window-major form, for int8 windows of at least kMinBytes (win *
+// cs): the sparse flat engine's exact2 re-score (cs 4096, 64-slot windows
+// of one table) and IVF's default 256-slot windows (cs 128). There many
+// queries ask for the same window (2.3 on average at sparse_1m's 1M rows,
+// 7.7 on a 254k-row shard, about 40 per IVF cluster at 200k rows), and the
+// one-warp-per-(query, window) kernels read it again for each: at cs 4096
+// 8.05 GB gathered for 3.47 GB of distinct windows. This form reads each
+// distinct window once and scores all of its queries from that read.
+//
+// Schedule, three small passes over the B * MB (query, window) pairs: a
+// pair is keyed by the rows it reads, (t, s) = (clip(table, 0, L-1),
+// clip(blk_start, 0, caprows - win)), and inserted into an open-addressing
+// hash table in the caller's scratch (wm_group_kernel; a dead pair, or one
+// whose [start, end) misses the window, joins no group: its warp writes its
+// -inf row there); each group's first pair reserves the group's place in the
+// member list and its work items, one per kQ members (wm_item_kernel); each
+// pair writes itself, with its own valid range, into its group's place
+// (wm_member_kernel). A pair keeps its own blk_start, start and end: pairs
+// of one group share rows, not masks. The order of items and of members
+// within an item varies from run to run; no score depends on it.
+//
+// Scoring (window_major_kernel), a persistent grid whose CTAs take items
+// grid-stride, each warp 16-row m-tiles of the item: the [16 x cs] . [cs x
+// 8 n] products of the item's members on mma.sync.m16n8k16 in bf16 with f32
+// accumulators (int8 is exact in bf16, and every int8 x bf16 product exact
+// in f32). A lane of quad tig holds 16 consecutive columns of its rows (16
+// tig .. of each 64-column chunk) and of its query, and k-step j takes
+// their columns 4j .. 4j + 3, so both operands load as 16-byte vectors
+// straight from global memory: the window's rows past L1, the queries
+// through it, which the CTA's four warps share. int8 becomes
+// bf16 by byte permute, one FADD (i8_to_f32) and a permute taking the exact
+// f32's high half. A score sums its chunks in order into two accumulators,
+// even and odd chunks, added at the end: the order depends on cs alone, not
+// on the members an item holds or the grid, so every run gives the same
+// bits, and integer queries the plain version's. The scores leave as 32-byte
+// segments of 8 rows of one member, -inf outside the member's [start, end).
+struct WinMajor {
+  static constexpr int kMinBytes = 32768;  // win * cs from which an int8 window takes the form
+  static constexpr int kChunk = 64;        // columns of one 16-byte load per quad row
+  static constexpr int kQ = 16;            // members per work item: two n-tiles of 8
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kShortChunks = 2;   // rows of at most this many chunks: wm_short_rows
+  static constexpr int kMaxWin = 32768;    // a valid range packs into 16 bits a bound
+};
+
+struct WmItem {
+  unsigned long long row0;                 // first tier row of the window, t * caprows + s
+  unsigned first;                          // its members: members[first .. first + count)
+  unsigned count;
+};
+
+struct WmMember {
+  int pair;                                // b * MB + m
+  unsigned range;                          // valid slots [lo, hi) of the window: lo | hi << 16
+};
+
+// the scratch's parts for n pairs (see wm_scratch_bytes): a hash table of
+// h slots (keys, member counts, list bases), two counters, then per pair
+// its slot and rank, the items and the members
+struct WmScratch {
+  unsigned long long* keys;                // row0 + 1 of each slot's group; 0: empty
+  unsigned* cnt;
+  unsigned* counters;                      // [0] members placed, [1] items made
+  WmItem* items;
+  WmMember* members;
+  unsigned* base;
+  unsigned* slot;
+  unsigned* rank;
+};
+
+inline long long wm_slots(long long n) {
+  long long h = 1024;
+  while (h < 2 * n) h <<= 1;
+  return h;
+}
+
+// bytes of scratch the form needs for n pairs; the zeroed head (keys,
+// counts, counters) comes first
+inline long long wm_scratch_bytes(long long n) {
+  return 16 * wm_slots(n) + 32 * n + 16;
+}
+
+inline WmScratch wm_scratch(void* base, long long n) {
+  const long long h = wm_slots(n);
+  char* p = static_cast<char*>(base);
+  WmScratch s;
+  s.keys = reinterpret_cast<unsigned long long*>(p);
+  s.cnt = reinterpret_cast<unsigned*>(p + 8 * h);
+  s.counters = reinterpret_cast<unsigned*>(p + 12 * h);
+  s.items = reinterpret_cast<WmItem*>(p + 12 * h + 16);
+  s.members = reinterpret_cast<WmMember*>(p + 12 * h + 16 + 16 * n);
+  s.base = reinterpret_cast<unsigned*>(p + 12 * h + 16 + 24 * n);
+  s.slot = reinterpret_cast<unsigned*>(p + 16 * h + 16 + 24 * n);
+  s.rank = reinterpret_cast<unsigned*>(p + 16 * h + 16 + 28 * n);
+  return s;
+}
+
+// a pair's valid slots [lo, hi) of its window, clipped to [0, win); empty
+// for a dead pair
+__device__ __forceinline__ void wm_range(const int* blk_start, const int* start, const int* end,
+                                         const uint8_t* live, long long i, int win, int* lo,
+                                         int* hi) {
+  const long long p0 = blk_start[i];
+  *lo = (int)min(max((long long)start[i] - p0, 0LL), (long long)win);
+  *hi = live[i] ? (int)min(max((long long)end[i] - p0, 0LL), (long long)win) : 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+wm_group_kernel(const int* __restrict__ table, const int* __restrict__ blk_start,
+                const int* __restrict__ start, const int* __restrict__ end,
+                const uint8_t* __restrict__ live, float* __restrict__ out, WmScratch sc, int L,
+                int caprows, long long n, int win, int hbits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  bool grouped = false;
+  if (i < n) {
+    int lo, hi;
+    wm_range(blk_start, start, end, live, i, win, &lo, &hi);
+    unsigned h = ~0u, r = 0;
+    if (lo < hi) {
+      const int t = min(max(table[i], 0), L - 1);
+      const int s = min(max(blk_start[i], 0), caprows - win);
+      const unsigned long long key = (unsigned long long)t * caprows + s + 1;
+      const unsigned mask = (1u << hbits) - 1u;
+      h = (unsigned)((key * 0x9E3779B97F4A7C15ull) >> (64 - hbits));
+      for (;;) {                                 // linear probing; the table is at most half full
+        const unsigned long long prev = atomicCAS(&sc.keys[h], 0ull, key);
+        if (prev == 0ull || prev == key) break;
+        h = (h + 1) & mask;
+      }
+      r = atomicAdd(&sc.cnt[h], 1u);
+      grouped = true;
+    }
+    sc.slot[i] = h;
+    sc.rank[i] = r;
+  }
+  // the warp writes the -inf rows of its pairs that join no group
+  unsigned lone = __ballot_sync(kFull, i < n && !grouped);
+  while (lone) {
+    const int src = __ffs(lone) - 1;
+    lone &= lone - 1;
+    float4* o = reinterpret_cast<float4*>(out + (i - lane + src) * win);
+    for (int k = lane; k < win / 4; k += 32)
+      o[k] = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+wm_item_kernel(WmScratch sc, long long n) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned h = sc.slot[i];
+  if (h == ~0u || sc.rank[i] != 0) return;       // one pair a group makes its items
+  const unsigned c = sc.cnt[h];
+  const unsigned b = atomicAdd(&sc.counters[0], c);
+  sc.base[h] = b;
+  const unsigned n_items = (c + WinMajor::kQ - 1) / WinMajor::kQ;
+  const unsigned it0 = atomicAdd(&sc.counters[1], n_items);
+  const unsigned long long row0 = sc.keys[h] - 1;
+  for (unsigned j = 0; j < n_items; ++j) {
+    const unsigned f = j * WinMajor::kQ;
+    sc.items[it0 + j] = WmItem{row0, b + f, min((unsigned)WinMajor::kQ, c - f)};
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+wm_member_kernel(const int* __restrict__ blk_start, const int* __restrict__ start,
+                 const int* __restrict__ end, const uint8_t* __restrict__ live, WmScratch sc,
+                 long long n, int win) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const unsigned h = sc.slot[i];
+  if (h == ~0u) return;
+  int lo, hi;
+  wm_range(blk_start, start, end, live, i, win, &lo, &hi);
+  sc.members[sc.base[h] + sc.rank[i]] = WmMember{(int)i, (unsigned)lo | ((unsigned)hi << 16)};
+}
+
+// a 16-byte load that skips L1: each window row is read once per item
+__device__ __forceinline__ uint4 ldg_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// bf16 pairs of the int8 columns 4j .. 4j + 3 of a word: lo holds columns
+// 0 and 1, hi 2 and 3 (the lower column in the lower half), exactly: the
+// high half of an integer's f32 of magnitude <= 128 is its bf16
+__device__ __forceinline__ void i8x4_to_bf16x2(uint32_t w, uint32_t* lo, uint32_t* hi) {
+  const uint32_t b = w ^ 0x80808080u;
+  const uint32_t f0 = __float_as_uint(i8_to_f32(b, 0)), f1 = __float_as_uint(i8_to_f32(b, 1));
+  const uint32_t f2 = __float_as_uint(i8_to_f32(b, 2)), f3 = __float_as_uint(i8_to_f32(b, 3));
+  *lo = __byte_perm(f0, f1, 0x7632);
+  *hi = __byte_perm(f2, f3, 0x7632);
+}
+
+__device__ __forceinline__ void mma_bf16_16816(float* d, uint32_t a0, uint32_t a1, uint32_t a2,
+                                               uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// An m-tile's scores: c0, c1 hold row g of members 2 tig and 2 tig + 1, c2,
+// c3 row g + 8; each lane writes its members' rows, -inf outside their
+// [start, end), as 32-byte segments of 8 rows of one member a warp store.
+template <int NT>
+__device__ __forceinline__ void wm_store(float* __restrict__ out, float (*acc)[NT][4],
+                                         int count, int pair, unsigned range, int win, int mt,
+                                         int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int m = 8 * nt + 2 * tig + e;
+      const long long p = __shfl_sync(kFull, pair, m);
+      const unsigned rg = __shfl_sync(kFull, range, m);
+      if (m >= count) continue;
+      const int lo = (int)(rg & 0xffffu), hi = (int)(rg >> 16);
+      float* o = out + p * win + 16 * mt + g;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = 16 * mt + g + 8 * half;
+        const float v = acc[0][nt][2 * half + e] + acc[1][nt][2 * half + e];
+        o[8 * half] = (r >= lo && r < hi) ? v : -INFINITY;
+      }
+    }
+  }
+}
+
+// One unit: the item's m-tile mt (rows 16 mt .. 16 mt + 15 of the window)
+// against its members in NT n-tiles of 8. Lane (g, tig) = (lane / 4, lane %
+// 4) loads rows g and g + 8 and member 8 nt + g's query; each takes columns
+// 16 tig .. 16 tig + 15 of each 64-column chunk.
+template <int NT>
+__device__ __forceinline__ void wm_unit(const int8_t* __restrict__ tier,
+                                        const __nv_bfloat16* __restrict__ q,
+                                        float* __restrict__ out, unsigned long long row0,
+                                        int count, int pair, unsigned range, int cs, int win,
+                                        int MB, int mt, int lane) {
+  // chunks loaded ahead, even (see acc): 4 with one n-tile's query loads
+  // (1.208 against 1.281 ms with 2 at cs 4096), 2 with two
+  constexpr int kU = NT == 1 ? 4 : 2;
+  const int g = lane >> 2, tig = lane & 3;
+  const int n_chunks = cs / WinMajor::kChunk;
+  const int8_t* arow = tier + (long long)(row0 + 16 * mt + g) * cs + 16 * tig;
+  const long long a8 = 8LL * cs;                 // row g + 8
+  const __nv_bfloat16* qrow[NT];
+  bool has[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int m = 8 * nt + g;
+    const int p = __shfl_sync(kFull, pair, m);
+    has[nt] = m < count;
+    qrow[nt] = q + (long long)(has[nt] ? p / MB : 0) * cs + 16 * tig;
+  }
+  float acc[2][NT][4];                           // even and odd chunks
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[e][nt][k] = 0.f;
+
+  for (int c0 = 0; c0 < n_chunks; c0 += kU) {
+    uint4 alo[kU], ahi[kU], bq[kU][NT][2];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (c0 + u < n_chunks) {                   // warp-uniform
+        const int col = (c0 + u) * WinMajor::kChunk;
+        alo[u] = ldg_stream(arow + col);
+        ahi[u] = ldg_stream(arow + a8 + col);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          bq[u][nt][0] = bq[u][nt][1] = make_uint4(0u, 0u, 0u, 0u);
+          if (has[nt]) {
+            const uint4* qp = reinterpret_cast<const uint4*>(qrow[nt] + col);
+            bq[u][nt][0] = __ldg(qp);
+            bq[u][nt][1] = __ldg(qp + 1);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (c0 + u < n_chunks) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {            // k-step j: columns 16 tig + 4j .. + 3
+          uint32_t a0, a1, a2, a3;
+          i8x4_to_bf16x2(word(alo[u], j), &a0, &a2);
+          i8x4_to_bf16x2(word(ahi[u], j), &a1, &a3);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const uint4& bv = bq[u][nt][j >> 1];
+            mma_bf16_16816(acc[u & 1][nt], a0, a1, a2, a3, word(bv, 2 * (j & 1)),
+                           word(bv, 2 * (j & 1) + 1));
+          }
+        }
+      }
+    }
+  }
+  wm_store<NT>(out, acc, count, pair, range, win, mt, lane);
+}
+
+// The warp's m-tiles mt0, mt0 + kWarps, ... of an item whose rows are at
+// most kShortChunks chunks (cs <= 128, IVF's windows): the item's query columns are
+// loaded once and stay in registers, and each m-tile's rows are loaded while
+// the one before is scored. Chunk order and accumulators as wm_unit's, so
+// the scores are the same bits.
+template <int NT>
+__device__ __forceinline__ void wm_short_rows(const int8_t* __restrict__ tier,
+                                              const __nv_bfloat16* __restrict__ q,
+                                              float* __restrict__ out, unsigned long long row0,
+                                              int count, int pair, unsigned range, int cs,
+                                              int win, int MB, int mt0, int lane) {
+  constexpr int kU = WinMajor::kShortChunks;
+  const int g = lane >> 2, tig = lane & 3;
+  const int n_chunks = cs / WinMajor::kChunk;
+  const int m_tiles = win / 16;
+  uint4 bq[kU][NT][2];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int m = 8 * nt + g;
+    const int p = __shfl_sync(kFull, pair, m);
+    const __nv_bfloat16* qrow = q + (long long)(m < count ? p / MB : 0) * cs + 16 * tig;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      bq[u][nt][0] = bq[u][nt][1] = make_uint4(0u, 0u, 0u, 0u);
+      if (m < count && u < n_chunks) {
+        const uint4* qp = reinterpret_cast<const uint4*>(qrow + u * WinMajor::kChunk);
+        bq[u][nt][0] = __ldg(qp);
+        bq[u][nt][1] = __ldg(qp + 1);
+      }
+    }
+  }
+  const int8_t* rows = tier + (long long)(row0 + g) * cs + 16 * tig;   // row g of m-tile 0
+  const long long a8 = 8LL * cs, tile = 16LL * cs;
+  uint4 alo[kU], ahi[kU];
+  auto load = [&](int mt) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (u < n_chunks) {
+        alo[u] = ldg_stream(rows + mt * tile + u * WinMajor::kChunk);
+        ahi[u] = ldg_stream(rows + mt * tile + a8 + u * WinMajor::kChunk);
+      }
+    }
+  };
+  if (mt0 < m_tiles) load(mt0);
+  for (int mt = mt0; mt < m_tiles; mt += WinMajor::kWarps) {
+    uint4 clo[kU], chi[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      clo[u] = alo[u];
+      chi[u] = ahi[u];
+    }
+    if (mt + WinMajor::kWarps < m_tiles) load(mt + WinMajor::kWarps);
+    float acc[2][NT][4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[e][nt][k] = 0.f;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (u < n_chunks) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          uint32_t a0, a1, a2, a3;
+          i8x4_to_bf16x2(word(clo[u], j), &a0, &a2);
+          i8x4_to_bf16x2(word(chi[u], j), &a1, &a3);
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const uint4& bv = bq[u][nt][j >> 1];
+            mma_bf16_16816(acc[u & 1][nt], a0, a1, a2, a3, word(bv, 2 * (j & 1)),
+                           word(bv, 2 * (j & 1) + 1));
+          }
+        }
+      }
+    }
+    wm_store<NT>(out, acc, count, pair, range, win, mt, lane);
+  }
+}
+
+// A CTA takes items grid-stride and its warp w the item's m-tiles w, w + 4,
+// ...: a warp reads an item's record and members once, and the next item's
+// record and members are loaded one item ahead. SHORT_ROWS (cs <= 128,
+// IVF's windows) takes wm_short_rows, the queries held and the rows loaded
+// an m-tile ahead, in a kernel of its own (108 registers to the wide
+// kernel's 167): on this path IVF's windows took 0.082 ms where wm_unit
+// units of one m-tile each took 0.109 (timing.py K2b_ivf_256, one call, an
+// NVIDIA H100 80GB HBM3 at 700 W). Wider rows take wm_unit an m-tile at a
+// time, its later m-tiles finding the item's queries in L1. A window of
+// fewer than four m-tiles leaves warps idle; no shape the card paths give
+// does.
+template <bool SHORT_ROWS>
+__global__ void __launch_bounds__(WinMajor::kThreads)
+window_major_kernel(const int8_t* __restrict__ tier, const __nv_bfloat16* __restrict__ q,
+                    const WmItem* __restrict__ items, const WmMember* __restrict__ members,
+                    const unsigned* __restrict__ counters, float* __restrict__ out, int cs,
+                    int win, int MB) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int m_tiles = win / 16;
+  const long long n_items = counters[1];
+  const long long step = gridDim.x;
+  long long it = blockIdx.x;
+  WmItem next = {0ull, 0u, 0u};                  // the record and this lane's member
+  int next_pair = 0;                             // of the item the CTA takes next, and
+  unsigned next_range = 0;                       // the record of the one after (`after`)
+  if (it < n_items) {
+    next = items[it];
+    if (lane < (int)next.count) {
+      const WmMember mb = members[next.first + lane];
+      next_pair = mb.pair;
+      next_range = mb.range;
+    }
+  }
+  WmItem after = {0ull, 0u, 0u};
+  if (it + step < n_items) after = items[it + step];
+  for (; it < n_items; it += step) {             // CTA-uniform
+    const WmItem item = next;
+    const int pair = next_pair;
+    const unsigned range = next_range;
+    next = after;
+    next_pair = 0;
+    next_range = 0;
+    if (it + step < n_items && lane < (int)next.count) {
+      const WmMember mb = members[next.first + lane];
+      next_pair = mb.pair;
+      next_range = mb.range;
+    }
+    if (it + 2 * step < n_items) after = items[it + 2 * step];
+    const int count = (int)item.count;          // n-tiles of 8 members: 1 or 2
+    if constexpr (SHORT_ROWS) {
+      if (count > 8)
+        wm_short_rows<2>(tier, q, out, item.row0, count, pair, range, cs, win, MB, warp, lane);
+      else
+        wm_short_rows<1>(tier, q, out, item.row0, count, pair, range, cs, win, MB, warp, lane);
+    } else {
+      for (int mt = warp; mt < m_tiles; mt += WinMajor::kWarps) {
+        if (count > 8)
+          wm_unit<2>(tier, q, out, item.row0, count, pair, range, cs, win, MB, mt, lane);
+        else
+          wm_unit<1>(tier, q, out, item.row0, count, pair, range, cs, win, MB, mt, lane);
+      }
     }
   }
 }
@@ -613,18 +1091,61 @@ int launch_window_w64(const void* tier, const void* q, const void* table, const 
 }
 
 // the specialised K2 on a persistent grid, as K2b's
+template <int CS>
 int launch_block_b8(const void* tier, const void* q, const void* table, const void* start,
                     void* out, int L, int caprows, int n, int MB, cudaStream_t stream) {
+  using S = Blk8<CS>;
   static std::atomic<int> ctas_of[kMaxDevices];
   int ctas = 0;
-  const cudaError_t err = resident_ctas(block_scores_b8_kernel, Blk8::kThreads, ctas_of, &ctas);
+  const cudaError_t err = resident_ctas(block_scores_b8_kernel<CS>, S::kThreads, ctas_of, &ctas);
   if (err != cudaSuccess) return (int)err;
-  const long long steps = ((long long)n + Blk8::kStep - 1) / Blk8::kStep;
+  const long long steps = ((long long)n + S::kStep - 1) / S::kStep;
   const int grid = (int)(steps < ctas ? steps : ctas);
-  block_scores_b8_kernel<<<grid, Blk8::kThreads, 0, stream>>>(
+  block_scores_b8_kernel<CS><<<grid, S::kThreads, 0, stream>>>(
       static_cast<const int8_t*>(tier), static_cast<const __nv_bfloat16*>(q),
       static_cast<const int*>(table), static_cast<const int*>(start), static_cast<float*>(out),
       L, caprows, n, MB);
+  return (int)cudaGetLastError();
+}
+
+// K2b's window-major form: zero the scratch's head, the three schedule
+// passes, then the scoring kernel on a persistent grid
+template <bool SHORT_ROWS>
+int launch_window_major(const void* tier, const void* q, const void* table,
+                        const void* blk_start, const void* start, const void* end,
+                        const void* live, void* out, int L, int caprows, int cs, long long n,
+                        int MB, int win, void* scratch, long long scratch_bytes,
+                        cudaStream_t stream) {
+  if (scratch == nullptr || scratch_bytes < wm_scratch_bytes(n) ||
+      reinterpret_cast<uintptr_t>(scratch) % 16)
+    return (int)cudaErrorInvalidValue;
+  static std::atomic<int> ctas_of[kMaxDevices];
+  int ctas = 0;
+  cudaError_t err =
+      resident_ctas(window_major_kernel<SHORT_ROWS>, WinMajor::kThreads, ctas_of, &ctas);
+  if (err != cudaSuccess) return (int)err;
+  const long long h = wm_slots(n);
+  int hbits = 0;
+  while ((1LL << hbits) < h) ++hbits;
+  const WmScratch sc = wm_scratch(scratch, n);
+  err = cudaMemsetAsync(scratch, 0, 12 * h + 16, stream);
+  if (err != cudaSuccess) return (int)err;
+  const auto* ti = static_cast<const int*>(table);
+  const auto* bi = static_cast<const int*>(blk_start);
+  const auto* si = static_cast<const int*>(start);
+  const auto* ei = static_cast<const int*>(end);
+  const auto* li = static_cast<const uint8_t*>(live);
+  const int pass_grid = (int)((n + kThreads - 1) / kThreads);
+  wm_group_kernel<<<pass_grid, kThreads, 0, stream>>>(ti, bi, si, ei, li,
+                                                      static_cast<float*>(out), sc, L, caprows,
+                                                      n, win, hbits);
+  wm_item_kernel<<<pass_grid, kThreads, 0, stream>>>(sc, n);
+  wm_member_kernel<<<pass_grid, kThreads, 0, stream>>>(bi, si, ei, li, sc, n, win);
+  // at most one item a pair, one a CTA at a time
+  const int grid = (int)(n < ctas ? n : ctas);
+  window_major_kernel<SHORT_ROWS><<<grid, WinMajor::kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(tier), static_cast<const __nv_bfloat16*>(q), sc.items,
+      sc.members, sc.counters, static_cast<float*>(out), cs, win, MB);
   return (int)cudaGetLastError();
 }
 
@@ -645,12 +1166,12 @@ int launch_block_b8(const void* tier, const void* q, const void* table, const vo
 }  // namespace
 
 // Which kernel K2 takes for a shape: 1, the specialised kernel, for the
-// block-mode main shape (an int8 tier of 32 columns, 8-slot blocks, a block
-// count that fits an int); 0, the generic kernel, for every other shape and
-// for every bf16 tier.
+// block-mode main shapes (an int8 tier of 32 or 64 columns, 8-slot blocks, a
+// block count that fits an int); 0, the generic kernel, for every other
+// shape and for every bf16 tier.
 extern "C" int rdf_coarse_block_form(int cs, int bs, int B, int MB, int tier_bf16) {
-  return !tier_bf16 && cs == Blk8::kCs && bs == Blk8::kBs &&
-         (long long)B * MB < (1LL << 31) - Blk8::kStep;
+  return !tier_bf16 && (cs == 32 || cs == 64) && bs == 8 &&
+         (long long)B * MB < (1LL << 31) - 32;
 }
 
 // tier i8[L, caprows, cs] (bf16 with tier_bf16 = 1), q bf16[B, cs], table
@@ -668,11 +1189,36 @@ extern "C" int rdf_coarse_block_scores(const void* tier, const void* q,
   if (cs <= 0 || cs % 8) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (rdf_coarse_block_form(cs, bs, B, MB, tier_bf16))
-    return launch_block_b8(tier, q, table, start, out, L, caprows, B * MB, MB, st);
+    return cs == 32 ? launch_block_b8<32>(tier, q, table, start, out, L, caprows, B * MB, MB, st)
+                    : launch_block_b8<64>(tier, q, table, start, out, L, caprows, B * MB, MB, st);
 #define RDF_BLOCK(LPR, CPL) \
   launch<LPR, CPL>(tier, q, table, start, out, L, caprows, cs, B, MB, bs, tier_bf16, st)
   RDF_BY_WIDTH(cs, RDF_BLOCK)
 #undef RDF_BLOCK
+}
+
+// Which kernel K2b takes for a shape: 1, window_scores_w64_kernel, for int8
+// 64-slot windows of 32 or 128 columns; 2, the window-major form, for int8
+// windows of at least WinMajor::kMinBytes whose width is a multiple of 64
+// and size a multiple of 16 slots; 0, the generic kernel, for every other
+// shape and every bf16 tier (window counts past the forms' int indices
+// included).
+extern "C" int rdf_coarse_window_form(int cs, int win, int B, int MB, int tier_bf16) {
+  const long long n = (long long)B * MB;
+  if (tier_bf16) return 0;
+  if (win == 64 && (cs == 32 || cs == 128) && n < (1LL << 31) - 64) return 1;
+  if (cs > 0 && cs % WinMajor::kChunk == 0 && win % 16 == 0 && win <= WinMajor::kMaxWin &&
+      (long long)win * cs >= WinMajor::kMinBytes && n < (1LL << 28))
+    return 2;
+  return 0;
+}
+
+// Bytes of device scratch K2b needs for a shape (0 but for the window-major
+// form); the caller allocates it, 16-byte aligned
+extern "C" long long rdf_coarse_window_scratch(int cs, int win, int B, int MB, int tier_bf16) {
+  return rdf_coarse_window_form(cs, win, B, MB, tier_bf16) == 2
+             ? wm_scratch_bytes((long long)B * MB)
+             : 0;
 }
 
 // K2b. tier i8[L, caprows, cs] (bf16 with tier_bf16 = 1), q bf16[B, cs],
@@ -680,24 +1226,34 @@ extern "C" int rdf_coarse_block_scores(const void* tier, const void* q,
 // contiguous, tier and q 16-byte aligned); out f32[B, MB, win] with
 // out[b, m, j] = the K2 score of row clip(blk_start, 0, caprows-win) + j
 // when live[b, m] and start[b, m] <= blk_start[b, m] + j < end[b, m], else
-// -inf. cs as for K2, caprows >= win.
+// -inf. cs as for K2, caprows >= win. `scratch` holds scratch_bytes of
+// device memory, at least what rdf_coarse_window_scratch says (none for
+// the other forms); cudaErrorInvalidValue if it is short.
 extern "C" int rdf_coarse_window_scores(const void* tier, const void* q, const void* table,
                                         const void* blk_start, const void* start,
                                         const void* end, const void* live, void* out,
                                         int L, int caprows, int cs, int B, int MB, int win,
-                                        int tier_bf16, void* stream) {
+                                        int tier_bf16, void* scratch, long long scratch_bytes,
+                                        void* stream) {
   if ((long long)B * MB == 0) return 0;
   if (cs <= 0 || cs % 8) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  // the main path's shapes take the specialised kernel (a window count that
-  // fits an int: at 256 bytes of scores a window, any that fits on a card)
-  if (!tier_bf16 && win == 64 && (long long)B * MB < (1LL << 31) - 64) {
-    if (cs == 32)
-      return launch_window_w64<32>(tier, q, table, blk_start, start, end, live, out, L, caprows,
-                                   B * MB, MB, st);
-    if (cs == 128)
-      return launch_window_w64<128>(tier, q, table, blk_start, start, end, live, out, L,
-                                    caprows, B * MB, MB, st);
+  switch (rdf_coarse_window_form(cs, win, B, MB, tier_bf16)) {
+    case 1:
+      return cs == 32 ? launch_window_w64<32>(tier, q, table, blk_start, start, end, live, out,
+                                              L, caprows, B * MB, MB, st)
+                      : launch_window_w64<128>(tier, q, table, blk_start, start, end, live, out,
+                                               L, caprows, B * MB, MB, st);
+    case 2:
+      return cs <= WinMajor::kShortChunks * WinMajor::kChunk
+                 ? launch_window_major<true>(tier, q, table, blk_start, start, end, live, out,
+                                             L, caprows, cs, (long long)B * MB, MB, win,
+                                             scratch, scratch_bytes, st)
+                 : launch_window_major<false>(tier, q, table, blk_start, start, end, live, out,
+                                              L, caprows, cs, (long long)B * MB, MB, win,
+                                              scratch, scratch_bytes, st);
+    default:
+      break;
   }
 #define RDF_WIN(LPR, CPL)                                                              \
   launch_window<LPR, CPL>(tier, q, table, blk_start, start, end, live, out, L, caprows, cs, \

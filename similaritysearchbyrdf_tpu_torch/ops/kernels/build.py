@@ -93,7 +93,7 @@ def library() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            p, i = ctypes.c_void_p, ctypes.c_int
+            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             lib.rdf_hash_dense.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
             lib.rdf_hash_dense.restype = i
             lib.rdf_hash_dense_splits.argtypes = [i, i, i]
@@ -102,8 +102,12 @@ def library() -> ctypes.CDLL:
             lib.rdf_coarse_block_scores.restype = i
             lib.rdf_coarse_block_form.argtypes = [i] * 5
             lib.rdf_coarse_block_form.restype = i
-            lib.rdf_coarse_window_scores.argtypes = [p] * 8 + [i] * 7 + [p]
+            lib.rdf_coarse_window_scores.argtypes = [p] * 8 + [i] * 7 + [p, ll, p]
             lib.rdf_coarse_window_scores.restype = i
+            lib.rdf_coarse_window_form.argtypes = [i] * 5
+            lib.rdf_coarse_window_form.restype = i
+            lib.rdf_coarse_window_scratch.argtypes = [i] * 5
+            lib.rdf_coarse_window_scratch.restype = ll
             lib.rdf_coarse_rowmax.argtypes = [p] * 6 + [i] * 9 + [p]
             lib.rdf_coarse_rowmax.restype = i
             lib.rdf_flat_groupmax.argtypes = [p] * 4 + [i] * 7 + [p]

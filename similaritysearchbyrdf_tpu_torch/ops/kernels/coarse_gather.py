@@ -17,24 +17,34 @@ one-table tier (`ops/flat.py`), and a forest's bf16 coarse tier in window
 mode; K2 takes a forest's bf16 coarse tier in block mode, on its generic
 kernel (a chunk of 8 columns is one 16-byte load per lane).
 
-K2's main-path shape, 8-slot blocks of 32 int8 columns (block mode), takes a
-kernel of its own, chosen by shape inside `rdf_coarse_block_scores`
-(`block_kernel_form`): K2b's design below, with steps of 32 blocks, 16
-consecutive blocks to a warp and each 16-byte load covering two blocks;
-every other shape keeps the generic kernel.
+K2's main-path shapes, 8-slot blocks of 32 int8 columns (block mode) or 64
+(the sparse tier), take a kernel of their own, chosen by shape inside
+`rdf_coarse_block_scores` (`block_kernel_form`): K2b's w64 design below,
+with steps of 32 blocks and each warp-wide 16-byte load covering 512 bytes
+(two blocks at cs 32, one at 64); every other shape keeps the generic
+kernel.
 
 K2b's main-path shapes, an int8 tier with 64-slot windows of 32 columns
 (window mode) or 128 (the flat engine's exact2 re-score), take a kernel of
-their own, chosen by shape inside `rdf_coarse_window_scores`: a persistent
-grid in which each CTA takes steps of 32 consecutive windows (every
-grid-th step, so the queries' live windows, which come first among each
-query's, spread over all CTAs), the small inputs of its next step loaded
-ahead (one coalesced load per lane) and broadcast by shuffle; a warp issues
-every 16-byte load of a window's valid slots before its first FMA, converts
-int8 to f32 exactly by byte permute and one FADD (no `I2F`), and writes the
-window's scores as two coalesced 128-byte stores, a dead window's as
-16-byte stores. Other shapes (bf16 tiers, other widths and window sizes)
-keep the generic kernel.
+their own, chosen by shape inside `rdf_coarse_window_scores`
+(`window_kernel_form` "w64"): a persistent grid in which each CTA takes
+steps of 32 consecutive windows (every grid-th step, so the queries' live
+windows, which come first among each query's, spread over all CTAs), the
+small inputs of its next step loaded ahead (one coalesced load per lane) and
+broadcast by shuffle; a warp issues every 16-byte load of a window's valid
+slots before its first FMA, converts int8 to f32 exactly by byte permute and
+one FADD (no `I2F`), and writes the window's scores as two coalesced
+128-byte stores, a dead window's as 16-byte stores.
+
+Wide int8 windows (at least `WINDOW_MAJOR_MIN_BYTES` = win * cs, cs a
+multiple of 64: the sparse flat engine's cs 4096 re-score, IVF's default
+256-slot windows at cs 128) take the window-major form ("window_major"),
+for the many queries that ask for one window: three small passes group the
+(query, window) pairs by the rows they read in a hash table in scratch that
+this wrapper allocates (`window_scratch_bytes`), and one warp a 16-row
+m-tile of a group's window scores up to 16 of its queries from one read,
+on `mma.sync` in bf16 with f32 accumulators. Other shapes (bf16 tiers,
+other widths and window sizes) keep the generic kernel.
 
 `coarse_block_scores_kernel` and `coarse_window_scores_kernel` launch their
 kernels for CUDA tensors and run the plain versions for CPU tensors; a CUDA
@@ -57,12 +67,50 @@ def _cs_ok(cs: int) -> bool:
     return cs > 0 and cs % 8 == 0
 
 
+# K2's specialised widths and K2b's window-major thresholds, as
+# `rdf_coarse_block_form` and `rdf_coarse_window_form` (csrc/coarse_gather.cu)
+# choose them: `WinMajor::kMinBytes`, `kChunk`, `kMaxWin`
+BLOCK_B8_WIDTHS = (32, 64)
+WINDOW_MAJOR_MIN_BYTES = 32768
+WINDOW_MAJOR_CHUNK = 64
+WINDOW_MAJOR_MAX_WIN = 32768
+
+
 def block_kernel_form(cs: int, bs: int, b: int, mb: int, tier_bf16: bool = False) -> str:
     """Which kernel K2 takes for a shape on the card, as
-    `rdf_coarse_block_scores` chooses it (`rdf_coarse_block_form`): "b8",
-    the block-mode main shape's kernel (int8 tiers only), or "generic"."""
-    form = build.library().rdf_coarse_block_form(cs, bs, b, mb, int(tier_bf16))
-    return "b8" if form else "generic"
+    `rdf_coarse_block_form` chooses it: "b8", the block-mode main shapes'
+    kernel (int8 tiers of 32 or 64 columns, 8-slot blocks), or "generic"."""
+    b8 = (not tier_bf16 and cs in BLOCK_B8_WIDTHS and bs == 8
+          and b * mb < (1 << 31) - 32)
+    return "b8" if b8 else "generic"
+
+
+def window_kernel_form(cs: int, win: int, b: int, mb: int, tier_bf16: bool = False) -> str:
+    """Which kernel K2b takes for a shape on the card, as
+    `rdf_coarse_window_form` chooses it: "w64" (int8, 64-slot windows of 32
+    or 128 columns), "window_major" (int8 windows of at least
+    `WINDOW_MAJOR_MIN_BYTES`, cs a multiple of 64, win of 16) or
+    "generic"."""
+    n = b * mb
+    if tier_bf16:
+        return "generic"
+    if win == 64 and cs in (32, 128) and n < (1 << 31) - 64:
+        return "w64"
+    if (cs > 0 and cs % WINDOW_MAJOR_CHUNK == 0 and win % 16 == 0
+            and win <= WINDOW_MAJOR_MAX_WIN and win * cs >= WINDOW_MAJOR_MIN_BYTES
+            and n < (1 << 28)):
+        return "window_major"
+    return "generic"
+
+
+def window_scratch_bytes(b: int, mb: int) -> int:
+    """Device scratch the window-major form needs for B x MB pairs, as
+    `rdf_coarse_window_scratch` counts it: a hash table of the next power of
+    two of slots past 2n (at least 1024) at 16 bytes each, 32 bytes a pair,
+    16 for two counters."""
+    n = b * mb
+    slots = max(1024, 1 << (2 * n - 1).bit_length())
+    return 16 * slots + 32 * n + 16
 
 
 def coarse_block_scores_plain(tier: torch.Tensor, q_low: torch.Tensor,
@@ -169,10 +217,14 @@ def coarse_window_scores_kernel(tier: torch.Tensor, q_low: torch.Tensor,
     out = torch.empty((b, mb, win), dtype=torch.float32, device=tier.device)
     if out.numel() == 0:
         return out
+    bf16 = tier.dtype == torch.bfloat16
+    nbytes = (window_scratch_bytes(b, mb)
+              if window_kernel_form(cs, win, b, mb, bf16) == "window_major" else 0)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=tier.device) if nbytes else None
     err = build.library().rdf_coarse_window_scores(
         tier.data_ptr(), q_low.data_ptr(), table.data_ptr(), blk_start.data_ptr(),
         start.data_ptr(), end.data_ptr(), live.data_ptr(), out.data_ptr(),
-        l, caprows, cs, b, mb, win, int(tier.dtype == torch.bfloat16),
+        l, caprows, cs, b, mb, win, int(bf16), scratch.data_ptr() if nbytes else None, nbytes,
         build.stream(tier.device),
     )
     build.check(err, "rdf_coarse_window_scores")

@@ -45,7 +45,20 @@ calls (`torch._int_mm` in slabs
 of 131,072 rows for K4, a full-f32 `torch.matmul` for K1), which is not the
 same function. `K1_width` times K1 at D 128-1024 (B 64 and 8192 without
 margins, B 1024 with), the widths around the narrow and wide forms'
-crossover.
+crossover. `K2b_sparse_flat` times K2b at the sparse flat engine's exact2
+re-score: the int8 sketch of 1,007,616 x 4096 as one table, B 1024 x 30
+windows of 64 rows, every window live; each query's 30 windows are distinct
+and drawn uniformly from the first 15,300 of the sketch's 15,744, which
+makes about 13,260 distinct windows of 30,720, the share the smoke's
+operands have (3.47 of 8.05 GB). `K2b_ivf_256` times it at persist_1m's
+loaded IVF query: 200,000 rows of cs 128 in 781 clusters of 64-448 rows,
+B 1024 queries each probing 32 distinct clusters drawn uniformly (about 42
+queries a cluster, as IVF's), their windows of 256 rows laid out by
+`ops/ivf.py`'s own `_flatten_windows`. `K2_sparse_cs64` times K2 at the
+sparse tier's cs 64: 30 tables of 1,007,680 rows, B 64 x 2048 blocks of 8
+drawn from 410,000 positions, which leaves the smoke's distinct share
+(57.5 of 67.1 MB). Each prints its gathered and distinct bytes under
+`share`.
 `--only K3` times only the entries whose names start with one of the given
 prefixes. Prints the card's name and power limit, then one JSON line of
 medians of `--reps` timings (ms) after 3 warm-up calls, two per kernel
@@ -446,6 +459,65 @@ def main() -> int:
 
         product["K4_sparse_1m"] = median_event_ms(int_mm_slabs, args.reps, busy=True)
         del sk
+        torch.cuda.empty_cache()
+    if wanted("K2b_sparse_flat"):
+        npad, win, b, mb = 1_007_616, 64, 1024, 30
+        sk = i8(1, npad, 4096)
+        q = bf16(b, 4096)
+        pick = torch.rand((b, 15_300), generator=gen, device=dev).argsort(dim=1)[:, :mb]
+        blk = (pick * win).to(torch.int32).contiguous()
+        zeros = torch.zeros_like(blk)
+        n_end, live = torch.full_like(blk, npad), torch.ones_like(blk, dtype=torch.bool)
+        info["K2b_sparse_flat_share"] = {
+            "gathered_bytes": b * mb * win * 4096,
+            "distinct_bytes": int(torch.unique(blk).numel()) * win * 4096}
+        timed("K2b_sparse_flat", lambda: K2.coarse_window_scores_kernel(
+            sk, q, zeros, blk, zeros, n_end, live, win))
+        del sk
+        torch.cuda.empty_cache()
+    if wanted("K2b_ivf_256"):
+        from ..ivf import _flatten_windows, ivf_window_budget
+
+        n, kc, nprobe, win, b = 200_000, 781, 32, 256, 1024
+        # the IVF layout: each cluster's rows from an 8-aligned start, as
+        # `_cluster_perm` lays them out (starts [K+1], true ends [K])
+        sizes = torch.randint(64, 449, (kc,), generator=gen, device=dev)
+        sizes = (sizes * n // sizes.sum()).clamp(min=1)
+        sizes[-1] += n - sizes.sum()
+        starts = torch.zeros(kc + 1, dtype=torch.int64, device=dev)
+        starts[1:] = torch.cumsum((sizes + 7) // 8 * 8, 0)
+        ends = starts[:-1] + sizes
+        npad = int(starts[-1])
+        sk = i8(npad, 128)
+        q = bf16(b, 128)
+        sel = torch.rand((b, kc), generator=gen, device=dev).argsort(dim=1)[:, :nprobe]
+        wb = ivf_window_budget(starts, ends, nprobe, win)
+        blk, end_b, live = _flatten_windows(starts[sel], ends[sel], win, wb)
+        blk_dma = blk.clamp(max=npad - win)
+        ivf_args = (sk[None], q, torch.zeros_like(blk, dtype=torch.int32),
+                    blk_dma.to(torch.int32).contiguous(), blk.to(torch.int32).contiguous(),
+                    end_b.to(torch.int32).contiguous(), live.contiguous(), win)
+        valid = live & (blk < end_b)
+        info["K2b_ivf_256_share"] = {
+            "windows": list(blk.shape),
+            "gathered_bytes": int(valid.sum()) * win * 128,
+            "distinct_bytes": int(torch.unique(blk_dma[valid]).numel()) * win * 128}
+        timed("K2b_ivf_256", lambda: K2.coarse_window_scores_kernel(*ivf_args))
+        del sk, ivf_args
+    if wanted("K2_sparse_cs64"):
+        l, caprows, b, mb = 30, 1_007_680, 64, 2048
+        tier, q = i8(l, caprows, 64), bf16(b, 64)
+        pos = torch.randint(0, l * (caprows - 8), (410_000,), generator=gen, device=dev)
+        pick = pos[torch.randint(0, 410_000, (b, mb), generator=gen, device=dev)]
+        table = (pick // (caprows - 8)).to(torch.int32).contiguous()
+        blk = (pick % (caprows - 8)).to(torch.int32).contiguous()
+        info["K2_sparse_cs64_share"] = {
+            "gathered_bytes": b * mb * 8 * 64,
+            "distinct_bytes": int(torch.unique(
+                (pick[..., None] // (caprows - 8)) * caprows + pick[..., None] % (caprows - 8)
+                + torch.arange(8, device=dev)).numel()) * 64}
+        timed("K2_sparse_cs64", lambda: K2.coarse_block_scores_kernel(tier, q, table, blk, 8))
+        del tier
         torch.cuda.empty_cache()
     if wanted("floor"):
         # the timer's floor: K2 on one 8-row block, about the least any launch does

@@ -167,13 +167,19 @@ def test_block_kernel_main_shape(dev, b, mb, queries):
 
 @pytest.mark.parametrize("cs,bs,b,mb,form", [
     (32, 8, 1024, 512, "b8"), (32, 8, 1, 1, "b8"), (32, 8, 7, 33, "b8"),
-    (32, 4, 1024, 512, "generic"), (32, 16, 1024, 512, "generic"), (64, 8, 1024, 512, "generic"),
+    (32, 4, 1024, 512, "generic"), (32, 16, 1024, 512, "generic"), (64, 8, 1024, 512, "b8"),
     (24, 8, 7, 33, "generic"), (16, 8, 1024, 512, "generic"),
     (32, 8, 1 << 16, 1 << 15, "generic")])
 def test_block_kernel_form(dev, cs, bs, b, mb, form):
-    """Only the block-mode main shape takes the specialised kernel; other
-    widths and block sizes, and block counts past an int, the generic one."""
+    """Only the block-mode main shapes (int8 cs 32 and the sparse tier's 64)
+    take the specialised kernel; other widths and block sizes, and block
+    counts past an int, the generic one. The Python mirror names the form
+    the library chooses."""
     assert K2.block_kernel_form(cs, bs, b, mb) == form
+    lib = K2.build.library()
+    for bf16 in (0, 1):
+        assert ("generic", "b8")[lib.rdf_coarse_block_form(cs, bs, b, mb, bf16)] == \
+            K2.block_kernel_form(cs, bs, b, mb, bool(bf16))
 
 
 @pytest.mark.parametrize("tier_dtype", [torch.int8, torch.bfloat16])
@@ -1073,9 +1079,9 @@ def test_hash_kernel_densified_sparse_d4096(dev, b):
 
 
 def test_block_kernel_sparse_tier_cs64_bit_equal(dev):
-    """K2 at the sparse tier's shape, int8 cs 64 (the generic kernel), B 64
-    x MB 2048 blocks of 8, L 30: integer queries make every sum exact, so
-    kernel and plain version agree bit for bit."""
+    """K2 at the sparse tier's shape, int8 cs 64 (the b8 kernel), B 64 x MB
+    2048 blocks of 8, L 30: integer queries make every sum exact, so kernel
+    and plain version agree bit for bit."""
     rng = np.random.default_rng(64)
     l, caprows, b, mb = 30, 20_000, 64, 2048
     tier = torch.as_tensor(rng.integers(-127, 128, size=(l, caprows, 64)).astype(np.int8),
@@ -1085,9 +1091,156 @@ def test_block_kernel_sparse_tier_cs64_bit_equal(dev):
     table = torch.as_tensor(rng.integers(0, l, size=(b, mb)).astype(np.int32), device=dev)
     start = torch.as_tensor(rng.integers(0, caprows - 8, size=(b, mb)).astype(np.int32),
                             device=dev)
-    assert K2.block_kernel_form(64, 8, b, mb) == "generic"
+    assert K2.block_kernel_form(64, 8, b, mb) == "b8"
     got = K2.coarse_block_scores_kernel(tier, q, table, start, 8)
     assert torch.equal(got, K2.coarse_block_scores_plain(tier, q, table, start, 8))
+
+
+@pytest.mark.parametrize("queries", ["integer", "float"])
+@pytest.mark.parametrize("b,mb", [(1, 1), (7, 33), (65, 2047), (3, 11), (64, 2048)])
+def test_block_kernel_cs64_odd_shapes(dev, b, mb, queries):
+    """K2's b8 kernel at cs 64 at block counts that end mid-step (B 1 x MB 1,
+    7 x 33, 65 x 2047, 3 x 11) and the sparse query's 64 x 2048, table ids
+    out of range and starts past both ends of the tier: bit for bit with
+    integer queries (|q| <= 64), within the f32 bound with float ones, the
+    same words on a second call."""
+    assert K2.block_kernel_form(64, 8, b, mb) == "b8"
+    rng = np.random.default_rng(b * 10_000 + mb)
+    l, caprows, bs = 30, 20_000, 8
+    tier = torch.as_tensor(rng.integers(-128, 128, size=(l, caprows, 64)).astype(np.int8),
+                           device=dev)
+    qv = rng.integers(-64, 65, size=(b, 64)) if queries == "integer" else rng.normal(size=(b, 64))
+    q = torch.as_tensor(qv.astype(np.float32), device=dev).to(torch.bfloat16)
+    table = torch.as_tensor(rng.integers(-2, l + 2, size=(b, mb)).astype(np.int32), device=dev)
+    start = torch.as_tensor(rng.integers(-20, caprows + 20, size=(b, mb)).astype(np.int32),
+                            device=dev)
+    before = K2.LAUNCHES
+    got = K2.coarse_block_scores_kernel(tier, q, table, start, bs)
+    assert K2.LAUNCHES == before + 1
+    want = K2.coarse_block_scores_plain(tier, q, table, start, bs)
+    if queries == "integer":
+        assert torch.equal(got, want)
+    else:
+        bound = 2 * 64 * U * K2.coarse_block_scores_plain(tier.abs(), q.abs(), table, start, bs)
+        assert ((got - want).abs() <= bound + 1e-30).all()
+    again = K2.coarse_block_scores_kernel(tier, q, table, start, bs)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("cs,win,b,mb", [
+    (4096, 64, 1024, 30), (4096, 64, 1, 1), (4096, 8, 3, 5), (2056, 64, 3, 5),
+    (128, 256, 1024, 64), (64, 512, 7, 33), (128, 128, 7, 33), (96, 128, 1024, 14),
+    (32, 64, 128, 1024), (128, 64, 1024, 30), (32, 64, 1 << 16, 1 << 15),
+    (4096, 64, 1 << 14, 1 << 14)])
+def test_window_kernel_form_mirror(dev, cs, win, b, mb):
+    """The Python mirror of K2b's form and scratch names what the library
+    chooses, for int8 and bf16 tiers."""
+    lib = K2.build.library()
+    for bf16 in (0, 1):
+        form = ("generic", "w64", "window_major")[lib.rdf_coarse_window_form(cs, win, b, mb,
+                                                                             bf16)]
+        assert form == K2.window_kernel_form(cs, win, b, mb, bool(bf16))
+        want = K2.window_scratch_bytes(b, mb) if form == "window_major" else 0
+        assert lib.rdf_coarse_window_scratch(cs, win, b, mb, bf16) == want
+
+
+def _window_major_operands(dev, cs, win, case, queries, seed):
+    """K2b's operands for the window-major form's cases (L, B, MB by case):
+    "shared", every pair on one window (a group of 120, past the 16 members
+    of an item); "distinct", no window shared; "mixed", 3 tables with ids out
+    of range, windows from a small pool of starts, among them negative ones
+    and ones past caprows - win, so pairs of different blk_start share a
+    clipped start (at 0 and at the table's end), ranges cutting a window at
+    one or both ends or missing it, dead windows, and B x MB = 37 x 7 pairs;
+    "two_tables", "shared" on 2 tables."""
+    rng = np.random.default_rng(seed)
+    caprows = 1024 if cs > 1024 else 4096
+    l, b, mb = {"shared": (1, 40, 3), "distinct": (1, 9, 7), "mixed": (3, 37, 7),
+                "two_tables": (2, 24, 5)}[case]
+    tier = torch.as_tensor(rng.integers(-128, 128, size=(l, caprows, cs)).astype(np.int8),
+                           device=dev)
+    qv = (rng.integers(-16, 17, size=(b, cs)) if queries == "integer"
+          else rng.normal(size=(b, cs)))
+    q = torch.as_tensor(qv.astype(np.float32), device=dev).to(torch.bfloat16)
+    table = rng.integers(0, l, size=(b, mb))
+    live = np.ones((b, mb), bool)
+    if case in ("shared", "two_tables"):
+        blk = np.full((b, mb), 8 * rng.integers(0, (caprows - win) // 8))
+    elif case == "distinct":
+        blk = 8 * rng.choice((caprows - win) // 8, size=b * mb, replace=False).reshape(b, mb)
+    else:
+        table = rng.integers(-1, l + 1, size=(b, mb))
+        pool = np.array([-16, -8, 0, 8, 64, caprows - win, caprows - win + 8,
+                         caprows - win + 24, caprows])
+        blk = pool[rng.integers(0, len(pool), size=(b, mb))]
+        live = rng.random((b, mb)) < 0.8
+    start, end = blk, blk + win
+    if case == "mixed":
+        cut_lo, cut_hi = rng.integers(1, win // 2, size=(2, b, mb))
+        kind = rng.integers(0, 5, size=(b, mb))
+        kind[-1, -1], live[-1, -1] = 1, True     # finite and -inf slots in every case
+        # 0 whole, 1 cut at both ends, 2 at the start, 3 at the end, 4 missed
+        start = np.choose(kind, [blk - 3, blk + cut_lo, blk + cut_lo, blk - 3, blk + win])
+        end = np.choose(kind, [blk + win + 3, blk + win - cut_hi, blk + win + 3,
+                               blk + win - cut_hi, blk + win + 16])
+    args = [torch.as_tensor(np.asarray(a).astype(np.int32), device=dev)
+            for a in (table, blk, start, end)]
+    return (tier, q, *args, torch.as_tensor(live, device=dev), win)
+
+
+@pytest.mark.parametrize("queries", ["integer", "float"])
+@pytest.mark.parametrize("case", ["shared", "distinct", "mixed", "two_tables"])
+@pytest.mark.parametrize("cs,win", [(4096, 64), (128, 256), (64, 512)])
+def test_window_major_form_matches_plain(dev, cs, win, case, queries):
+    """K2b's window-major form (int8 cs 4096 x 64-slot windows, IVF's cs 128
+    x 256, the 32 KB threshold's cs 64 x 512) against its plain version in
+    every grouping case (`_window_major_operands`): integer queries (|q| <=
+    16) make every partial sum an integer below 2^24, so the two agree bit
+    for bit; float queries stay within the f32 bound with the same -inf
+    slots. A second call gives the same words."""
+    args = _window_major_operands(dev, cs, win, case, queries, cs + win + len(case))
+    tier, q, table, blk = args[:4]
+    b, mb = table.shape
+    assert K2.window_kernel_form(cs, win, b, mb) == "window_major"
+    before = K2.WINDOW_LAUNCHES
+    got = K2.coarse_window_scores_kernel(*args)
+    assert K2.WINDOW_LAUNCHES == before + 1
+    want = K2.coarse_window_scores_plain(*args)
+    assert torch.isfinite(want).any()
+    if queries == "integer":
+        assert torch.equal(got, want)
+    else:
+        assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+        fin = torch.isfinite(want)
+        bound = 2 * cs * U * K2.coarse_block_scores_plain(tier.abs(), q.abs(), table, blk, win)
+        assert ((got - want).abs()[fin] <= bound[fin] + 1e-30).all()
+    again = K2.coarse_window_scores_kernel(*args)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    if case == "mixed":
+        assert torch.isneginf(want).any()
+
+
+def test_window_major_form_at_the_re_score_shape(dev):
+    """The window-major form at the sparse flat re-score's shape with its
+    sharing: B 1024 x 30 windows of 64 rows over a 4096-wide int8 sketch of
+    8,192 rows (128 windows, so about 240 queries a window and every group
+    split into items of 16), integer queries: bit for bit, the same words on
+    a second call."""
+    rng = np.random.default_rng(15)
+    caprows, b, mb, win = 8192, 1024, 30, 64
+    sk = torch.as_tensor(rng.integers(-128, 128, size=(1, caprows, 4096), dtype=np.int8),
+                         device=dev)
+    q = torch.as_tensor(rng.integers(-16, 17, size=(b, 4096)).astype(np.float32),
+                        device=dev).to(torch.bfloat16)
+    blk = torch.as_tensor(np.argsort(rng.random((b, caprows // win)), axis=1)[:, :mb] * win,
+                          dtype=torch.int32, device=dev)
+    zeros = torch.zeros_like(blk)
+    args = (sk, q, zeros, blk, zeros, torch.full_like(blk, caprows - 100),
+            torch.ones_like(blk, dtype=torch.bool), win)
+    got = K2.coarse_window_scores_kernel(*args)
+    assert torch.equal(got, K2.coarse_window_scores_plain(*args))
+    assert torch.equal(K2.coarse_window_scores_kernel(*args).view(torch.int32),
+                       got.view(torch.int32))
 
 
 def test_window_kernel_one_table_cs4096(dev):
