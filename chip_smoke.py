@@ -48,7 +48,11 @@ device is present:
      bound it reached;
   9. flat_8m: `FlatIndex()` at its defaults (int8, argpack) on folded_8m's
      corpus and ground truth: fit, 1,024 queries, recall, qps, bytes,
-     peak device memory;
+     peak device memory; then flat_8m_bf16, `FlatIndex(sketch_dtype=
+     "bfloat16")` on the same corpus (exact2: K4 in bf16, K2b's bf16
+     re-score): recall@10 >= 0.995, qps, launches, a profile, K4 bf16 on
+     its own operands within the f32 bound and, on the int8 sketch and
+     queries as bf16 values, word for word K4 int8's, K2b on its own;
  10. options_1m (after window_1m): the 1M corpus fitted with the bench
      config plus the forest's last three options (a bf16 coarse tier on a
      PCA basis, the bf16 two-stage rerank), queried in block mode at
@@ -435,8 +439,9 @@ def window_check(args, sync, median_ms, where: str) -> dict:
     del again
     # bytes: the distinct tier rows of valid slots, the small inputs, the scores
     l, caprows, cs = tier.shape
-    lib_form = ("generic", "w64", "window_major")[build.library().rdf_coarse_window_form(
-        cs, win, *blk_start.shape, int(tier.dtype == torch.bfloat16))]
+    lib_form = ("generic", "w64", "window_major", "w96")[
+        build.library().rdf_coarse_window_form(cs, win, *blk_start.shape,
+                                               int(tier.dtype == torch.bfloat16))]
     check(lib_form == K2.window_kernel_form(cs, win, *blk_start.shape,
                                             tier.dtype == torch.bfloat16),
           f"K2b's form mirror disagrees with the library on {where}: {lib_form}")
@@ -1686,7 +1691,98 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
           "stage_ms": stages,
           "profile": device_profile(lambda: flat.query_device(qd, k=10, query_ids=ids[:nq]),
                                     sync)})
-    return k4, launches
+    del flat
+    torch.cuda.empty_cache()
+    bf16_leg = flat_8m_bf16_leg(xd, gt, sk, q8, sync, median_ms)
+    return k4, launches, bf16_leg
+
+
+def flat_8m_bf16_leg(xd, gt, sk8, q8, sync, median_ms) -> dict:
+    """`FlatIndex(sketch_dtype="bfloat16")` on the Deep-8M corpus (exact2: K4
+    unpacked in bf16, then K2b's bf16 re-score): 1,024 self-excluded
+    queries, recall@10 gated at FLAT8M_RECALL_MIN, qps, launches; K4 bf16
+    on the path's own operands against its plain version (within the f32
+    bound) and, on the int8 path's sketch and queries as bf16 values, word
+    for word equal to K4 int8; K2b on its own operands (`window_check`).
+    → the phase's record."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch import DenseBatch, FlatIndex
+    from similaritysearchbyrdf_tpu_torch.ops import flat as FL
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import flat_groupmax as K4
+
+    dev = xd.device
+    n, d = xd.shape
+    nq = 1024
+    ids = np.arange(n, dtype=np.int32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    flat = FlatIndex(sketch_dtype="bfloat16", device=dev).fit(DenseBatch(ids, xd))
+    fit_s = timed_s(lambda: flat.fit(DenseBatch(ids, xd)), sync, 1)
+    qd = xd[:nq]
+    with recording(FL, "flat_groupmax_kernel", "coarse_window_scores_kernel") as calls:
+        reset_launches()
+        got, sc = flat.query_device(qd, k=10, query_ids=ids[:nq])
+        sync()
+        launches = read_launches()
+    check(launches["flat_groupmax_kernel"] > 0 and launches["coarse_window_scores_kernel"] > 0,
+          f"flat_8m_bf16 did not launch K4 and K2b: {launches}")
+    got = got.cpu().numpy()
+    check(got.shape == (nq, 10) and bool(torch.isfinite(sc).all()),
+          "flat_8m_bf16 output has the wrong shape or non-finite scores")
+    rec = recall_at(gt, got)
+    check(rec >= FLAT8M_RECALL_MIN, f"flat_8m_bf16 recall@10 {rec} is below {FLAT8M_RECALL_MIN}")
+    q_s = timed_s(lambda: flat.query_device(qd, k=10, query_ids=ids[:nq]), sync, 3)
+
+    (sk16, q16, group), kw4 = calls["flat_groupmax_kernel"][0]
+    check(not kw4 and sk16.dtype == torch.bfloat16, f"unexpected K4 call on flat_8m_bf16: {kw4}")
+    npad, dk = sk16.shape
+    kern = K4.flat_groupmax_kernel(sk16, q16, group)
+    plain = K4.flat_groupmax_plain(sk16, q16, group)
+    lim = 2 * dk * U32 * K4.flat_groupmax_plain(sk16.abs(), q16.abs(), group)
+    sync()
+    err = (kern - plain).abs()
+    check(bool((err <= lim).all()), f"K4 bf16 on flat_8m_bf16 exceeds the f32 bound: max err "
+                                    f"{float(err.max())}")
+    again = K4.flat_groupmax_kernel(sk16, q16, group)
+    check(bool(torch.equal(again.view(torch.int32), kern.view(torch.int32))),
+          "K4 bf16 on flat_8m_bf16 gives other words on a second call")
+    del plain, lim, again
+    # int8 values as bf16: every sum an integer below 2^24, exact in f32
+    via_bf16 = K4.flat_groupmax_kernel(sk8.to(torch.bfloat16), q8.to(torch.bfloat16), group)
+    as_int8 = K4.flat_groupmax_kernel(sk8, q8, group)
+    sync()
+    vs_int8 = int((via_bf16.view(torch.int32) != as_int8.view(torch.int32)).sum())
+    check(vs_int8 == 0, f"K4 bf16 on int8 values differs from K4 int8 in {vs_int8} words")
+    del via_bf16, as_int8
+    torch.cuda.empty_cache()
+    k4 = {"shape": {"B": q16.shape[0], "Npad": npad, "D": dk, "group": group},
+          "form": K4.kernel_form(sk16.dtype, dk), "max_abs_err": float(err.max()),
+          "words_unequal_to_int8": vs_int8,
+          "tolerance": "|err| <= 2*D*2^-24*sum|s*q| per value; int8 values: bit for bit",
+          **bound(nbytes(sk16, q16, kern), 2.0 * q16.shape[0] * npad * dk, "bf16"),
+          **kernel_times(lambda: K4.flat_groupmax_kernel(sk16, q16, group)),
+          "plain_ms": median_ms(lambda: K4.flat_groupmax_plain(sk16, q16, group))}
+    k4["bound_share"] = k4["bound_ms"] / k4["ms"]
+    del kern, err, sk16, q16, calls["flat_groupmax_kernel"]
+    args, kw2 = calls["coarse_window_scores_kernel"][0]
+    check(not kw2, f"unexpected K2b call on flat_8m_bf16: {kw2}")
+    k2b = window_check(args, sync, median_ms, "flat_8m_bf16's re-score")
+    del args, calls
+    out = {"phase": "flat_8m_bf16", "n": n, "dim": d, "queries": nq,
+           "config": {"sketch_dtype": "bfloat16", "refine": flat.refine, "query_batch": 1024,
+                      "select_mode": FL._resolve_select_mode("auto", torch.bfloat16, n, dk),
+                      "group": group},
+           "recall_at_10": rec, "launches": {k: v for k, v in launches.items() if v},
+           "qps": nq / q_s, "query_s": q_s, "fit_s": fit_s,
+           "bytes_per_vector": flat.bytes_per_vector(),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "profile": device_profile(lambda: flat.query_device(qd, k=10, query_ids=ids[:nq]),
+                                     sync),
+           "kernels": {"K4_bf16": k4, "K2b": k2b}}
+    emit(out)
+    del flat
+    torch.cuda.empty_cache()
+    return out
 
 
 # recall@10 of the JAX package on a TPU v5e on the sparse_1m corpus
@@ -2771,11 +2867,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phases 8 and 9: the flat engine on the same 8M corpus ---------------
-    k4, launches_flat = flat_8m_phase(x8, gt8, dev, sync, median_ms)
+    k4, launches_flat, flat_bf16 = flat_8m_phase(x8, gt8, dev, sync, median_ms)
     torch.cuda.empty_cache()
 
     # ---- phase 11: the IVF engine on the same 8M corpus ----------------------
-    ivf_phase(x8, gt8, sync, median_ms)
+    ivf = ivf_phase(x8, gt8, sync, median_ms)
     torch.cuda.empty_cache()
 
     # ---- phase 16: the sharded engines on the same 8M corpus, 8 shards --------
@@ -2841,7 +2937,17 @@ def main() -> int:
              sk_calls["sharded_flat"]["launches"]["coarse_window_scores_kernel"]),
          "persist_1m_ivf": at_sparse(
              persist["kernels"]["K2b_ivf"],
-             persist["calls"]["loaded ivf query"]["launches"]["coarse_window_scores_kernel"])},
+             persist["calls"]["loaded ivf query"]["launches"]["coarse_window_scores_kernel"]),
+         **{f"ivf_8m_{name}": at_sparse(pt["K2b"], pt["launches"]["coarse_window_scores_kernel"])
+            for name, pt in ivf["points"].items()},
+         "sharded_8m_flat_shard0": at_sparse(
+             sharded["kernels"]["K2b_flat"],
+             sharded["flat"]["launches"]["coarse_window_scores_kernel"]),
+         "sharded_8m_ivf_shard0": at_sparse(
+             sharded["kernels"]["K2b_ivf"],
+             sharded["ivf"]["launches"]["coarse_window_scores_kernel"]),
+         "flat_8m_bf16": at_sparse(flat_bf16["kernels"]["K2b"],
+                                   flat_bf16["launches"]["coarse_window_scores_kernel"])},
         {"name": "coarse_rowmax_kernel", "route": "cuda",
          "sharded_8m_launches": sh_launches.get("coarse_rowmax_kernel", 0),
          "source": "similaritysearchbyrdf_tpu_torch/csrc/coarse_fold.cu",
@@ -2859,7 +2965,9 @@ def main() -> int:
          "bound_ms": k4p["bound_ms"],
          "bound_by": k4p["bound_by"], **lib, "form": k4p["form"],
          "sparse_1m": at_sparse(sparse["kernels"]["K4"],
-                                sk_calls["flat"]["launches"]["flat_groupmax_kernel"])},
+                                sk_calls["flat"]["launches"]["flat_groupmax_kernel"]),
+         "flat_8m_bf16": at_sparse(flat_bf16["kernels"]["K4_bf16"],
+                                   flat_bf16["launches"]["flat_groupmax_kernel"])},
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

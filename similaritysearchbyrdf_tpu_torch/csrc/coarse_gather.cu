@@ -18,6 +18,8 @@
 // Forms, chosen by shape (rdf_coarse_block_form, rdf_coarse_window_form):
 // K2's int8 8-slot blocks of 32 or 64 columns take block_scores_b8_kernel,
 // K2b's int8 64-slot windows of 32 or 128 columns window_scores_w64_kernel,
+// as do (form "w96") its int8 windows of 64 or 128 slots at 96 columns
+// (IVF and the flat engine on Deep's 96 dimensions),
 // and K2b's int8 windows of at least 32 KB the window-major form
 // (window_major_kernel, after three small grouping passes), which reads a
 // window once for all the queries that ask for it. Every other shape, and
@@ -184,8 +186,10 @@ coarse_block_scores_kernel(const TierT* __restrict__ tier,
 // fused mask saves the caller two elementwise passes over the scores. The
 // tier may also be bf16 (the flat engine's bf16 sketch as a one-table
 // tier): a chunk is then one 16-byte load per lane. This generic kernel
-// serves every shape but the main path's (int8, 64-slot windows, 32 or 128
-// columns), which take window_scores_w64_kernel below.
+// serves every shape but the int8 ones the specialised forms take
+// (rdf_coarse_window_form): 64-slot windows of 32 or 128 columns, windows
+// of 64 or 128 slots of 96 columns (window_scores_w64_kernel below), and
+// wide windows (the window-major form).
 template <int LPR, int CPL, typename TierT>
 __global__ void __launch_bounds__(kThreads)
 coarse_window_scores_kernel(const TierT* __restrict__ tier,
@@ -235,39 +239,64 @@ coarse_window_scores_kernel(const TierT* __restrict__ tier,
 
 // K2b at the main path's shapes: an int8 tier, 64-slot windows, rows of CS
 // = 32 columns (window mode, IVF) or 128 (the flat engine's exact2
-// re-score). A window is CS * 64 contiguous bytes; a warp reads it with
-// kLoads 16-byte loads per lane, load k covering chunks 32k..32k+31, so each
-// is one coalesced 512-byte access and lane l always holds the same 16
-// columns (16 * (l % kLpr)) of rows k * kRowsPerLoad + l / kLpr.
+// re-score); and (form "w96") IVF's and the D-96 flat engine's rows of CS =
+// 96 columns in windows of 64 or 128 slots. A warp reads a window in halves
+// of 64 slots, CS * 64 contiguous bytes each, with kLoads 16-byte loads per
+// lane: load k covers rows k * kRowsPerLoad .. + kRowsPerLoad - 1, one
+// contiguous run of 512 bytes (384 at cs 96), and lane l always holds the
+// same 16 columns (16 * (l % kLpr)) of rows k * kRowsPerLoad + l / kLpr.
+// A row of 96 columns is six 16-byte pieces and takes 8 lanes, so that
+// fold_rows keeps its power-of-two lane groups: lanes 6 and 7 of each row
+// load nothing and add 0.
 //
 // What held the generic kernel back here: one 8-byte load per lane in
 // flight, a chain of dependent index loads before every window, and 32
 // I2F conversions per score at cs 32. This kernel runs a persistent grid
 // whose CTAs take steps of 32 consecutive windows grid-stride; a step's
 // small inputs are loaded one per lane a step ahead and broadcast by
-// shuffle. Each warp takes four consecutive windows of a step, one at a
-// time, and issues every 16-byte load of a window's valid slots before its
-// first FMA (masked slots and dead windows load nothing). int8 becomes f32
-// by byte permute and one FADD (i8_to_f32), and each row's partial dots are
-// folded over its lanes so that every lane ends with two rows, written as
-// two 128-byte stores. On an NVIDIA H100 80GB HBM3 at a 700 W power limit
-// it takes 0.048 ms of device time on chip_smoke.py's kernels_window (the
-// 1M fit's windows, B 128 x MB 1024, 28.8% of slots valid) against a bound
-// of 0.032 ms; on timing.py's seeded operands 0.056 ms at K2b_window_1m
-// where the generic kernel takes 0.087, and 0.055 ms at the flat engine's
-// re-score (cs 128, every window live) where it takes 0.092, gathering
-// 252 MB from L2 at 4.6 TB/s.
-template <int CS>
+// shuffle. Each warp takes four windows of a step (consecutive ones, every
+// eighth at cs 96), one at a time and a half at a time, and issues every
+// 16-byte load of a half's valid slots before its first FMA (masked slots,
+// halves without a valid slot and dead windows load nothing). int8 becomes
+// f32 by byte permute and one FADD (i8_to_f32), and each row's partial dots
+// are folded over its lanes so that every lane ends with two rows of the
+// half, written as two 128-byte stores. On an NVIDIA H100 80GB HBM3 at a
+// 700 W power limit it takes 0.048 ms of device time on chip_smoke.py's
+// kernels_window (the 1M fit's windows, B 128 x MB 1024, 28.8% of slots
+// valid) against a bound of 0.032 ms; on timing.py's seeded operands 0.056
+// ms at K2b_window_1m where the generic kernel takes 0.087, and 0.055 ms at
+// the flat engine's re-score (cs 128, every window live) where it takes
+// 0.092, gathering 252 MB from L2 at 4.6 TB/s. At cs 96 (timing.py, the
+// same card, 5 pairs in one call): 0.0356-0.0358 ms at K2b_ivf_8m (IVF's
+// 128-slot windows, 31% of slots valid; bound 0.018) and 0.0618-0.0627 at
+// K2b_sharded_flat_cs96 (30 all-live windows of 64 a query, 189 MB
+// gathered, 81 MB distinct), where the generic kernel takes 0.0856-0.0862
+// and 0.1255-0.1262.
+template <int CS, int WIN>
 struct Win64 {
-  static constexpr int kWin = 64;
-  static constexpr int kLpr = CS / 16;                   // lanes per row
+  static constexpr int kHalf = 64;                       // slots a warp scores at a time
+  static constexpr int kWin = WIN;
+  static constexpr int kHalves = WIN / kHalf;
+  static constexpr int kPieces = CS / 16;                // 16-byte pieces of a row
+  static constexpr int kLpr = CS == 96 ? 8 : kPieces;    // lanes per row, a power of two
   static constexpr int kRowsPerLoad = 32 / kLpr;         // rows of one warp-wide load
-  static constexpr int kLoads = kWin / kRowsPerLoad;     // loads per lane and window
+  static constexpr int kLoads = kHalf / kRowsPerLoad;    // loads per lane and half
   static constexpr int kStep = 32;                       // windows a CTA takes at a time
-  static constexpr int kPerWarp = kStep / (kThreads / 32);  // consecutive windows per warp
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kPerWarp = kStep / kWarps;        // windows per warp and step
+  // which windows of a step a warp takes: four consecutive ones, or at cs 96
+  // every kWarps-th. IVF's queries have few windows (14 of 128 slots at
+  // ivf_8m's headline), their live ones first, so a step's live windows
+  // bunch together, and consecutive ones put up to four on one warp's chain
+  // of dependent loads: strided, 0.0347-0.0348 ms of device time against
+  // 0.0365-0.0381 (timing.py K2b_ivf_8m, 3 pairs in one call, an NVIDIA H100
+  // 80GB HBM3 at 700 W), and no change at the flat re-score's all-live
+  // windows
+  static constexpr bool kStrided = CS == 96;
   // resident CTAs per SM: at cs 32 a window's loads take 16 registers, and
   // four CTAs of warps loading one window at a time were as fast as three
-  // loading two and faster than two loading four
+  // loading two and faster than two loading four; at cs 96 three CTAs
+  // spilled (80 registers) and were slower
   static constexpr int kMinCtas = CS == 32 ? 4 : 2;
 };
 
@@ -313,24 +342,26 @@ __device__ __forceinline__ void fold_rows(float* p, int lane) {
 
 // a window's small inputs as one lane holds them: the byte offset of its
 // first (clipped) row, and its valid slots [lo, hi) relative to blk_start,
-// clipped to [0, 64) and empty for a dead window, packed as lo | hi << 8
+// clipped to [0, win) and empty for a dead window, packed as lo | hi << 8
 struct WinMeta {
   long long row0;
   int range;
   int b;
 };
 
-template <int CS>
-__global__ void __launch_bounds__(kThreads, Win64<CS>::kMinCtas)
+template <int CS, int WIN>
+__global__ void __launch_bounds__(kThreads, Win64<CS, WIN>::kMinCtas)
 window_scores_w64_kernel(const int8_t* __restrict__ tier, const __nv_bfloat16* __restrict__ q,
                          const int* __restrict__ table, const int* __restrict__ blk_start,
                          const int* __restrict__ start, const int* __restrict__ end,
                          const uint8_t* __restrict__ live, float* __restrict__ out, int L,
                          int caprows, int n, int MB) {
-  using S = Win64<CS>;
+  using S = Win64<CS, WIN>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int col0 = 16 * (lane % S::kLpr);
+  const int piece = lane % S::kLpr;                    // the lane's 16 columns of a row
+  const bool loads = S::kLpr == S::kPieces || piece < S::kPieces;
+  const int lane_off = (lane / S::kLpr) * S::kPieces + piece;   // its piece of a load's run
   // the CTA takes every gridDim.x-th step of kStep consecutive windows: a
   // query's live windows come first among its MB, so a contiguous split of
   // the windows would leave some CTAs only dead ones
@@ -350,6 +381,8 @@ window_scores_w64_kernel(const int8_t* __restrict__ tier, const __nv_bfloat16* _
   if (blockIdx.x < n_steps) prefetch(blockIdx.x * S::kStep + lane);
 
   float qf[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) qf[j] = 0.f;          // a lane past the row keeps zeros
   int cur_b = -1;
   for (int st = blockIdx.x; st < n_steps; st += gridDim.x) {
     const int step = st * S::kStep;
@@ -367,48 +400,56 @@ window_scores_w64_kernel(const int8_t* __restrict__ tier, const __nv_bfloat16* _
 
 #pragma unroll 1
     for (int w = 0; w < S::kPerWarp; ++w) {     // the warp's windows, one at a time
-      const int src = warp * S::kPerWarp + w;   // the lane holding its small inputs
+      // the lane holding the window's small inputs
+      const int src = S::kStrided ? warp + w * S::kWarps : warp * S::kPerWarp + w;
       const int i = step + src;
       const long long row0 = __shfl_sync(kFull, m.row0, src);
       const int range = __shfl_sync(kFull, m.range, src);
       const int b = __shfl_sync(kFull, m.b, src);
       if (i >= n) break;                        // warp-uniform
-      const int lo = range & 0xff, hi = range >> 8;
-      float* o = out + (size_t)i * S::kWin;
-      if (lo >= hi) {                           // no valid slot: 16-byte -inf stores
-        if (lane < S::kWin / 4)
-          reinterpret_cast<float4*>(o)[lane] =
-              make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
-        continue;
-      }
-      // every 16-byte load of the window's valid slots before the first FMA
-      const uint4* base = reinterpret_cast<const uint4*>(tier + row0);
-      uint4 v[S::kLoads];
-#pragma unroll
-      for (int k = 0; k < S::kLoads; ++k) {
-        const int r = k * S::kRowsPerLoad + lane / S::kLpr;
-        v[k] = make_uint4(0u, 0u, 0u, 0u);
-        if (r >= lo && r < hi) v[k] = __ldg(base + k * 32 + lane);
-      }
-      if (b != cur_b) {                         // warp-uniform: another step or query
-        const uint4* qp = reinterpret_cast<const uint4*>(q + (size_t)b * CS + col0);
-        const uint4 qa = __ldg(qp), qb = __ldg(qp + 1);
-        const uint32_t qw[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          qf[2 * j] = __uint_as_float(qw[j] << 16);
-          qf[2 * j + 1] = __uint_as_float(qw[j] & 0xffff0000u);
+#pragma unroll 1
+      for (int h = 0; h < S::kHalves; ++h) {    // the window's halves of 64 slots
+        const int lo = max((range & 0xff) - S::kHalf * h, 0);
+        const int hi = min((range >> 8) - S::kHalf * h, S::kHalf);
+        float* o = out + (size_t)i * S::kWin + S::kHalf * h;
+        if (lo >= hi) {                         // no valid slot: 16-byte -inf stores
+          if (lane < S::kHalf / 4)
+            reinterpret_cast<float4*>(o)[lane] =
+                make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+          continue;
         }
-        cur_b = b;
-      }
-      float p[S::kLoads];
+        // every 16-byte load of the half's valid slots before the first FMA
+        const uint4* base =
+            reinterpret_cast<const uint4*>(tier + row0) + h * S::kHalf * S::kPieces + lane_off;
+        uint4 v[S::kLoads];
 #pragma unroll
-      for (int k = 0; k < S::kLoads; ++k) p[k] = dot16_i8(v[k], qf);
-      fold_rows<S::kLoads, 1, S::kLpr>(p, lane);
+        for (int k = 0; k < S::kLoads; ++k) {
+          const int r = k * S::kRowsPerLoad + lane / S::kLpr;
+          v[k] = make_uint4(0u, 0u, 0u, 0u);
+          if (loads && r >= lo && r < hi) v[k] = __ldg(base + k * S::kRowsPerLoad * S::kPieces);
+        }
+        if (b != cur_b) {                       // warp-uniform: another step or query
+          if (loads) {
+            const uint4* qp = reinterpret_cast<const uint4*>(q + (size_t)b * CS + 16 * piece);
+            const uint4 qa = __ldg(qp), qb = __ldg(qp + 1);
+            const uint32_t qw[8] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {             // two coalesced 128-byte stores
-        const int r = 32 * j + (lane % S::kLpr) * S::kRowsPerLoad + lane / S::kLpr;
-        o[r] = (r >= lo && r < hi) ? p[j] : -INFINITY;
+            for (int j = 0; j < 8; ++j) {
+              qf[2 * j] = __uint_as_float(qw[j] << 16);
+              qf[2 * j + 1] = __uint_as_float(qw[j] & 0xffff0000u);
+            }
+          }
+          cur_b = b;
+        }
+        float p[S::kLoads];
+#pragma unroll
+        for (int k = 0; k < S::kLoads; ++k) p[k] = dot16_i8(v[k], qf);
+        fold_rows<S::kLoads, 1, S::kLpr>(p, lane);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {           // two coalesced 128-byte stores
+          const int r = 32 * j + piece * S::kRowsPerLoad + lane / S::kLpr;
+          o[r] = (r >= lo && r < hi) ? p[j] : -INFINITY;
+        }
       }
     }
   }
@@ -1072,17 +1113,18 @@ cudaError_t resident_ctas(Kernel kernel, int threads, std::atomic<int>* cache, i
 }
 
 // the specialised K2b on a persistent grid: as many CTAs as fit on the card
-template <int CS>
+template <int CS, int WIN>
 int launch_window_w64(const void* tier, const void* q, const void* table, const void* blk_start,
                       const void* start, const void* end, const void* live, void* out, int L,
                       int caprows, int n, int MB, cudaStream_t stream) {
   static std::atomic<int> ctas_of[kMaxDevices];
   int ctas = 0;
-  const cudaError_t err = resident_ctas(window_scores_w64_kernel<CS>, kThreads, ctas_of, &ctas);
+  const cudaError_t err =
+      resident_ctas(window_scores_w64_kernel<CS, WIN>, kThreads, ctas_of, &ctas);
   if (err != cudaSuccess) return (int)err;
-  const long long steps = ((long long)n + Win64<CS>::kStep - 1) / Win64<CS>::kStep;
+  const long long steps = ((long long)n + Win64<CS, WIN>::kStep - 1) / Win64<CS, WIN>::kStep;
   const int grid = (int)(steps < ctas ? steps : ctas);
-  window_scores_w64_kernel<CS><<<grid, kThreads, 0, stream>>>(
+  window_scores_w64_kernel<CS, WIN><<<grid, kThreads, 0, stream>>>(
       static_cast<const int8_t*>(tier), static_cast<const __nv_bfloat16*>(q),
       static_cast<const int*>(table), static_cast<const int*>(blk_start),
       static_cast<const int*>(start), static_cast<const int*>(end),
@@ -1198,15 +1240,17 @@ extern "C" int rdf_coarse_block_scores(const void* tier, const void* q,
 }
 
 // Which kernel K2b takes for a shape: 1, window_scores_w64_kernel, for int8
-// 64-slot windows of 32 or 128 columns; 2, the window-major form, for int8
-// windows of at least WinMajor::kMinBytes whose width is a multiple of 64
-// and size a multiple of 16 slots; 0, the generic kernel, for every other
-// shape and every bf16 tier (window counts past the forms' int indices
-// included).
+// 64-slot windows of 32 or 128 columns; 3 ("w96"), the same kernel at 96
+// columns, for int8 windows of 64 or 128 slots; 2, the window-major form,
+// for int8 windows of at least WinMajor::kMinBytes whose width is a
+// multiple of 64 and size a multiple of 16 slots; 0, the generic kernel,
+// for every other shape and every bf16 tier (window counts past the forms'
+// int indices included).
 extern "C" int rdf_coarse_window_form(int cs, int win, int B, int MB, int tier_bf16) {
   const long long n = (long long)B * MB;
   if (tier_bf16) return 0;
   if (win == 64 && (cs == 32 || cs == 128) && n < (1LL << 31) - 64) return 1;
+  if ((win == 64 || win == 128) && cs == 96 && n < (1LL << 31) - 64) return 3;
   if (cs > 0 && cs % WinMajor::kChunk == 0 && win % 16 == 0 && win <= WinMajor::kMaxWin &&
       (long long)win * cs >= WinMajor::kMinBytes && n < (1LL << 28))
     return 2;
@@ -1239,11 +1283,14 @@ extern "C" int rdf_coarse_window_scores(const void* tier, const void* q, const v
   if (cs <= 0 || cs % 8) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (rdf_coarse_window_form(cs, win, B, MB, tier_bf16)) {
+#define RDF_W64(CS, WIN) \
+  launch_window_w64<CS, WIN>(tier, q, table, blk_start, start, end, live, out, L, caprows, \
+                             B * MB, MB, st)
     case 1:
-      return cs == 32 ? launch_window_w64<32>(tier, q, table, blk_start, start, end, live, out,
-                                              L, caprows, B * MB, MB, st)
-                      : launch_window_w64<128>(tier, q, table, blk_start, start, end, live, out,
-                                               L, caprows, B * MB, MB, st);
+      return cs == 32 ? RDF_W64(32, 64) : RDF_W64(128, 64);
+    case 3:
+      return win == 64 ? RDF_W64(96, 64) : RDF_W64(96, 128);
+#undef RDF_W64
     case 2:
       return cs <= WinMajor::kShortChunks * WinMajor::kChunk
                  ? launch_window_major<true>(tier, q, table, blk_start, start, end, live, out,

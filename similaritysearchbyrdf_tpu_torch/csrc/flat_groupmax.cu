@@ -21,21 +21,30 @@
 // int8) a call does 1.57e12 int8 operations (0.80 ms at 1,979 TOPS) and
 // moves 768 MB of sketch and 512 MB of output (0.38 ms at 3.35 TB/s); at
 // the sparse flat engine's (Npad 1,007,616, D 4096, B 1024) 8.45e12
-// operations (4.27 ms) against 4.2 GB of sketch (1.26 ms).
+// operations (4.27 ms) against 4.2 GB of sketch (1.26 ms); with a bf16
+// sketch at Deep-8M 1.57e12 bf16 operations (1.59 ms at 989 TFLOPS) against
+// 1.54 GB of sketch and 512 MB of output (0.61 ms).
 //
-// Three forms, chosen by shape in `rdf_flat_groupmax`:
+// Two forms, chosen by the bytes of a row in `rdf_flat_groupmax`. Both take
+// either type: a wgmma k-step is 32 bytes in both (32 int8 values, 16 bf16),
+// so the geometry below is in bytes and a bf16 row of D values is an int8 row
+// of 2D bytes. int8 runs m64nNk32 s8 products into s32 accumulators, bf16
+// m64nNk16 bf16 products into f32 accumulators (the same registers, laid out
+// alike); the epilogue's maxima are integer or f32 maxima, and bf16 never
+// packs.
 //
-// The wgmma form (int8, D up to kWgMaxD = 192). A persistent grid, one CTA
-// per SM, of five warpgroups: four consumers and a producer. Each CTA keeps
-// a chunk of up to qc queries resident in shared memory (all 1,024 at D
-// 96) and walks every gridDim.x-th 512-row sketch block; one producer thread
-// keeps the next block in flight by TMA through a two-stage mbarrier ring,
-// so the sketch is read from memory once per query chunk and the query
-// batch once per CTA. Both operands land in wgmma's 32-byte swizzle: one
+// The wgmma form (rows up to kWgMaxD = 192 bytes: int8 D 192, bf16 D 96). A
+// persistent grid, one CTA per SM, of five warpgroups: four consumers and a
+// producer. Each CTA keeps a chunk of up to qc queries resident in shared
+// memory (all 1,024 at int8 D 96) and walks every gridDim.x-th 512-row
+// sketch block (256 rows for bf16, below); one producer thread keeps the
+// next block in flight by TMA through a two-stage mbarrier ring, so the
+// sketch is read from memory once per query chunk and the query batch once
+// per CTA. Both operands land in wgmma's 32-byte swizzle: one
 // TMA box of 32 bytes x 256 rows per k-step, a tile stored as [D/32][rows]
 // [32] planes (descriptor: swizzle 32B, 256 bytes between 8-row groups).
 // A consumer warpgroup scores 64 queries (the M operand) against a block's
-// rows in four 128-row subtiles, each D/32 m64n128k32 s8 wgmma products
+// rows in 128-row subtiles, each D/32 (bytes) m64n128 wgmma products
 // issued back to back (k-steps a compile-time constant); the four consumers
 // take every fourth 64-query tile, so while some wait on the tensor cores
 // the others run their epilogues. A thread's accumulators hold two query
@@ -61,16 +70,16 @@
 // warpgroups' products only in part; two warpgroups, a strict turnstile
 // between them, or three-way maxima were each slower.
 //
-// The K-looped form (int8, D past kWgMaxD): a GEMM with the wgmma form's
+// The K-looped form (rows past kWgMaxD bytes): a GEMM with the wgmma form's
 // epilogue. Its tile is 128 queries (M) x 256 sketch rows (N), held by two
-// consumer warpgroups of 64 queries x 256 rows each: 128 s32 accumulators
+// consumer warpgroups of 64 queries x 256 rows each: 128 s32 or f32 accumulators
 // a thread (setmaxnreg gives the consumers 232 registers, the producer 40),
 // which stay in registers across the whole D loop, so each sketch byte is
 // staged once per 128 queries. One producer thread brings 128-byte D-slabs
 // of both operands by TMA, in wgmma's 128-byte swizzle (descriptor: swizzle
 // 128B, 1024 bytes between 8-row groups; a k-step is 32 bytes further into
 // the swizzled row), through a 4-stage mbarrier ring; the consumers run
-// four m64n256k32 s8 products on each slab as it lands and keep one slab's
+// four m64n256 products (k32 s8 or k16 bf16) on each slab as it lands and keep one slab's
 // products in flight while they wait for the next, so copies overlap
 // products. A persistent grid of one CTA per SM walks the tiles row block
 // first: the query tiles of one 256-row block run on concurrent CTAs, so
@@ -92,40 +101,27 @@
 // about 47 GB a call) come from L2 and did not bound it, so no cluster
 // multicast was added.
 //
-// The mma.sync form (bf16): the product runs on the tensor cores through
-// mma.sync m16n8k16 bf16 -> f32, with the queries as the M operand and the
-// sketch rows as N. A CTA of `nw` warps owns 64*nw consecutive sketch rows,
-// staged once in shared memory, and walks all B queries in blocks of 128,
-// each block staged by cp.async while the previous one is scored; a warp
-// owns 64 of the rows and scores 32 queries at a time (rows padded by 16
-// bytes in shared memory, so every ldmatrix is free of bank conflicts). A
-// 16x8 accumulator tile holds a query's scores for 8 rows across the 4
-// lanes of a quad, so a group's max is a max over registers and two
-// shuffles. Per-64-row maxima of a 128-query block go through shared
-// memory, one barrier per block, where groups wider than 64 rows are folded
-// and written coalesced. Where whole rows of a sketch tile of at least 4
-// warps (and of G rows) and of two query blocks do not fit in shared memory
-// (D past 192), the sliced form stages D in 256-byte slices instead: for
-// every 32 queries it stages each slice of the CTA's rows and of those
-// queries in turn, and the accumulators stay in registers across slices,
-// so any D works, at the cost of reading the sketch tile again for every
-// 32 queries. bf16 K4 is on no measured path.
+// bf16 at D 96 (192-byte rows) runs the wgmma form in blocks of 256 rows
+// (wg_block): two stages of 512 such rows left room for 128 resident
+// queries only, two of the four consumers idle and the sketch read once per
+// 128 queries (3.91 ms of device time at Deep-8M); blocks of 256 hold 512
+// queries. Measured on an NVIDIA H100 80GB HBM3 at a 700 W power limit
+// (timing.py K4_bf16_8m, 5 pairs in one call: B 1024 x 8,003,584 x 96, G
+// 64): 2.084-2.103 ms device, 76% of the 1.59 ms bound, where the mma.sync
+// m16n8k16 form it replaced took 6.520-6.566.
+//
 // The TPU kernels' strided (halved) sketch copy, nsub pipelining, in-kernel
 // transpose and lane-reduction variant were Mosaic layout tactics and have
 // no counterpart.
 
 #include <cuda.h>   // CUtensorMap and its enums only: the encoder is fetched at run time
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kQTile = 32;                 // queries per warp step (two m16 tiles)
-constexpr int kSteps = 4;                  // warp steps per staged query block
-constexpr int kQBlock = kQTile * kSteps;   // queries staged and reduced per barrier
-constexpr int kRowsPerWarp = 64;           // sketch rows per warp (eight n8 tiles)
-constexpr int kSlice = 256;                // bytes of D per staged slice (sliced form)
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxSmem = 232448;           // 227 KB a block can opt into
 
@@ -133,250 +129,14 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared, zero-filled when !valid (src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// the first `width` bytes of `count` rows of `pitch` bytes from src row
-// `first` (zeros past `limit`) into shared rows of `stride` bytes
-__device__ __forceinline__ void stage_rows(uint8_t* dst, const uint8_t* src, long long first,
-                                           int count, long long limit, int pitch, int width,
-                                           int stride) {
-  const int cpr = width >> 4;
-  for (int i = threadIdx.x; i < count * cpr; i += blockDim.x) {
-    const int r = i / cpr, c = i - r * cpr;
-    const bool ok = first + r < limit;
-    cp_async16(dst + (size_t)r * stride + c * 16,
-               src + (size_t)(ok ? first + r : 0) * pitch + c * 16, ok);
-  }
-  cp_async_commit();
-}
-
-// bf16 x bf16 -> f32: a 32-byte slice of a row (16 values) per step
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc += 32 staged queries x a warp's 64 staged rows over `ksteps` 32-byte
-// steps of D; abase and bbase are this lane's ldmatrix addresses
-__device__ __forceinline__ void mma_rows(float (&acc)[2][8][4], const uint8_t* abase,
-                                         const uint8_t* bbase, int stride, int ksteps) {
-  for (int ks = 0; ks < ksteps; ++ks) {
-    uint32_t a[2][4];
-    ldmatrix_x4(a[0], abase + ks * 32);
-    ldmatrix_x4(a[1], abase + 16 * stride + ks * 32);
-#pragma unroll
-    for (int n = 0; n < 8; n += 2) {
-      uint32_t b[4];
-      ldmatrix_x4(b, bbase + (size_t)n * 8 * stride + ks * 32);
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        mma_bf16(acc[m][n], a[m], b[0], b[1]);
-        mma_bf16(acc[m][n + 1], a[m], b[2], b[3]);
-      }
-    }
-  }
-}
-
-// UG = min(G, 64): rows per reduction unit inside a warp. A warp yields
-// 64 / UG units per query; the store stage folds G / UG units per group.
-// SLICED: D staged in kSlice-byte slices (see the head of the file).
-template <int UG, bool SLICED>
-__global__ void __launch_bounds__(256, SLICED ? 1 : 2)
-flat_groupmax_bf16(const uint8_t* __restrict__ sk, const uint8_t* __restrict__ q,
-                   float* __restrict__ out, int npad, int B, int dbytes, int group) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int nw = blockDim.x >> 5;
-  const int rows = nw * kRowsPerWarp;                 // sketch rows of this CTA
-  const int units = rows / UG;                        // reduction units of this CTA
-  const int stride = (SLICED ? kSlice : dbytes) + 16; // bytes of a staged row
-  const int qrows = SLICED ? kQTile : 2 * kQBlock;    // staged query rows
-  uint8_t* sks = smem;                                               // [rows][stride]
-  uint8_t* qs = smem + (size_t)rows * stride;                        // [qrows][stride]
-  float* obuf = reinterpret_cast<float*>(qs + (size_t)qrows * stride);   // [2][kQBlock][units]
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;                            // row of a fragment (groupID)
-  const int tig = lane & 3;                           // thread in the quad
-  const long long row0 = (long long)blockIdx.x * rows;
-  const int ng = npad / group;
-  const int upg = group / UG;                         // units per group
-  const int cta_groups = units / upg;
-  const long long group0 = row0 / group;
-
-  if constexpr (!SLICED) {
-    stage_rows(sks, sk, row0, rows, npad, dbytes, dbytes, stride);
-    stage_rows(qs, q, 0, kQBlock, B, dbytes, dbytes, stride);
-    cp_async_wait_all();
-    __syncthreads();
-  }
-
-  // ldmatrix.x4 addresses. B (sketch rows, two n8 tiles): matrices (tile,
-  // bytes 0-15), (tile, 16-31), (tile+1, 0-15), (tile+1, 16-31) give b0, b1
-  // of both tiles. A (queries, one m16 tile): (rows 0-7, 0-15), (8-15,
-  // 0-15), (0-7, 16-31), (8-15, 16-31) give a0..a3. Lane l addresses row
-  // l & 7 of matrix l >> 3.
-  const uint8_t* bbase = sks + (size_t)(warp * kRowsPerWarp + ((lane >> 4) << 3) + (lane & 7)) *
-                                   stride + ((lane >> 3) & 1) * 16;
-  const int a_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * stride + (lane >> 4) * 16;
-  const int nblk = (B + kQBlock - 1) / kQBlock;
-  for (int blk = 0; blk < nblk; ++blk) {
-    const int q0 = blk * kQBlock;
-    if (!SLICED && blk + 1 < nblk) {   // the next block's queries arrive while this one is scored
-      stage_rows(qs + (size_t)((blk + 1) & 1) * kQBlock * stride, q, q0 + kQBlock, kQBlock, B,
-                 dbytes, dbytes, stride);
-    }
-    const uint8_t* qb = qs + (size_t)(SLICED ? 0 : blk & 1) * kQBlock * stride;
-    float* ob = obuf + (blk & 1) * kQBlock * units;
-    for (int st = 0; st < kSteps && q0 + st * kQTile < B; ++st) {   // CTA-uniform
-      float acc[2][8][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
-      if constexpr (SLICED) {
-        // each slice of D: the CTA's rows and these 32 queries, staged once
-        // the previous slice is consumed
-        for (int d0 = 0; d0 < dbytes; d0 += kSlice) {
-          const int w = min(kSlice, dbytes - d0);
-          __syncthreads();
-          stage_rows(sks, sk + d0, row0, rows, npad, dbytes, w, stride);
-          stage_rows(qs, q + d0, q0 + st * kQTile, kQTile, B, dbytes, w, stride);
-          cp_async_wait_all();
-          __syncthreads();
-          mma_rows(acc, qs + a_off, bbase, stride, w >> 5);
-        }
-      } else {
-        mma_rows(acc, qb + (size_t)(st * kQTile) * stride + a_off, bbase, stride, dbytes >> 5);
-      }
-
-      // each unit of UG rows: a max over registers (2 rows per n8 tile,
-      // UG/8 tiles), then over the quad's 4 lanes
-      constexpr int kTilesPerUnit = UG / 8;
-#pragma unroll
-      for (int u = 0; u < 8 / kTilesPerUnit; ++u) {
-        float v[2][2];
-#pragma unroll
-        for (int t = 0; t < kTilesPerUnit; ++t) {
-          const int n = u * kTilesPerUnit + t;
-#pragma unroll
-          for (int m = 0; m < 2; ++m)
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const float k = fmaxf(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
-              v[m][h] = t == 0 ? k : fmaxf(v[m][h], k);
-            }
-        }
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float w = v[m][h];
-            w = fmaxf(w, __shfl_xor_sync(kFull, w, 1));
-            w = fmaxf(w, __shfl_xor_sync(kFull, w, 2));
-            if (tig == 0) {
-              ob[(st * kQTile + m * 16 + h * 8 + g) * units + warp * (kRowsPerWarp / UG) + u] = w;
-            }
-          }
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();   // ob and the next query block complete; the other buffers are free
-
-    // groups: fold upg units each, write rows of cta_groups words
-    for (int i = threadIdx.x; i < kQBlock * cta_groups; i += blockDim.x) {
-      const int ql = i / cta_groups, j = i - ql * cta_groups;
-      const long long grp = group0 + j;
-      if (q0 + ql >= B || grp >= ng) continue;
-      const float* src = ob + ql * units + j * upg;
-      float v = src[0];
-      for (int u = 1; u < upg; ++u) v = fmaxf(v, src[u]);
-      out[(size_t)(q0 + ql) * ng + grp] = v;
-    }
-  }
-}
-
-// shared bytes of a CTA of nw warps: its staged sketch rows and query rows
-// (whole rows, or kSlice-byte slices of them) and the [2][kQBlock][units] maxima
-template <int UG>
-size_t smem_bytes(int nw, int dbytes, bool sliced) {
-  const size_t rows = (size_t)nw * kRowsPerWarp;
-  const size_t staged = sliced ? (rows + kQTile) * (kSlice + 16)
-                               : (rows + 2 * kQBlock) * (size_t)(dbytes + 16);
-  return staged + 2u * kQBlock * (rows / UG) * sizeof(float);
-}
-
-template <int UG, bool SLICED>
-int launch_bf16_form(const void* sk, const void* q, void* out, int npad, int B, int dbytes,
-                     int group, int nw, size_t smem, cudaStream_t stream) {
-  auto kern = flat_groupmax_bf16<UG, SLICED>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int rows = nw * kRowsPerWarp;
-  const unsigned grid = (unsigned)((npad + rows - 1) / rows);
-  kern<<<grid, nw * 32, smem, stream>>>(static_cast<const uint8_t*>(sk),
-                                        static_cast<const uint8_t*>(q), static_cast<float*>(out),
-                                        npad, B, dbytes, group);
-  return (int)cudaGetLastError();
-}
-
-template <int UG>
-int launch_bf16(const void* sk, const void* q, void* out, int npad, int B, int dbytes, int group,
-                cudaStream_t stream) {
-  // whole rows with 8 or 4 warps (512 or 256 rows) per CTA where they fit
-  // and hold a group, else D in slices with the most warps that fit
-  for (int nw = 8; nw >= 4; nw >>= 1) {
-    const size_t smem = smem_bytes<UG>(nw, dbytes, false);
-    if (smem <= (size_t)kMaxSmem && nw * kRowsPerWarp >= group)
-      return launch_bf16_form<UG, false>(sk, q, out, npad, B, dbytes, group, nw, smem, stream);
-  }
-  for (int nw = 8; nw >= 1; nw >>= 1) {
-    const size_t smem = smem_bytes<UG>(nw, dbytes, true);
-    if (smem <= (size_t)kMaxSmem && nw * kRowsPerWarp >= group)
-      return launch_bf16_form<UG, true>(sk, q, out, npad, B, dbytes, group, nw, smem, stream);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-int dispatch_bf16(const void* sk, const void* q, void* out, int npad, int B, int dbytes,
-                  int group, cudaStream_t st) {
-  switch (group < 64 ? group : 64) {
-    case 8: return launch_bf16<8>(sk, q, out, npad, B, dbytes, group, st);
-    case 16: return launch_bf16<16>(sk, q, out, npad, B, dbytes, group, st);
-    case 32: return launch_bf16<32>(sk, q, out, npad, B, dbytes, group, st);
-    default: return launch_bf16<64>(sk, q, out, npad, B, dbytes, group, st);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The wgmma form (int8, D <= kWgMaxD); see the head of the file.
+// The wgmma form (rows of at most kWgMaxD bytes); see the head of the file.
 
-constexpr int kWgMaxD = 192;               // widest D: two stages and 128 queries fit
-constexpr int kRB = 512;                   // sketch rows per ring stage (one block)
+constexpr int kWgMaxD = 192;               // widest row in bytes (int8 D; bf16 D 96): two
+                                           // stages and 128 queries fit
+constexpr int kRB = 512;                   // sketch rows per ring stage (one block); bf16
+                                           // at G <= 256 takes blocks of 256 (wg_block)
 constexpr int kN = 128;                    // sketch rows per wgmma (N)
-constexpr int kSubs = kRB / kN;            // subtiles per block
 constexpr int kWgStages = 2;               // ring depth: a block serves every query tile
 constexpr int kM = 64;                     // queries per wgmma (M)
 constexpr int kConsumers = 4;              // consumer warpgroups (one more produces)
@@ -474,27 +234,79 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da, uint64_t db,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A[64 x 16] * B[128 x 16]^T in bf16 -> f32, both K-major (one 32-byte
+// k-step, as wgmma_s8's); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// one 32-byte k-step of either type
+__device__ __forceinline__ void wgmma_k32(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  wgmma_s8(d, da, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_k32(float (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  wgmma_bf16(d, da, db, scale_d);
+}
+
+// the larger of two scores or keys (int8) or two f32 scores (bf16)
+__device__ __forceinline__ int vmax(int a, int b) { return max(a, b); }
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+
+// the word a group maximum is stored as: the key (PACK), or the score as an
+// f32 (an int8 sum converted, a bf16 sum's zero made +0, as int8's is)
+template <bool PACK>
+__device__ __forceinline__ int out_word(int v) {
+  return PACK ? v : __float_as_int((float)v);
+}
+template <bool PACK>
+__device__ __forceinline__ int out_word(float v) {
+  return __float_as_int(v + 0.f);
+}
+
 // max of N registers, as a tree of two-input maxima
-template <int N>
-__device__ __forceinline__ int max_all(const int (&v)[N]) {
+template <int N, typename T>
+__device__ __forceinline__ T max_all(const T (&v)[N]) {
   if constexpr (N == 1) {
     return v[0];
   } else {
     constexpr int M = (N + 1) / 2;
-    int w[M];
+    T w[M];
 #pragma unroll
-    for (int j = 0; j < M; ++j) w[j] = 2 * j + 1 < N ? max(v[2 * j], v[2 * j + 1]) : v[2 * j];
+    for (int j = 0; j < M; ++j) w[j] = 2 * j + 1 < N ? vmax(v[2 * j], v[2 * j + 1]) : v[2 * j];
     return max_all<M>(w);
   }
 }
 
-// the epilogue's shape for group width G
-template <int G>
+// the epilogue's shape for group width G in blocks of RB rows
+template <int G, int RB>
 struct Span {
   static constexpr int U = G < 64 ? G : 64;                 // columns per reduction unit
   static constexpr int NU = kN / U;                         // units per subtile
-  static constexpr int SS = G <= 16 ? 1 : (G == 32 ? 2 : kSubs);   // subtiles per span
-  static constexpr int V = G <= 64 ? SS * kN / G : kRB / G; // groups per span
+  static constexpr int SS = G <= 16 ? 1 : (G == 32 ? 2 : RB / kN);   // subtiles per span
+  static constexpr int V = G <= 64 ? SS * kN / G : RB / G;  // groups per span
 };
 
 // what a consumer thread needs to place its results
@@ -514,17 +326,23 @@ __device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
 // one 128-row subtile: d = query tile * sketch subtile^T over KS 32-byte
-// k-steps, as one committed wgmma group. KS is a compile-time constant: a
-// branch between the products would make the compiler wait for each one.
-template <int KS>
-__device__ __forceinline__ void issue_subtile(int (&d)[64], uint64_t da, uint64_t db, int qc) {
+// k-steps, as one committed wgmma group (s32 accumulators for int8, f32 for
+// bf16). KS is a compile-time constant: a branch between the products would
+// make the compiler wait for each one.
+template <int KS, int RB, typename T>
+__device__ __forceinline__ void issue_subtile(T (&d)[64], uint64_t da, uint64_t db, int qc) {
   fence_acc(d);
   wg_fence();
 #pragma unroll
   for (int k = 0; k < KS; ++k) {   // k-step k is plane k of both tiles
-    wgmma_s8(d, da + (uint64_t)((k * qc * 32) >> 4), db + (uint64_t)((k * kRB * 32) >> 4), k);
+    wgmma_k32(d, da + (uint64_t)((k * qc * 32) >> 4), db + (uint64_t)((k * RB * 32) >> 4), k);
   }
   wg_commit();
 }
@@ -532,12 +350,12 @@ __device__ __forceinline__ void issue_subtile(int (&d)[64], uint64_t da, uint64_
 // a span of V consecutive groups is complete: reduce-scatter its group
 // maxima over the quad, then store them (and fold the supergroup tier);
 // grp0 is the span's first group. Both wgmma forms end in it.
-template <int V, bool PACK>
-__device__ __forceinline__ void flush_span(int (&span)[2][V], int grp0, const Site& s) {
+template <int V, bool PACK, typename T>
+__device__ __forceinline__ void flush_span(T (&span)[2][V], int grp0, const Site& s) {
   constexpr int W = V >= 4 ? V / 4 : 1;                     // groups a lane holds
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    int v[V];
+    T v[V];
 #pragma unroll
     for (int j = 0; j < V; ++j) v[j] = span[h][j];
     // lane tig keeps groups [tig * W, tig * W + W) (V >= 4); with V == 2
@@ -547,24 +365,24 @@ __device__ __forceinline__ void flush_span(int (&span)[2][V], int grp0, const Si
       const bool hi = s.tig & 2;
 #pragma unroll
       for (int j = 0; j < H; ++j) {
-        const int keep = hi ? v[j + H] : v[j];
-        const int send = hi ? v[j] : v[j + H];
-        v[j] = max(keep, __shfl_xor_sync(kFull, send, 2));
+        const T keep = hi ? v[j + H] : v[j];
+        const T send = hi ? v[j] : v[j + H];
+        v[j] = vmax(keep, __shfl_xor_sync(kFull, send, 2));
       }
     } else {
-      v[0] = max(v[0], __shfl_xor_sync(kFull, v[0], 2));
+      v[0] = vmax(v[0], __shfl_xor_sync(kFull, v[0], 2));
     }
     if constexpr (V >= 4) {
       constexpr int H = V / 4;
       const bool hi = s.tig & 1;
 #pragma unroll
       for (int j = 0; j < H; ++j) {
-        const int keep = hi ? v[j + H] : v[j];
-        const int send = hi ? v[j] : v[j + H];
-        v[j] = max(keep, __shfl_xor_sync(kFull, send, 1));
+        const T keep = hi ? v[j + H] : v[j];
+        const T send = hi ? v[j] : v[j + H];
+        v[j] = vmax(keep, __shfl_xor_sync(kFull, send, 1));
       }
     } else {
-      v[0] = max(v[0], __shfl_xor_sync(kFull, v[0], 1));
+      v[0] = vmax(v[0], __shfl_xor_sync(kFull, v[0], 1));
     }
     const int g0 = grp0 + (V >= 4 ? s.tig * W : (V == 2 ? s.tig >> 1 : 0));
     const bool writer = V >= 4 || (V == 2 ? !(s.tig & 1) : s.tig == 0);
@@ -574,7 +392,7 @@ __device__ __forceinline__ void flush_span(int (&span)[2][V], int grp0, const Si
       int* o = s.out + (size_t)q * s.ng + g0;
       int w[W];
 #pragma unroll
-      for (int j = 0; j < W; ++j) w[j] = PACK ? v[j] : __float_as_int((float)v[j]);
+      for (int j = 0; j < W; ++j) w[j] = out_word<PACK>(v[j]);
       if (W == 4 && (s.ng & 3) == 0 && g0 + 4 <= s.ng) {
         *reinterpret_cast<int4*>(o) = make_int4(w[0], w[1], w[2], w[3]);
       } else if (W == 2 && (s.ng & 1) == 0 && g0 + 2 <= s.ng) {
@@ -628,34 +446,37 @@ __device__ __forceinline__ void flush_span(int (&span)[2][V], int grp0, const Si
   }
 }
 
-// the epilogue of subtile SUB of a 512-row block: unit maxima of the
+// the epilogue of subtile SUB of an RB-row block: unit maxima of the
 // thread's two rows into the span, and the span's flush when it is complete
-template <int G, bool PACK, int SUB>
-__device__ __forceinline__ void subtile_epilogue(const int (&acc)[64], int (&span)[2][Span<G>::V],
+template <int G, bool PACK, int SUB, int RB, typename T>
+__device__ __forceinline__ void subtile_epilogue(const T (&acc)[64], T (&span)[2][Span<G, RB>::V],
                                                  int rb, const Site& s) {
-  using S = Span<G>;
+  using S = Span<G, RB>;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
 #pragma unroll
     for (int u = 0; u < S::NU; ++u) {
       // acc[4i + 2h + e] is column 8i + 2 tig + e of row h
       constexpr int kVals = S::U / 4;
-      int v[kVals];
+      T v[kVals];
 #pragma unroll
       for (int j = 0; j < kVals; ++j) {
         const int i = u * (S::U / 8) + (j >> 1), e = j & 1;
-        const int sc = acc[4 * i + 2 * h + e];
+        const T sc = acc[4 * i + 2 * h + e];
         // the member's offset within the unit; the thread's 2 tig and the
         // unit's place in its group are added after the max. The multiplier
         // G is read at run time, so the key is one IMAD on the FMA pipe
         // rather than a shift-add on the integer pipe that runs the max tree.
-        v[j] = PACK ? (int)((unsigned)sc * (unsigned)s.group + (unsigned)(8 * (j >> 1) + e)) : sc;
+        if constexpr (PACK)
+          v[j] = (int)((unsigned)sc * (unsigned)s.group + (unsigned)(8 * (j >> 1) + e));
+        else
+          v[j] = sc;
       }
-      int m = max_all<kVals>(v);
+      T m = max_all<kVals>(v);
       const int col = SUB * kN + u * S::U;   // the unit's first column in the block
       if constexpr (PACK) m += (col & (G - 1)) + 2 * s.tig;
       if constexpr (G > 64) {
-        if (col % G) m = max(span[h][col / G], m);
+        if (col % G) m = vmax(span[h][col / G], m);
       }
       // a value that outlives the next product passes through a shuffle
       // with the thread's own lane: the compiler cannot recompute it from
@@ -665,10 +486,12 @@ __device__ __forceinline__ void subtile_epilogue(const int (&acc)[64], int (&spa
     }
   }
   if constexpr (SUB % S::SS == S::SS - 1)
-    flush_span<S::V, PACK>(span, rb * (kRB / G) + (G <= 64 ? (SUB / S::SS) * S::V : 0), s);
+    flush_span<S::V, PACK>(span, rb * (RB / G) + (G <= 64 ? (SUB / S::SS) * S::V : 0), s);
 }
 
-template <int G, bool PACK, int KS>
+// D is the bytes of a row: its int8 or bf16 values as bytes; T the
+// accumulator type (int for int8, float for bf16); RB the rows of a block
+template <int G, bool PACK, int KS, typename T, int RB>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flat_groupmax_wgmma(const __grid_constant__ CUtensorMap sk_map,
                     const __grid_constant__ CUtensorMap q_map, int* __restrict__ out,
@@ -676,12 +499,12 @@ flat_groupmax_wgmma(const __grid_constant__ CUtensorMap sk_map,
                     int qc) {
   extern __shared__ __align__(1024) uint8_t wsmem[];
   uint8_t* base = wsmem + ((1024 - (smem_addr(wsmem) & 1023)) & 1023);
-  const int stage_bytes = kRB * D;
+  const int stage_bytes = RB * D;
   uint8_t* qs = base + kWgStages * stage_bytes;                  // [D/32][qc][32], swizzled
   uint64_t* full = reinterpret_cast<uint64_t*>(qs + (size_t)qc * D);
   uint64_t* empty = full + kWgStages;
   uint64_t* qbar = empty + kWgStages;
-  const int nrb = (npad + kRB - 1) / kRB;
+  const int nrb = (npad + RB - 1) / RB;
   const int q0 = blockIdx.y * qc;
   const int nmt = (min(qc, B - q0) + kM - 1) / kM;                // query tiles of this chunk
   const int planes = D >> 5;                                      // one per k-step
@@ -709,9 +532,9 @@ flat_groupmax_wgmma(const __grid_constant__ CUtensorMap sk_map,
       mbar_expect_tx(&full[st], (unsigned)stage_bytes);
       uint8_t* dst = base + st * stage_bytes;
       for (int p = 0; p < planes; ++p)
-        for (int h = 0; h < kRB / kBoxRows; ++h)
-          tma_load(dst + ((size_t)p * kRB + h * kBoxRows) * 32, &sk_map, p * 32,
-                   rb * kRB + h * kBoxRows, &full[st]);
+        for (int h = 0; h < RB / kBoxRows; ++h)
+          tma_load(dst + ((size_t)p * RB + h * kBoxRows) * 32, &sk_map, p * 32,
+                   rb * RB + h * kBoxRows, &full[st]);
       if (++st == kWgStages) {
         st = 0;
         phase ^= 1;
@@ -732,8 +555,8 @@ flat_groupmax_wgmma(const __grid_constant__ CUtensorMap sk_map,
   mbar_wait(qbar, 0);
   int st = 0;
   unsigned phase = 0;
-  int acc[64];
-  int span[2][Span<G>::V];
+  T acc[64];
+  T span[2][Span<G, RB>::V];
   for (int rb = blockIdx.x; rb < nrb; rb += gridDim.x) {
     mbar_wait(&full[st], phase);
     const uint8_t* stage = base + st * stage_bytes;
@@ -743,14 +566,16 @@ flat_groupmax_wgmma(const __grid_constant__ CUtensorMap sk_map,
       const uint64_t da = da_of(mt);
       site.row = q0 + mt * kM + row_in_tile;
 #define RDF_SUBTILE(SUB)                                      \
-      issue_subtile<KS>(acc, da, db_of(SUB), qc);             \
+      issue_subtile<KS, RB>(acc, da, db_of(SUB), qc);         \
       wg_wait<0>();                                           \
       fence_acc(acc);                                         \
-      subtile_epilogue<G, PACK, SUB>(acc, span, rb, site);
+      subtile_epilogue<G, PACK, SUB, RB>(acc, span, rb, site);
       RDF_SUBTILE(0)
       RDF_SUBTILE(1)
-      RDF_SUBTILE(2)
-      RDF_SUBTILE(3)
+      if constexpr (RB == 512) {
+        RDF_SUBTILE(2)
+        RDF_SUBTILE(3)
+      }
 #undef RDF_SUBTILE
     }
     __syncwarp();
@@ -804,11 +629,23 @@ bool make_map(CUtensorMap* map, const void* ptr, long long rows, int D, int box_
          CUDA_SUCCESS;
 }
 
-size_t wg_smem(int D, int qc) {
-  return 1024 + (size_t)kWgStages * kRB * D + (size_t)qc * D + (2 * kWgStages + 1) * 8;
+size_t wg_smem(int D, int qc, int rb) {
+  return 1024 + (size_t)kWgStages * rb * D + (size_t)qc * D + (2 * kWgStages + 1) * 8;
 }
 
-template <int G, bool PACK>
+// rows of the wgmma form's blocks: 512, or 256 for bf16 up to G 256. A bf16
+// row of D 96 is 192 bytes, and two stages of 512 such rows leave room for
+// 128 resident queries only: two of the four consumers then score, and the
+// sketch is read once per 128 queries. Blocks of 256 rows hold 512 queries
+// (all four consumers busy, the sketch read twice for 1,024 queries); G 512
+// needs a 512-row block for its span.
+template <bool BF16, int G>
+constexpr int wg_block() {
+  return BF16 && G <= 256 ? 256 : kRB;
+}
+
+// D: bytes of a row; BF16: bf16 values (unpacked), else int8
+template <int G, bool PACK, bool BF16>
 int launch_wgmma(const void* sk, const void* q, void* out, void* sgout, int npad, int B, int D,
                  int esg, cudaStream_t stream) {
   int dev = 0, sms = 0;
@@ -817,10 +654,11 @@ int launch_wgmma(const void* sk, const void* q, void* out, void* sgout, int npad
   if (err != cudaSuccess) return (int)err;
   // query chunks: as few as shared memory allows, more while the sketch has
   // fewer blocks than the card has SMs (each chunk keeps at least 128 queries)
+  constexpr int RB = wg_block<BF16, G>();
   const long long qc_max =
-      ((long long)kMaxSmem - (long long)wg_smem(D, 0)) / D / kM * kM;
+      ((long long)kMaxSmem - (long long)wg_smem(D, 0, RB)) / D / kM * kM;
   if (qc_max < kM) return (int)cudaErrorInvalidValue;
-  const int nrb = (npad + kRB - 1) / kRB;
+  const int nrb = (npad + RB - 1) / RB;
   int nch = (int)((B + qc_max - 1) / qc_max);
   nch = max(nch, min((B + 127) / 128, sms / nrb));
   const int qc = ((B + nch - 1) / nch + kM - 1) / kM * kM;
@@ -829,17 +667,20 @@ int launch_wgmma(const void* sk, const void* q, void* out, void* sgout, int npad
   CUtensorMap sk_map, q_map;
   if (!make_map(&sk_map, sk, npad, D, 32, kBoxRows) || !make_map(&q_map, q, B, D, 32, kM))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = wg_smem(D, qc);
+  const size_t smem = wg_smem(D, qc, RB);
+  using Acc = std::conditional_t<BF16, float, int>;
   void (*kern)(CUtensorMap, CUtensorMap, int*, int*, int, int, int, int, int, int) = nullptr;
-  switch (D >> 5) {   // k-steps: the widths the wgmma form takes
-    case 1: kern = flat_groupmax_wgmma<G, PACK, 1>; break;
-    case 2: kern = flat_groupmax_wgmma<G, PACK, 2>; break;
-    case 3: kern = flat_groupmax_wgmma<G, PACK, 3>; break;
-    case 4: kern = flat_groupmax_wgmma<G, PACK, 4>; break;
-    case 5: kern = flat_groupmax_wgmma<G, PACK, 5>; break;
-    case 6: kern = flat_groupmax_wgmma<G, PACK, 6>; break;
-    default: return (int)cudaErrorInvalidValue;
+  // k-steps: the widths the wgmma form takes (bf16 rows are a multiple of 64 bytes)
+#define RDF_KS(KS)                                                   \
+  case KS:                                                           \
+    if constexpr (!BF16 || KS % 2 == 0) kern = flat_groupmax_wgmma<G, PACK, KS, Acc, RB>; \
+    break;
+  switch (D >> 5) {
+    RDF_KS(1) RDF_KS(2) RDF_KS(3) RDF_KS(4) RDF_KS(5) RDF_KS(6)
+    default: break;
   }
+#undef RDF_KS
+  if (kern == nullptr) return (int)cudaErrorInvalidValue;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(gx, nch), kWgThreads, smem, stream>>>(sk_map, q_map, static_cast<int*>(out),
@@ -848,17 +689,17 @@ int launch_wgmma(const void* sk, const void* q, void* out, void* sgout, int npad
   return (int)cudaGetLastError();
 }
 
-template <bool PACK>
+template <bool PACK, bool BF16>
 int dispatch_wgmma(const void* sk, const void* q, void* out, void* sgout, int npad, int B, int D,
                    int group, int esg, cudaStream_t st) {
   switch (group) {
-    case 8: return launch_wgmma<8, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
-    case 16: return launch_wgmma<16, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
-    case 32: return launch_wgmma<32, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
-    case 64: return launch_wgmma<64, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
-    case 128: return launch_wgmma<128, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
-    case 256: return launch_wgmma<256, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
-    case 512: return launch_wgmma<512, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 8: return launch_wgmma<8, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 16: return launch_wgmma<16, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 32: return launch_wgmma<32, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 64: return launch_wgmma<64, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 128: return launch_wgmma<128, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 256: return launch_wgmma<256, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 512: return launch_wgmma<512, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -943,6 +784,64 @@ __device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (+)= A[64 x 16] * B[256 x 16]^T in bf16 -> f32, both K-major (one
+// 32-byte k-step, as wgmma_s8_n256's); scale_d 0 overwrites d
+__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127},"
+      " %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]),
+        "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]),
+        "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]),
+        "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// one 32-byte k-step of either type
+__device__ __forceinline__ void wgmma_k32_n256(int (&d)[128], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  wgmma_s8_n256(d, da, db, scale_d);
+}
+__device__ __forceinline__ void wgmma_k32_n256(float (&d)[128], uint64_t da, uint64_t db,
+                                               int scale_d) {
+  wgmma_bf16_n256(d, da, db, scale_d);
+}
+
 // the two consumer warpgroups meet (named barrier 1; the producer is not in it)
 __device__ __forceinline__ void consumers_sync() { asm volatile("bar.sync 1, 256;" ::: "memory"); }
 
@@ -957,9 +856,9 @@ struct KlSpan {
 // span SP of a consumer's 256 rows: the group maxima (keys, with PACK) of
 // the thread's two query rows; col0 is the rows' offset in their group when
 // G is wider than 256 rows (else 0)
-template <int G, bool PACK, int SW, int SP>
-__device__ __forceinline__ void kl_span_max(const int (&acc)[128],
-                                            int (&span)[2][KlSpan<G, SW>::V], int col0,
+template <int G, bool PACK, int SW, int SP, typename Acc>
+__device__ __forceinline__ void kl_span_max(const Acc (&acc)[128],
+                                            Acc (&span)[2][KlSpan<G, SW>::V], int col0,
                                             const Site& s) {
   using S = KlSpan<G, SW>;
 #pragma unroll
@@ -968,28 +867,33 @@ __device__ __forceinline__ void kl_span_max(const int (&acc)[128],
     for (int u = 0; u < S::NU; ++u) {
       // acc[4i + 2h + e] is column 8i + 2 tig + e of row h
       constexpr int kVals = S::U / 4;
-      int v[kVals];
+      Acc v[kVals];
 #pragma unroll
       for (int j = 0; j < kVals; ++j) {
         const int i = (SP * SW + u * S::U) / 8 + (j >> 1), e = j & 1;
-        const int sc = acc[4 * i + 2 * h + e];
+        const Acc sc = acc[4 * i + 2 * h + e];
         // as in subtile_epilogue: one IMAD by the run-time G, the member's
         // offset within the unit; the rest of the offset after the max
-        v[j] = PACK ? (int)((unsigned)sc * (unsigned)s.group + (unsigned)(8 * (j >> 1) + e)) : sc;
+        if constexpr (PACK)
+          v[j] = (int)((unsigned)sc * (unsigned)s.group + (unsigned)(8 * (j >> 1) + e));
+        else
+          v[j] = sc;
       }
-      int m = max_all<kVals>(v);
+      Acc m = max_all<kVals>(v);
       const int col = col0 + SP * SW + u * S::U;   // the unit's first row in the tile
       if constexpr (PACK) m += (col & (G - 1)) + 2 * s.tig;
       const int slot = (u * S::U) / G;
       if constexpr (S::U < G) {   // several units per group: fold into the group's slot
-        if ((u * S::U) % (G < SW ? G : SW) != 0) m = max(span[h][slot], m);
+        if ((u * S::U) % (G < SW ? G : SW) != 0) m = vmax(span[h][slot], m);
       }
       span[h][slot] = m;
     }
   }
 }
 
-template <int G, bool PACK>
+// D is the bytes of a row; Acc the accumulator type (int for int8, float
+// for bf16)
+template <int G, bool PACK, typename Acc>
 __global__ void __launch_bounds__(kKlThreads, 1)
 flat_groupmax_kloop(const __grid_constant__ CUtensorMap sk_map,
                     const __grid_constant__ CUtensorMap q_map, int* __restrict__ out,
@@ -1000,7 +904,7 @@ flat_groupmax_kloop(const __grid_constant__ CUtensorMap sk_map,
   constexpr int V = KlSpan<G, SW>::V;
   extern __shared__ __align__(1024) uint8_t ksmem[];
   uint8_t* base = ksmem + ((1024 - (smem_addr(ksmem) & 1023)) & 1023);
-  int* fold = reinterpret_cast<int*>(base + (size_t)T::kStages * T::kStageBytes);
+  Acc* fold = reinterpret_cast<Acc*>(base + (size_t)T::kStages * T::kStageBytes);
   uint64_t* full = reinterpret_cast<uint64_t*>(fold + T::kFoldInts);
   uint64_t* empty = full + T::kStages;
   const int mt = (B + T::kQ - 1) / T::kQ;
@@ -1054,7 +958,7 @@ flat_groupmax_kloop(const __grid_constant__ CUtensorMap sk_map,
   int st = 0;
   unsigned phase = 0;
   int parity = 0;                                       // of the fold buffer (RT = 2)
-  int acc[128];
+  Acc acc[128];
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int n = tile / mt, m = tile - n * mt;
     int prev = 0;
@@ -1066,7 +970,7 @@ flat_groupmax_kloop(const __grid_constant__ CUtensorMap sk_map,
       wg_fence();
 #pragma unroll
       for (int k = 0; k < kKlSlab / 32; ++k)   // k-step k: 32k bytes into the swizzled rows
-        wgmma_s8_n256(acc, da + 2 * k, db + 2 * k, (sl > 0 || k > 0) ? 1 : 0);
+        wgmma_k32_n256(acc, da + 2 * k, db + 2 * k, (sl > 0 || k > 0) ? 1 : 0);
       wg_commit();
       wg_wait<1>();                                     // the previous slab's products are done
       if (sl > 0) {
@@ -1085,7 +989,7 @@ flat_groupmax_kloop(const __grid_constant__ CUtensorMap sk_map,
     if (lane == 0) mbar_arrive(&empty[prev]);
 
     site.row = m * T::kQ + (RT == 1 ? wg * 64 : 0) + row_in_wg;
-    int span[2][V];
+    Acc span[2][V];
     if constexpr (RT == 1) {
       kl_span_max<G, PACK, SW, 0>(acc, span, 0, site);
       flush_span<V, PACK>(span, n * (kKlN / G), site);
@@ -1097,7 +1001,7 @@ flat_groupmax_kloop(const __grid_constant__ CUtensorMap sk_map,
       // each consumer holds its 256 rows' part of the 512-row group; the
       // second hands its maxima to the first through shared memory
       kl_span_max<G, PACK, SW, 0>(acc, span, wg * kKlN, site);
-      int* f = fold + parity * 256;
+      Acc* f = fold + parity * 256;
       if (wg == 1) {
         f[tid] = span[0][0];
         f[128 + tid] = span[1][0];
@@ -1105,15 +1009,16 @@ flat_groupmax_kloop(const __grid_constant__ CUtensorMap sk_map,
       consumers_sync();
       parity ^= 1;
       if (wg == 0) {
-        span[0][0] = max(span[0][0], f[tid]);
-        span[1][0] = max(span[1][0], f[128 + tid]);
+        span[0][0] = vmax(span[0][0], f[tid]);
+        span[1][0] = vmax(span[1][0], f[128 + tid]);
         flush_span<V, PACK>(span, n, site);
       }
     }
   }
 }
 
-template <int G, bool PACK>
+// D: bytes of a row; BF16: bf16 values (unpacked), else int8
+template <int G, bool PACK, bool BF16>
 int launch_kloop(const void* sk, const void* q, void* out, void* sgout, int npad, int B, int D,
                  int esg, cudaStream_t stream) {
   using T = KlTile<(G > kKlN ? 2 : 1)>;
@@ -1126,7 +1031,7 @@ int launch_kloop(const void* sk, const void* q, void* out, void* sgout, int npad
       !make_map(&q_map, q, B, D, kKlSlab, T::kQ))
     return (int)cudaErrorInvalidValue;
   const int tiles = ((B + T::kQ - 1) / T::kQ) * ((npad + T::kR - 1) / T::kR);
-  auto kern = flat_groupmax_kloop<G, PACK>;
+  auto kern = flat_groupmax_kloop<G, PACK, std::conditional_t<BF16, float, int>>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)T::kSmem);
   if (err != cudaSuccess) return (int)err;
   kern<<<(unsigned)(tiles < sms ? tiles : sms), kKlThreads, T::kSmem, stream>>>(
@@ -1134,17 +1039,17 @@ int launch_kloop(const void* sk, const void* q, void* out, void* sgout, int npad
   return (int)cudaGetLastError();
 }
 
-template <bool PACK>
+template <bool PACK, bool BF16>
 int dispatch_kloop(const void* sk, const void* q, void* out, void* sgout, int npad, int B, int D,
                    int group, int esg, cudaStream_t st) {
   switch (group) {
-    case 8: return launch_kloop<8, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
-    case 16: return launch_kloop<16, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
-    case 32: return launch_kloop<32, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
-    case 64: return launch_kloop<64, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
-    case 128: return launch_kloop<128, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
-    case 256: return launch_kloop<256, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
-    case 512: return launch_kloop<512, PACK>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 8: return launch_kloop<8, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 16: return launch_kloop<16, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 32: return launch_kloop<32, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 64: return launch_kloop<64, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 128: return launch_kloop<128, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 256: return launch_kloop<256, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
+    case 512: return launch_kloop<512, PACK, BF16>(sk, q, out, sgout, npad, B, D, esg, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1167,12 +1072,15 @@ extern "C" int rdf_flat_groupmax(const void* sk, const void* q, void* out, void*
       (pack && bf16) || (esg && (!pack || (esg & (esg - 1)) || (npad / group) % esg)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  // the form by shape, never as a fallback
-  if (bf16) return dispatch_bf16(sk, q, out, npad, B, 2 * D, group, st);
-  if (D <= kWgMaxD) {
-    if (pack) return dispatch_wgmma<true>(sk, q, out, sgout, npad, B, D, group, esg, st);
-    return dispatch_wgmma<false>(sk, q, out, sgout, npad, B, D, group, esg, st);
+  // the form by shape, never as a fallback: rows of at most kWgMaxD bytes
+  // take the wgmma form, wider ones the K-looped form, both types alike
+  const int dbytes = bf16 ? 2 * D : D;
+  if (dbytes <= kWgMaxD) {
+    if (bf16) return dispatch_wgmma<false, true>(sk, q, out, sgout, npad, B, dbytes, group, esg, st);
+    if (pack) return dispatch_wgmma<true, false>(sk, q, out, sgout, npad, B, D, group, esg, st);
+    return dispatch_wgmma<false, false>(sk, q, out, sgout, npad, B, D, group, esg, st);
   }
-  if (pack) return dispatch_kloop<true>(sk, q, out, sgout, npad, B, D, group, esg, st);
-  return dispatch_kloop<false>(sk, q, out, sgout, npad, B, D, group, esg, st);
+  if (bf16) return dispatch_kloop<false, true>(sk, q, out, sgout, npad, B, dbytes, group, esg, st);
+  if (pack) return dispatch_kloop<true, false>(sk, q, out, sgout, npad, B, D, group, esg, st);
+  return dispatch_kloop<false, false>(sk, q, out, sgout, npad, B, D, group, esg, st);
 }

@@ -34,7 +34,11 @@ small inputs of its next step loaded ahead (one coalesced load per lane) and
 broadcast by shuffle; a warp issues every 16-byte load of a window's valid
 slots before its first FMA, converts int8 to f32 exactly by byte permute and
 one FADD (no `I2F`), and writes the window's scores as two coalesced
-128-byte stores, a dead window's as 16-byte stores.
+128-byte stores, a dead window's as 16-byte stores. The same kernel takes
+int8 rows of 96 columns (Deep's 96 dimensions: IVF's windows of 128 or 64
+slots and the D-96 flat engine's exact2 re-score, form "w96"): a row is six
+16-byte pieces on 8 lanes, two of which load nothing, and a window of 128
+slots is scored as two halves of 64.
 
 Wide int8 windows (at least `WINDOW_MAJOR_MIN_BYTES` = win * cs, cs a
 multiple of 64: the sparse flat engine's cs 4096 re-score, IVF's default
@@ -67,10 +71,12 @@ def _cs_ok(cs: int) -> bool:
     return cs > 0 and cs % 8 == 0
 
 
-# K2's specialised widths and K2b's window-major thresholds, as
-# `rdf_coarse_block_form` and `rdf_coarse_window_form` (csrc/coarse_gather.cu)
-# choose them: `WinMajor::kMinBytes`, `kChunk`, `kMaxWin`
+# K2's specialised widths, K2b's w96 window sizes and its window-major
+# thresholds, as `rdf_coarse_block_form` and `rdf_coarse_window_form`
+# (csrc/coarse_gather.cu) choose them: `WinMajor::kMinBytes`, `kChunk`,
+# `kMaxWin`
 BLOCK_B8_WIDTHS = (32, 64)
+W96_WINDOWS = (64, 128)
 WINDOW_MAJOR_MIN_BYTES = 32768
 WINDOW_MAJOR_CHUNK = 64
 WINDOW_MAJOR_MAX_WIN = 32768
@@ -88,7 +94,8 @@ def block_kernel_form(cs: int, bs: int, b: int, mb: int, tier_bf16: bool = False
 def window_kernel_form(cs: int, win: int, b: int, mb: int, tier_bf16: bool = False) -> str:
     """Which kernel K2b takes for a shape on the card, as
     `rdf_coarse_window_form` chooses it: "w64" (int8, 64-slot windows of 32
-    or 128 columns), "window_major" (int8 windows of at least
+    or 128 columns), "w96" (the same kernel on int8 windows of 64 or 128
+    slots at 96 columns), "window_major" (int8 windows of at least
     `WINDOW_MAJOR_MIN_BYTES`, cs a multiple of 64, win of 16) or
     "generic"."""
     n = b * mb
@@ -96,6 +103,8 @@ def window_kernel_form(cs: int, win: int, b: int, mb: int, tier_bf16: bool = Fal
         return "generic"
     if win == 64 and cs in (32, 128) and n < (1 << 31) - 64:
         return "w64"
+    if win in W96_WINDOWS and cs == 96 and n < (1 << 31) - 64:
+        return "w96"
     if (cs > 0 and cs % WINDOW_MAJOR_CHUNK == 0 and win % 16 == 0
             and win <= WINDOW_MAJOR_MAX_WIN and win * cs >= WINDOW_MAJOR_MIN_BYTES
             and n < (1 << 28)):

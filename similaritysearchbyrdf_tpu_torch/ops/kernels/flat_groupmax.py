@@ -8,13 +8,14 @@ with its fused supergroup tier `emit_sg`). For a sketch [Npad, D] and queries
 `group` consecutive rows' scores, [B, Npad/group], without writing the
 [B, Npad] scores: f32, or with `pack_arg` (int8 only) the int32 key
 `(score << log2 group) | member` of each group's best row. On the H100 it is
-bound by operations (int8 tensor-core products, `csrc/flat_groupmax.cu`):
-int8 up to D 192 runs a TMA-fed, warp-specialised wgmma kernel with the
-query chunk resident, wider int8 a K-looped wgmma GEMM of 128-query x
-256-row tiles with the same epilogue, bf16 the mma.sync form
-(`kernel_form`). int8 dots are exact, so kernel and plain version agree bit
-for bit; bf16 dots accumulate in f32 and agree within the f32 summation
-bound.
+bound by operations (tensor-core products, `csrc/flat_groupmax.cu`): rows
+of up to 192 bytes (int8 D 192, bf16 D 96) run a TMA-fed,
+warp-specialised wgmma kernel with the query chunk resident, wider rows a
+K-looped wgmma GEMM of 128-query x 256-row tiles with the same epilogue
+(`kernel_form`); int8 products accumulate in s32, bf16 ones in f32. int8
+dots are exact, so kernel and plain version agree bit for bit; bf16 dots
+agree within the f32 summation bound, and on int8-valued operands equal
+the int8 kernel's words.
 
 `flat_groupmax_kernel` launches the kernel for CUDA tensors and runs
 `flat_groupmax_plain` for CPU tensors; a CUDA tensor never takes the plain
@@ -31,7 +32,7 @@ from . import build
 
 LAUNCHES = 0     # kernel launches since the last reset (plain runs never count)
 MAX_GROUP = 512  # the kernel's CTA holds at most 512 rows, so a group at most that
-WGMMA_MAX_D = 192   # int8 widths the wgmma form takes (`kWgMaxD` in the source)
+WGMMA_MAX_D = 192   # widest row in bytes the wgmma form takes (`kWgMaxD` in the source)
 _PLAIN_CHUNK = 1 << 26   # score elements the plain version makes at once
 GroupMax = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -61,12 +62,10 @@ def _check_args(sketch: torch.Tensor, q: torch.Tensor, group: int, pack_arg: boo
 
 def kernel_form(dtype: torch.dtype, d: int) -> str:
     """Which form of the kernel a call takes, as `rdf_flat_groupmax`
-    chooses by shape: for int8 the wgmma form up to `WGMMA_MAX_D` and the
-    K-looped wgmma form past it; for bf16 the mma.sync form (which stages
-    D in slices where whole rows do not fit: past D 192)."""
-    if dtype != torch.int8:
-        return "mma.sync"
-    return "wgmma" if d <= WGMMA_MAX_D else "wgmma_kloop"
+    chooses by shape: the wgmma form for rows of up to `WGMMA_MAX_D` bytes
+    (int8 D 192, bf16 D 96) and the K-looped wgmma form past them."""
+    row_bytes = d * (2 if dtype == torch.bfloat16 else 1)
+    return "wgmma" if row_bytes <= WGMMA_MAX_D else "wgmma_kloop"
 
 
 def flat_groupmax_plain(sketch: torch.Tensor, q: torch.Tensor, group: int = 64,

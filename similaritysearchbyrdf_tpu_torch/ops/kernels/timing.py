@@ -57,8 +57,18 @@ queries a cluster, as IVF's), their windows of 256 rows laid out by
 `ops/ivf.py`'s own `_flatten_windows`. `K2_sparse_cs64` times K2 at the
 sparse tier's cs 64: 30 tables of 1,007,680 rows, B 64 x 2048 blocks of 8
 drawn from 410,000 positions, which leaves the smoke's distinct share
-(57.5 of 67.1 MB). Each prints its gathered and distinct bytes under
-`share`.
+(57.5 of 67.1 MB). `K2b_ivf_8m` times K2b at ivf_8m's headline point:
+a one-table int8 sketch of Deep-8M's IVF layout (31,250 clusters of about
+256 rows, cs 96), B 1024 queries each probing 2 clusters drawn in
+proportion to their sizes, 14 windows of 128 rows a query laid out by
+`_flatten_windows` (38% live, 31% of slots valid, gathered about distinct,
+as the smoke's). `K2b_sharded_flat_cs96` times it at a sharded flat
+engine's exact2 re-score on a D-96 shard: 1,007,616 x 96 int8, B 1024 x 30
+all-live windows of 64 drawn as K2b_sparse_flat's (2.3x sharing).
+`K4_bf16_8m` times K4 on a bf16 sketch at Deep-8M (B 1024 x 8,003,584 x
+96, G 64, unpacked): `FlatIndex(sketch_dtype="bfloat16")`'s scan. The
+K2 and K2b entries past K2b_sparse_flat print their gathered and distinct
+bytes under `*_share`.
 `--only K3` times only the entries whose names start with one of the given
 prefixes. Prints the card's name and power limit, then one JSON line of
 medians of `--reps` timings (ms) after 3 warm-up calls, two per kernel
@@ -504,6 +514,64 @@ def main() -> int:
             "distinct_bytes": int(torch.unique(blk_dma[valid]).numel()) * win * 128}
         timed("K2b_ivf_256", lambda: K2.coarse_window_scores_kernel(*ivf_args))
         del sk, ivf_args
+    if wanted("K2b_ivf_8m"):
+        from ..ivf import _flatten_windows, ivf_window_budget
+
+        kc, nprobe, win, b = 31_250, 2, 128, 1024
+        # Deep-8M's IVF layout at its headline point: 31,250 clusters of
+        # about 256 rows (sd 80, at most 768; the two largest of 840 make
+        # the budget 14 windows), each query probing 2 distinct clusters
+        # drawn in proportion to their sizes, as queries land in them
+        sizes = (torch.randn(kc, generator=gen, device=dev) * 80 + 256).round().long()
+        sizes = sizes.clamp(16, 768)
+        sizes[:2] = 840
+        starts = torch.zeros(kc + 1, dtype=torch.int64, device=dev)
+        starts[1:] = torch.cumsum((sizes + 7) // 8 * 8, 0)
+        ends = starts[:-1] + sizes
+        npad = int(starts[-1])
+        sk, q = i8(npad, 96), bf16(b, 96)
+        sel = torch.multinomial(sizes.float().expand(b, kc), nprobe, replacement=False,
+                                generator=gen)
+        wb = ivf_window_budget(starts, ends, nprobe, win)
+        blk, end_b, live = _flatten_windows(starts[sel], ends[sel], win, wb)
+        blk_dma = blk.clamp(max=npad - win)
+        ivf_args = (sk[None], q, torch.zeros_like(blk, dtype=torch.int32),
+                    blk_dma.to(torch.int32).contiguous(), blk.to(torch.int32).contiguous(),
+                    end_b.to(torch.int32).contiguous(), live.contiguous(), win)
+        pos = blk[..., None] + torch.arange(win, device=dev)
+        valid = live[..., None] & (pos < end_b[..., None])
+        info["K2b_ivf_8m_share"] = {
+            "windows": list(blk.shape), "live_window_share": float(live.float().mean()),
+            "valid_slot_share": float(valid.float().mean()),
+            "gathered_bytes": int(valid.sum()) * 96,
+            "distinct_bytes": int(torch.unique(pos[valid]).numel()) * 96}
+        timed("K2b_ivf_8m", lambda: K2.coarse_window_scores_kernel(*ivf_args))
+        del sk, ivf_args, pos, valid
+        torch.cuda.empty_cache()
+    if wanted("K2b_sharded_flat_cs96"):
+        # a sharded flat engine's exact2 re-score on its shard: the int8
+        # sketch of 1,007,616 x 96 as one table, B 1024 x 30 windows of 64,
+        # every window live, drawn as K2b_sparse_flat's (about 13,260
+        # distinct windows of 30,720, the smoke's 2.3x sharing)
+        npad, win, b, mb = 1_007_616, 64, 1024, 30
+        sk, q = i8(1, npad, 96), bf16(b, 96)
+        pick = torch.rand((b, 15_300), generator=gen, device=dev).argsort(dim=1)[:, :mb]
+        blk = (pick * win).to(torch.int32).contiguous()
+        zeros = torch.zeros_like(blk)
+        n_end, live = torch.full_like(blk, npad), torch.ones_like(blk, dtype=torch.bool)
+        info["K2b_sharded_flat_cs96_share"] = {
+            "gathered_bytes": b * mb * win * 96,
+            "distinct_bytes": int(torch.unique(blk).numel()) * win * 96}
+        timed("K2b_sharded_flat_cs96", lambda: K2.coarse_window_scores_kernel(
+            sk, q, zeros, blk, zeros, n_end, live, win))
+        del sk
+    if wanted("K4_bf16_8m"):
+        # FlatIndex(sketch_dtype="bfloat16") at Deep-8M: B 1024 x 8,003,584 x
+        # 96 bf16, G 64 (exact2's unpacked scan)
+        sk, q16 = bf16(8_003_584, 96), bf16(1024, 96)
+        timed("K4_bf16_8m", lambda: K4.flat_groupmax_kernel(sk, q16, 64))
+        del sk
+        torch.cuda.empty_cache()
     if wanted("K2_sparse_cs64"):
         l, caprows, b, mb = 30, 1_007_680, 64, 2048
         tier, q = i8(l, caprows, 64), bf16(b, 64)

@@ -285,6 +285,64 @@ def test_window_kernel_main_shapes_bit_equal(dev, cs, tier_dtype, b, mb):
         assert torch.isneginf(got[0]).all()
 
 
+@pytest.mark.parametrize("queries", ["integer", "float"])
+@pytest.mark.parametrize("b,mb", [(1, 1), (7, 1), (3, 7), (64, 14), (37, 301), (1024, 14),
+                                  (131, 257)])
+@pytest.mark.parametrize("win", [64, 128])
+def test_window_kernel_w96_matches_plain(dev, win, b, mb, queries):
+    """K2b's w96 form (int8 cs 96, windows of 64 or 128 slots: IVF's and the
+    D-96 flat engine's shapes) against its plain version: table ids out of
+    range, windows whose start clips at 0 and at the table's end (caprows -
+    win), ranges that cut a window at one or both ends, cut only its second
+    half or miss it, dead windows, the first query's windows all dead, pair
+    counts that end mid-step (1, 7, 21, 11,137, 33,667). Integer queries
+    (|q| <= 16) make every partial sum an integer below 2^24, so the two
+    agree bit for bit; float queries stay within the f32 bound with the same
+    -inf slots. A second call gives the same words."""
+    rng = np.random.default_rng(win * 100_000 + b * mb + len(queries))
+    l, caprows = 3, 4096
+    tier = torch.as_tensor(rng.integers(-128, 128, size=(l, caprows, 96)).astype(np.int8),
+                           device=dev)
+    qv = rng.integers(-16, 17, size=(b, 96)) if queries == "integer" else rng.normal(size=(b, 96))
+    q = torch.as_tensor(qv.astype(np.float32), device=dev).to(torch.bfloat16)
+    pool = np.array([-16, -8, 0, 8, caprows - win - 8, caprows - win, caprows - win + 8,
+                     caprows])
+    blk = np.where(rng.random((b, mb)) < 0.3, pool[rng.integers(0, len(pool), size=(b, mb))],
+                   rng.integers(0, (caprows - win) // 8, size=(b, mb)) * 8)
+    cut_lo, cut_hi = rng.integers(1, win // 2, size=(2, b, mb))
+    kind = rng.integers(0, 6, size=(b, mb))
+    live_np = rng.random((b, mb)) < 0.7
+    if b > 1:
+        live_np[0] = False
+    kind[-1, -1], live_np[-1, -1] = 1, True    # finite and -inf slots at every shape
+    # 0 whole, 1 cut at both ends, 2 at the start, 3 at the end, 4 missed,
+    # 5 valid in the first half only (its second half loads nothing at 128)
+    start = np.choose(kind, [blk - 3, blk + cut_lo, blk + cut_lo, blk - 3, blk + win, blk])
+    end = np.choose(kind, [blk + win + 3, blk + win - cut_hi, blk + win + 3, blk + win - cut_hi,
+                           blk + win + 16, blk + cut_lo])
+    args = [torch.as_tensor(a.astype(np.int32), device=dev) for a in
+            (rng.integers(-2, l + 2, size=(b, mb)), blk, start, end)]
+    live = torch.as_tensor(live_np, device=dev)
+    assert K2.window_kernel_form(96, win, b, mb) == "w96"
+    before = K2.WINDOW_LAUNCHES
+    got = K2.coarse_window_scores_kernel(tier, q, *args, live, win)
+    assert K2.WINDOW_LAUNCHES == before + 1
+    want = K2.coarse_window_scores_plain(tier, q, *args, live, win)
+    assert torch.isfinite(want).any() and torch.isneginf(want).any()
+    if queries == "integer":
+        assert torch.equal(got, want)
+    else:
+        assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+        fin = torch.isfinite(want)
+        bound = 2 * 96 * U * K2.coarse_block_scores_plain(tier.abs(), q.abs(), args[0],
+                                                          args[1], win)
+        assert ((got - want).abs()[fin] <= bound[fin] + 1e-30).all()
+    again = K2.coarse_window_scores_kernel(tier, q, *args, live.to(torch.uint8), win)
+    assert torch.equal(again.view(torch.int32), got.view(torch.int32))
+    if b > 1:
+        assert torch.isneginf(got[0]).all()
+
+
 # (cs, lanes, wpr, rpg, B, MB, layout): every width of the kernel, windows
 # shorter than one 16 KB ring stage (wpr 8), whole stages (64, 512 at fold
 # 8) and a partial last stage (520); "mixed" has dead windows and windows
@@ -493,6 +551,39 @@ def test_groupmax_kernel_bf16_within_bound(dev, d, b):
     want = K4.flat_groupmax_plain(sk, q, 64)
     bound = 2 * d * U * K4.flat_groupmax_plain(sk.abs(), q.abs(), 64)
     assert got.dtype == torch.float32 and ((got - want).abs() <= bound + 1e-30).all()
+
+
+@pytest.mark.parametrize("b", [1, 45, 1000])
+@pytest.mark.parametrize("group", [8, 16, 32, 64, 128, 256, 512])
+@pytest.mark.parametrize("d", [32, 64, 96, 128, 224, 800])
+def test_groupmax_kernel_bf16_wgmma_forms(dev, d, group, b):
+    """bf16 takes the wgmma form up to D 96 (rows of 192 bytes; blocks of
+    256 rows up to G 256, of 512 at G 512) and the K-looped form past it,
+    at every G from 8 to 512, B not a multiple of 64 and Npad an odd
+    multiple of G (2,600-2,624 rows, ending mid-block; 2,560 at G 512):
+    within the f32 bound of the plain version on float values, and on
+    int8-valued operands word for word the int8 kernel's (every sum an
+    integer below 2^24, exact in f32)."""
+    assert K4.kernel_form(torch.bfloat16, d) == ("wgmma" if d <= 96 else "wgmma_kloop")
+    rng = np.random.default_rng(d * 1000 + group + b)
+    npad = group * (2600 // group | 1)
+    sk = torch.as_tensor(rng.normal(size=(npad, d)).astype(np.float32), device=dev)
+    q = torch.as_tensor(rng.normal(size=(b, d)).astype(np.float32), device=dev)
+    sk, q = sk.to(torch.bfloat16), q.to(torch.bfloat16)
+    before = K4.LAUNCHES
+    got = K4.flat_groupmax_kernel(sk, q, group)
+    assert K4.LAUNCHES == before + 1
+    want = K4.flat_groupmax_plain(sk, q, group)
+    bound = 2 * d * U * K4.flat_groupmax_plain(sk.abs(), q.abs(), group)
+    assert got.dtype == torch.float32 and ((got - want).abs() <= bound + 1e-30).all()
+    assert torch.equal(K4.flat_groupmax_kernel(sk, q, group).view(torch.int32),
+                       got.view(torch.int32))
+    sk8 = torch.as_tensor(rng.integers(-127, 128, (npad, d), dtype=np.int8), device=dev)
+    q8 = torch.as_tensor(rng.integers(-127, 128, (b, d), dtype=np.int8), device=dev)
+    q8[0] = 0                                           # zero scores: +0, as int8's
+    via_bf16 = K4.flat_groupmax_kernel(sk8.to(torch.bfloat16), q8.to(torch.bfloat16), group)
+    assert torch.equal(via_bf16.view(torch.int32),
+                       K4.flat_groupmax_kernel(sk8, q8, group).view(torch.int32))
 
 
 def test_groupmax_kernel_raises_on_bad_input(dev):
@@ -1131,14 +1222,15 @@ def test_block_kernel_cs64_odd_shapes(dev, b, mb, queries):
     (4096, 64, 1024, 30), (4096, 64, 1, 1), (4096, 8, 3, 5), (2056, 64, 3, 5),
     (128, 256, 1024, 64), (64, 512, 7, 33), (128, 128, 7, 33), (96, 128, 1024, 14),
     (32, 64, 128, 1024), (128, 64, 1024, 30), (32, 64, 1 << 16, 1 << 15),
-    (4096, 64, 1 << 14, 1 << 14)])
+    (4096, 64, 1 << 14, 1 << 14), (96, 64, 1024, 30), (96, 64, 1024, 64), (96, 256, 7, 33),
+    (96, 32, 7, 33), (96, 128, 1 << 16, 1 << 15)])
 def test_window_kernel_form_mirror(dev, cs, win, b, mb):
     """The Python mirror of K2b's form and scratch names what the library
     chooses, for int8 and bf16 tiers."""
     lib = K2.build.library()
     for bf16 in (0, 1):
-        form = ("generic", "w64", "window_major")[lib.rdf_coarse_window_form(cs, win, b, mb,
-                                                                             bf16)]
+        form = ("generic", "w64", "window_major", "w96")[lib.rdf_coarse_window_form(
+            cs, win, b, mb, bf16)]
         assert form == K2.window_kernel_form(cs, win, b, mb, bool(bf16))
         want = K2.window_scratch_bytes(b, mb) if form == "window_major" else 0
         assert lib.rdf_coarse_window_scratch(cs, win, b, mb, bf16) == want

@@ -26,7 +26,16 @@ def _constant(source: str, name: str) -> int:
                                     (4096, "wgmma_kloop")])
 def test_groupmax_form_by_width(d, form):
     assert K4.kernel_form(torch.int8, d) == form
-    assert K4.kernel_form(torch.bfloat16, d) == "mma.sync"
+    # a bf16 row of D values is 2D bytes: the wgmma form to D 96
+    assert K4.kernel_form(torch.bfloat16, d) == ("wgmma" if d <= 96 else "wgmma_kloop")
+
+
+@pytest.mark.parametrize("d,form", [(32, "wgmma"), (64, "wgmma"), (96, "wgmma"),
+                                    (128, "wgmma_kloop"), (800, "wgmma_kloop")])
+def test_groupmax_bf16_form_by_width(d, form):
+    """bf16 takes the int8 forms by the bytes of a row: the wgmma form to
+    `WGMMA_MAX_D` bytes (D 96), the K-looped form past it."""
+    assert K4.kernel_form(torch.bfloat16, d) == form
 
 
 @pytest.mark.parametrize("d,form", [(7, "narrow"), (100, "narrow"), (300, "narrow"),
@@ -42,8 +51,13 @@ def test_hash_form_by_width(d, form):
     (128, 256, 1024, 64, "window_major"),     # IVF's default: nprobe 32, 256-slot windows
     (64, 512, 7, 33, "window_major"),         # 32 KB windows: the threshold
     (128, 128, 1024, 14, "generic"),          # 16 KB windows: below it
-    (96, 128, 1024, 14, "generic"),           # ivf_8m's cs 96: not a multiple of 64
-    (96, 64, 1024, 64, "generic"),
+    (96, 128, 1024, 14, "w96"),               # ivf_8m's headline: cs 96, 128-slot windows
+    (96, 64, 1024, 64, "w96"),                # ivf_8m pruned
+    (96, 64, 1024, 30, "w96"),                # sharded_8m's flat re-score on a D-96 shard
+    (96, 128, 1, 1, "w96"),
+    (96, 32, 1024, 14, "generic"),            # cs 96 past the w96 windows
+    (96, 256, 1024, 14, "generic"),           # ... and not a multiple of 64 columns
+    (96, 128, 1 << 16, 1 << 15, "generic"),   # window counts past an int
     (2056, 64, 5, 12, "generic"),             # past 2048 columns, not a multiple of 64
     (4096, 8, 5, 12, "generic"),              # a window of 8 slots: not a multiple of 16
     (32, 64, 128, 1024, "w64"),               # window mode
@@ -88,6 +102,16 @@ def test_window_scratch_bytes(b, mb, slots):
 ])
 def test_form_widths_match_the_sources(mirror, source, name):
     assert mirror == _constant(source, name)
+
+
+def test_w96_windows_match_the_source():
+    """K2b's w96 window sizes and width are the ones `rdf_coarse_window_form`
+    tests for."""
+    text = (CSRC / "coarse_gather.cu").read_text()
+    form = text[text.index("int rdf_coarse_window_form"):]
+    line = next(ln for ln in form.splitlines() if "return 3;" in ln)
+    assert tuple(int(w) for w in re.findall(r"win == (\d+)", line)) == K2.W96_WINDOWS
+    assert re.findall(r"cs == (\d+)", line) == ["96"]
 
 
 def test_block_widths_match_the_source():
