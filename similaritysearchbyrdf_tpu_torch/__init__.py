@@ -10,8 +10,10 @@ random or PCA basis, and the bf16 two-stage rerank), the dense flat engine
 kernel), the clustered-flat IVF engine (`IVFFlatIndex`, k-means and K2b
 window scores), the dense front ends (`DenseRDFInit`, `MultiFeatureRDFInit`,
 the `RDFMap` map surface), the mutable index (`DynamicForest`,
-`RDFForest.add`), hash-model and partition files, tracing spans, the
-experiment harness (`experiments.harness`), persistence (`save_forest` /
+`RDFForest.add`), hash-model and partition files, tracing spans (the
+query paths' `rdf.*` stages and host waits, recorded while any
+`torch.profiler` session records, or inside `utils.timing.torch_profile`;
+names in `utils.timing`), the experiment harness (`experiments.harness`), persistence (`save_forest` /
 `load_forest`, `save_flat` / `load_flat`, `save_ivf` / `load_ivf`, writing
 the JAX package's files; the tiered `GenerationStore` and `TieredForest`),
 the CLI (`cli`), the dataset generators (`utils.datasets`), the native

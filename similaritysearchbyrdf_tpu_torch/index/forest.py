@@ -47,6 +47,7 @@ from ..ops.hashing import hash_dense, hash_dense_with_margins
 from ..ops.kernels.coarse_fold import I32_DEAD, coarse_rowmax_kernel
 from ..ops.kernels.coarse_gather import coarse_block_scores_kernel, coarse_window_scores_kernel
 from ..ops.precision import full_f32
+from ..utils.timing import span
 from ..vectors import DenseBatch
 from .bucket_table import KEY_PAD, BucketTables, KeyLayout, build_tables, composite_keys, lookup_ranges
 from .partitioner import generate_partition_projections, partition_of_hash, stepwise_patterns
@@ -357,8 +358,9 @@ def probe_key_set(h: torch.Tensor, home: torch.Tensor, layout: KeyLayout, steps:
     patterns (P3) x bit-flip probes (P5), table-major. → (probe_keys
     int64[B, R], valid bool[B, R]) with R = L * S * P."""
     b, l = h.shape
-    patterns = torch.as_tensor(stepwise_patterns(layout.partition_bits, steps),
-                               device=h.device)                      # [S]
+    with span("rdf.sync.patterns"):
+        patterns = torch.as_tensor(stepwise_patterns(layout.partition_bits, steps),
+                                   device=h.device)                  # [S]
     parts = home[..., None] ^ patterns                                # [B, L, S]
     if probes is None:
         probes, probe_valid = _probe_hashes(h, layout, multiprobe)   # [B, L, P]
@@ -400,9 +402,10 @@ def gather_blocks(tables: BucketTables, h: torch.Tensor, home: torch.Tensor,
     # rank (self-probe, then flips in order). When m_cap truncates, the
     # lowest-value buckets drop first. Sorts are stable, as the reference's
     # are on the CPU, so equal priorities keep (table, start) order.
-    dist = torch.as_tensor(
-        [bin(int(x)).count("1") for x in stepwise_patterns(layout.partition_bits, steps)],
-        device=dev)
+    with span("rdf.sync.priority"):
+        dist = torch.as_tensor(
+            [bin(int(x)).count("1") for x in stepwise_patterns(layout.partition_bits, steps)],
+            device=dev)
     probe_rank = torch.roll(torch.arange(p, device=dev), -1)   # flips 1.., self 0
     prio = (dist[:, None] * p + probe_rank[None, :]).reshape(-1).repeat(l)   # [R]
     rkey = torch.where(length > 0, table_of * (cap + 1) + start, 2**31 - 1)
@@ -630,31 +633,35 @@ def _query_dense_coarse(state: ForestState, queries, query_ids, layout: KeyLayou
         win = window if (window and m_cap % window == 0) else 0
     if h is None:
         h = hash_dense(state.model, queries)
-    home = partition_of_hash(h, state.part_proj)
-    base_b, table_b, start_b, end_b, total, bs = gather_blocks(
-        state.tables, h, home, layout, steps, m_cap, multiprobe, probes, probe_valid,
-        window=win)
-    m_slab = m_cap
-    prune = (window_keep > 0 and win > 0 and state.coarse_head is not None
-             and head_pool > 0 and win % head_pool == 0 and window_keep < m_cap // win)
-    if prune:
-        with full_f32():
-            q_low = (queries @ state.coarse_proj).to(torch.bfloat16)
-        base_b, table_b, start_b, end_b = _prune_windows(
-            state.coarse_head, head_pool, q_low, base_b, table_b, start_b, end_b, win,
-            window_keep)
-        m_slab = window_keep * win
-    scores, pos, table_slot = _coarse_block_scores(
-        state.coarse_tier, state.coarse_proj, queries, base_b, table_b, end_b, bs,
-        start_b=start_b, abs_starts=prune)
+    with span("rdf.candidates"):
+        home = partition_of_hash(h, state.part_proj)
+        base_b, table_b, start_b, end_b, total, bs = gather_blocks(
+            state.tables, h, home, layout, steps, m_cap, multiprobe, probes, probe_valid,
+            window=win)
+        m_slab = m_cap
+        prune = (window_keep > 0 and win > 0 and state.coarse_head is not None
+                 and head_pool > 0 and win % head_pool == 0 and window_keep < m_cap // win)
+        if prune:
+            with full_f32():
+                q_low = (queries @ state.coarse_proj).to(torch.bfloat16)
+            base_b, table_b, start_b, end_b = _prune_windows(
+                state.coarse_head, head_pool, q_low, base_b, table_b, start_b, end_b, win,
+                window_keep)
+            m_slab = window_keep * win
+    with span("rdf.score"):
+        scores, pos, table_slot = _coarse_block_scores(
+            state.coarse_tier, state.coarse_proj, queries, base_b, table_b, end_b, bs,
+            start_b=start_b, abs_starts=prune)
     l = state.tables.num_tables
     cap = state.tables.capacity
     m2 = min(max(refine, (k + 1) * l), m_slab)
-    scores, pos, table_slot = _strided_tournament(scores, pos, table_slot, win, m_slab, m2)
-    t2, p2, sel_valid = _select_m2(scores, pos, table_slot, m2)
-    cand2 = state.tables.sorted_ids[t2.clamp(0, l - 1), p2.clamp(0, cap - 1)]
-    cand2 = torch.where(sel_valid & (cand2 >= 0), cand2, -1)
-    ids, sc = _rerank(state, cand2, queries, query_ids, exclude_self, k)
+    with span("rdf.select"):
+        scores, pos, table_slot = _strided_tournament(scores, pos, table_slot, win, m_slab, m2)
+        t2, p2, sel_valid = _select_m2(scores, pos, table_slot, m2)
+        cand2 = state.tables.sorted_ids[t2.clamp(0, l - 1), p2.clamp(0, cap - 1)]
+        cand2 = torch.where(sel_valid & (cand2 >= 0), cand2, -1)
+    with span("rdf.rerank"):
+        ids, sc = _rerank(state, cand2, queries, query_ids, exclude_self, k)
     return ids, sc, total
 
 
@@ -912,11 +919,12 @@ def _query_dense(state: ForestState, queries: torch.Tensor, query_ids: torch.Ten
     stage2), a lane tier through `_query_dense_coarse` (window_keep,
     head_pool)."""
     probes = probe_valid = None
-    if probe_mode == "margin" and multiprobe:
-        h, margins = hash_dense_with_margins(state.model, queries)
-        probes, probe_valid = _probe_hashes_margin(h, margins, layout, probe_budget)
-    else:
-        h = hash_dense(state.model, queries)
+    with span("rdf.hash"):
+        if probe_mode == "margin" and multiprobe:
+            h, margins = hash_dense_with_margins(state.model, queries)
+            probes, probe_valid = _probe_hashes_margin(h, margins, layout, probe_budget)
+        else:
+            h = hash_dense(state.model, queries)
     if state.coarse_folded is not None:
         return _query_groupmax(
             state, queries, query_ids, layout, steps, m_cap, k, multiprobe,
@@ -951,9 +959,11 @@ def query_dense_many(state: ForestState, queries: torch.Tensor, query_ids: torch
                      layout: KeyLayout, chunk: int = 256, **kw):
     """Whole-query-set search, `chunk` queries at a time (bounds peak
     memory). Takes `_query_dense`'s keyword arguments."""
-    out = [_query_dense(state, queries[c0:c0 + chunk], query_ids[c0:c0 + chunk],
-                        layout, **kw)
-           for c0 in range(0, queries.shape[0], chunk)]
+    out = []
+    for c0 in range(0, queries.shape[0], chunk):
+        with span("rdf.chunk"):
+            out.append(_query_dense(state, queries[c0:c0 + chunk], query_ids[c0:c0 + chunk],
+                                    layout, **kw))
     return tuple(torch.cat(parts) for parts in zip(*out))
 
 
@@ -1000,8 +1010,14 @@ class RDFForest:
               **kw) -> Tuple[np.ndarray, np.ndarray]:
         """Batch query → (ids [Q, k], scores [Q, k]) as numpy arrays. Takes
         `query_device`'s keyword arguments."""
-        ids, scores = self.query_device(queries, steps=steps, query_ids=query_ids, k=k, **kw)
-        return ids.cpu().numpy(), scores.cpu().numpy()
+        with span("rdf.query"):
+            ids, scores = self.query_device(queries, steps=steps, query_ids=query_ids, k=k,
+                                            **kw)
+            with span("rdf.sync.answers"):
+                ids = ids.cpu().numpy()
+            with span("rdf.sync.answers"):
+                scores = scores.cpu().numpy()
+        return ids, scores
 
     def query_device(self, queries, steps: int = 0, query_ids=None,
                      k: Optional[int] = None, multiprobe: bool = True,
@@ -1020,11 +1036,14 @@ class RDFForest:
         if self.state is None:
             raise RuntimeError("need to fit the data first")
         k = k or self.conf.top_k
-        qd = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
+        with span("rdf.sync.upload"):
+            qd = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         exclude = query_ids is not None
-        qids = (torch.as_tensor(query_ids, dtype=torch.int32).to(self.device)
-                if exclude else torch.full((qd.shape[0],), -1, dtype=torch.int32,
-                                           device=self.device))
+        if exclude:
+            with span("rdf.sync.upload"):
+                qids = torch.as_tensor(query_ids, dtype=torch.int32).to(self.device)
+        else:
+            qids = torch.full((qd.shape[0],), -1, dtype=torch.int32, device=self.device)
         ids, scores, _ = query_dense_many(
             self.state, qd, qids, self.layout, chunk=self.conf.query_batch_size,
             steps=steps, m_cap=m_cap or self.conf.max_candidates, k=k,

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from ..models.families import Device, resolve_device
+from ..utils.timing import span
 from ..vectors import DenseBatch
 from .flat import (_SKETCH_COLS, _exact_refine, _pad_cols, _pad_rows, _round_up,
                    build_flat_sketch, effective_query_batch, quantize_sketch_rows,
@@ -353,14 +354,21 @@ def build_ivf_streamed(corpus_np: np.ndarray, row_ids: np.ndarray, target_cluste
 # ---------------------------------------------------------------------------
 
 
+def _host(a) -> np.ndarray:
+    """`a` as a numpy array; a tensor's copy is a host wait."""
+    if not isinstance(a, torch.Tensor):
+        return np.asarray(a)
+    with span("rdf.sync.window_budget"):
+        return a.cpu().numpy()
+
+
 def ivf_window_budget(starts, ends, nprobe: int, win: int, cap: int = 4096) -> int:
     """Windows per query that cannot truncate a probed cluster: the sum of
     the `nprobe` largest clusters' window counts (the worst probe set),
     at least `nprobe`, at most `cap` (past it, `_flatten_windows` drops
     the last-selected clusters first). Takes [K+1]/[K] or per-shard [S,
     K+1]/[S, K] offsets, as arrays or tensors."""
-    st = np.asarray(starts.cpu() if isinstance(starts, torch.Tensor) else starts)
-    en = np.asarray(ends.cpu() if isinstance(ends, torch.Tensor) else ends)
+    st, en = _host(starts), _host(ends)
     lens = en - st[..., :-1]
     if lens.size == 0:
         return nprobe
@@ -432,15 +440,16 @@ def ivf_topk(sketch: torch.Tensor, corpus: torch.Tensor, row_ids: torch.Tensor,
     b = queries.shape[0]
     dev = sketch.device
     wb = wb or max(-(-npad // win) + kc, 1)
-    qp = _pad_cols(queries.to(torch.float32), dp)
-    qb = qp.to(torch.bfloat16).contiguous()
-    c_scores = matmul_f32(qb, centroids.T, torch.bfloat16)               # [B, K]
-    sel = top_sorted(c_scores, min(nprobe, kc))[1]                       # [B, P]
-    blk, end_b, live = _flatten_windows(starts[sel], ends[sel], win, wb)
-    if 0 < keep < wb and heads is not None and head_pool > 0 and win % head_pool == 0:
-        blk, end_b, live = _ivf_prune_windows(heads, head_pool, qb, blk, end_b, live, win,
-                                              keep)
-        wb = keep
+    with span("rdf.candidates"):
+        qp = _pad_cols(queries.to(torch.float32), dp)
+        qb = qp.to(torch.bfloat16).contiguous()
+        c_scores = matmul_f32(qb, centroids.T, torch.bfloat16)           # [B, K]
+        sel = top_sorted(c_scores, min(nprobe, kc))[1]                   # [B, P]
+        blk, end_b, live = _flatten_windows(starts[sel], ends[sel], win, wb)
+        if 0 < keep < wb and heads is not None and head_pool > 0 and win % head_pool == 0:
+            blk, end_b, live = _ivf_prune_windows(heads, head_pool, qb, blk, end_b, live,
+                                                  win, keep)
+            wb = keep
     # the windows are read at min(blk, npad - win), as K2b clips them, and
     # labelled with the rows they read; rows before blk belong to earlier
     # clusters and are masked by start = blk. A sketch shorter than one
@@ -451,15 +460,18 @@ def ivf_topk(sketch: torch.Tensor, corpus: torch.Tensor, row_ids: torch.Tensor,
     def i32(a):
         return a.to(torch.int32).contiguous()
 
-    w_scores = coarse_window_scores_kernel(
-        tier, qb, torch.zeros((b, wb), dtype=torch.int32, device=dev), i32(blk_dma), i32(blk),
-        i32(end_b), live.contiguous(), win).reshape(b, wb * win)          # -inf invalid
-    pos = (blk_dma[..., None] + torch.arange(win, device=dev)).reshape(b, wb * win)
-    sel_s, si = top_sorted(w_scores, min(refine, wb * win))
-    fin = torch.isfinite(sel_s)
-    cand = torch.where(fin, torch.gather(pos, 1, si), npad)
-    return _exact_refine(corpus, row_ids, qp, cand.clamp(0, npad - 1), fin, query_ids, k,
-                         exclude_self)
+    with span("rdf.score"):
+        w_scores = coarse_window_scores_kernel(
+            tier, qb, torch.zeros((b, wb), dtype=torch.int32, device=dev), i32(blk_dma),
+            i32(blk), i32(end_b), live.contiguous(), win).reshape(b, wb * win)  # -inf invalid
+        pos = (blk_dma[..., None] + torch.arange(win, device=dev)).reshape(b, wb * win)
+    with span("rdf.select"):
+        sel_s, si = top_sorted(w_scores, min(refine, wb * win))
+        fin = torch.isfinite(sel_s)
+        cand = torch.where(fin, torch.gather(pos, 1, si), npad)
+    with span("rdf.rerank"):
+        return _exact_refine(corpus, row_ids, qp, cand.clamp(0, npad - 1), fin, query_ids, k,
+                             exclude_self)
 
 
 def tune_nprobe(index: "IVFFlatIndex", sample_queries: np.ndarray, target_recall: float = 0.95,
@@ -541,8 +553,13 @@ class IVFFlatIndex:
             print("need to fit the data first")
             return (np.full((len(queries), k), -1, np.int32),
                     np.full((len(queries), k), -np.inf, np.float32))
-        ids, scores = self.query_device(queries, k, query_ids, exclude_self, nprobe, keep)
-        return ids.cpu().numpy(), scores.cpu().numpy()
+        with span("rdf.query"):
+            ids, scores = self.query_device(queries, k, query_ids, exclude_self, nprobe, keep)
+            with span("rdf.sync.answers"):
+                ids = ids.cpu().numpy()
+            with span("rdf.sync.answers"):
+                scores = scores.cpu().numpy()
+        return ids, scores
 
     def query_device(self, queries, k: int = 10, query_ids=None, exclude_self: bool = True,
                      nprobe: Optional[int] = None, keep: Optional[int] = None
@@ -553,10 +570,13 @@ class IVFFlatIndex:
         if self.state is None:
             raise RuntimeError("need to fit the data first")
         st = self.state
-        q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
+        with span("rdf.sync.upload"):
+            q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         nq = q.shape[0]
-        qids = (None if query_ids is None
-                else torch.as_tensor(query_ids, dtype=torch.int32).to(self.device))
+        qids = None
+        if query_ids is not None:
+            with span("rdf.sync.upload"):
+                qids = torch.as_tensor(query_ids, dtype=torch.int32).to(self.device)
         npb = nprobe or self.nprobe
         bsz = effective_query_batch(nq, self.query_batch)
         wb = self.wb or ivf_window_budget(st.starts, st.ends, npb, self.win)
@@ -566,10 +586,11 @@ class IVFFlatIndex:
             s1 = min(s0 + bsz, nq)
             qc = _pad_rows(q[s0:s1], bsz)
             qi = None if qids is None else torch.nn.functional.pad(qids[s0:s1], (0, bsz - (s1 - s0)))
-            ids, scores = ivf_topk(st.sketch, st.corpus, st.row_ids, st.centroids, st.starts,
-                                   st.ends, qc, qi, k, nprobe=npb, win=self.win, wb=wb,
-                                   refine=self.refine, exclude_self=exclude_self,
-                                   heads=st.heads, head_pool=self.head_pool, keep=kp)
+            with span("rdf.chunk"):
+                ids, scores = ivf_topk(st.sketch, st.corpus, st.row_ids, st.centroids,
+                                       st.starts, st.ends, qc, qi, k, nprobe=npb, win=self.win,
+                                       wb=wb, refine=self.refine, exclude_self=exclude_self,
+                                       heads=st.heads, head_pool=self.head_pool, keep=kp)
             out_i.append(ids[:s1 - s0])
             out_s.append(scores[:s1 - s0])
         return torch.cat(out_i), torch.cat(out_s)

@@ -1,24 +1,53 @@
 """Tracing spans and profiler traces.
 
 Counterpart of `similaritysearchbyrdf_tpu/utils/timing.py`. The reference
-has no tracing (ad-hoc `System.currentTimeMillis` prints); here nested
-spans record host-clock seconds per name, optionally synchronising the
-tracer's CUDA device before and after so a span measures the device's work
-and not only its enqueue, and `torch_profile` writes a `torch.profiler`
-trace.
+has no tracing (ad-hoc `System.currentTimeMillis` prints). Here the query
+paths open named spans at their stage boundaries, and the spans are on
+exactly while a `torch.profiler` session records: start any profiler
+session (`torch.profiler.profile(...)`), or trace a block with
+`torch_profile(logdir)`, whose `trace.json` then holds them. Outside a
+profiler a span is one shared null context: it records nothing and costs
+one check of the profiler's state.
+
+A span on is a `torch.profiler.record_function(name)` range, a
+`user_annotation` event in the same Kineto trace as the CUDA kernels, on
+the same clock, nested under the spans open on the calling thread; its
+host-clock seconds are also added to the '/'-joined `summary()` and
+`report()`. A span never waits for the device.
+
+The spans of `RDFForest.query` (`index/forest.py`) and
+`IVFFlatIndex.query` (`ops/ivf.py`), each call under one `rdf.query`:
+
+  rdf.chunk        one query batch (`_query_dense`; one `ivf_topk` call)
+  rdf.hash         K1 and the probe bits (forest only)
+  rdf.candidates   partitions, bucket lookup, dedup, priority sorts and
+                   flatten; IVF: centroid scores, cluster select, window
+                   flatten and prune
+  rdf.score        the coarse query and K2b
+  rdf.select       the prefilter and top-m select, the selected rows
+  rdf.rerank       the exact re-score and top-k
+  rdf.sync.<site>  each host wait, one a copy: `upload` (the queries and
+                   their ids to the device), `patterns` and `priority`
+                   (the forest's per-chunk host constants),
+                   `window_budget` (IVF's cluster offsets to the host),
+                   `answers` (ids and scores to the host)
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterator, List, Tuple
 
 import torch
+from torch.profiler import record_function
 
-from ..models.families import Device, resolve_device
+# one call of about 0.2 us: whether a profiler session records
+_profiler_enabled = torch._C._autograd._profiler_enabled
+NULL_SPAN = contextlib.nullcontext()
 
 
 def synchronize(device: torch.device) -> None:
@@ -29,33 +58,32 @@ def synchronize(device: torch.device) -> None:
 
 
 class Tracer:
-    """Spans by '/'-joined nested name. `device` (default: the first CUDA
-    card) is the one `sync=True` waits for; it is resolved at the first
-    synchronised span, so making a tracer needs no card."""
+    """Spans by '/'-joined nested name (per thread), recorded while a
+    `torch.profiler` session records."""
 
-    def __init__(self, device: Device = None) -> None:
-        self.device = device
+    def __init__(self) -> None:
         self.spans: Dict[str, List[float]] = defaultdict(list)
-        self._stack: List[str] = []
+        self._local = threading.local()
 
-    def _sync(self) -> None:
-        synchronize(resolve_device(self.device))
+    def span(self, name: str):
+        """A context for a block named `name`: `NULL_SPAN` unless a profiler
+        records, else a `record_function` range timed on the host clock."""
+        if not _profiler_enabled():
+            return NULL_SPAN
+        return self._recorded(name)
 
     @contextlib.contextmanager
-    def span(self, name: str, sync: bool = False) -> Iterator[None]:
-        """Time a block; `sync=True` waits for the device first and after."""
-        if sync:
-            self._sync()
-        full = "/".join(self._stack + [name])
-        self._stack.append(name)
+    def _recorded(self, name: str) -> Iterator[None]:
+        stack = self._local.__dict__.setdefault("stack", [])
+        full = "/".join(stack + [name])
+        stack.append(name)
         t0 = time.perf_counter()
         try:
-            yield
+            with record_function(name):
+                yield
         finally:
-            if sync:
-                self._sync()
             self.spans[full].append(time.perf_counter() - t0)
-            self._stack.pop()
+            stack.pop()
 
     def summary(self) -> List[Tuple[str, int, float, float]]:
         """[(name, count, total_s, mean_s)] by total time, largest first."""
@@ -79,8 +107,8 @@ span = default_tracer.span
 @contextlib.contextmanager
 def torch_profile(logdir: str) -> Iterator[torch.profiler.profile]:
     """Profile the block with `torch.profiler` (the CPU, and CUDA when a
-    card is present) and write its Chrome trace to `logdir/trace.json`
-    (viewable in Perfetto or chrome://tracing)."""
+    card is present) and write its Chrome trace, the spans included, to
+    `logdir/trace.json` (viewable in Perfetto or chrome://tracing)."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)

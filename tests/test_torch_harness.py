@@ -11,6 +11,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import similaritysearchbyrdf_tpu.config as jcfg
 import similaritysearchbyrdf_tpu_torch.config as tcfg
@@ -158,12 +159,15 @@ def test_best_hash_family_search_matches_jax(world, tmp_path):
 
 
 def test_tracer_spans(tmp_path):
-    tr = timing.Tracer(device="cpu")
-    with tr.span("a"):
-        with tr.span("b", sync=True):
-            pass
-        with tr.span("b"):
-            pass
+    """Spans record under a profiler, by '/'-joined nested name, and land
+    in `torch_profile`'s trace as `user_annotation` ranges."""
+    tr = timing.Tracer()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with tr.span("a"):
+            with tr.span("b"):
+                pass
+            with tr.span("b"):
+                pass
     rows = {r[0]: r for r in tr.summary()}
     assert set(rows) == {"a", "a/b"} and rows["a/b"][1] == 2
     assert rows["a"][2] >= rows["a/b"][2]
@@ -172,20 +176,30 @@ def test_tracer_spans(tmp_path):
     assert tr.summary() == []
     assert timing.span.__self__ is timing.default_tracer
     with timing.torch_profile(str(tmp_path / "trace")):
-        torch.ones(8) @ torch.ones(8)
+        with timing.span("rdf.query"):
+            torch.ones(8) @ torch.ones(8)
     with open(os.path.join(tmp_path, "trace", "trace.json")) as fh:
-        assert "traceEvents" in json.load(fh)
+        events = json.load(fh)["traceEvents"]
+    assert any(e.get("name") == "rdf.query" and e.get("cat") == "user_annotation"
+               for e in events)
 
 
 def test_a_failed_sync_raises(monkeypatch):
-    """No CUDA: a synchronised span on the default device raises, and a span
+    """A failed synchronise raises through the span it is in, and a span
     that fails inside still records and unwinds its name."""
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    def lost(device=None):
+        raise RuntimeError("CUDA error: device lost")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lost)
     tr = timing.Tracer()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        with tr.span("x", sync=True):
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(RuntimeError, match="device lost"):
+            with tr.span("x"):
+                timing.synchronize(torch.device("cuda"))
+        with pytest.raises(ValueError):
+            with tr.span("y"):
+                with tr.span("z"):
+                    raise ValueError
+        with tr.span("w"):
             pass
-    with pytest.raises(ValueError):
-        with tr.span("y"):
-            raise ValueError
-    assert tr._stack == [] and "y" in tr.spans
+    assert set(tr.spans) == {"x", "y", "y/z", "w"}
