@@ -34,6 +34,9 @@ tables, candidate blocks and coarse scores.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import inspect
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -44,12 +47,14 @@ from ..models.families import Device, HashModel, generate_model, resolve_device
 from ..ops import rerank as rerank_ops
 from ..ops.bitops import clz, from_key, to_key
 from ..ops.hashing import hash_dense, hash_dense_with_margins
+from ..ops.kernels import hash_kernel
 from ..ops.kernels.coarse_fold import I32_DEAD, coarse_rowmax_kernel
 from ..ops.kernels.coarse_gather import coarse_block_scores_kernel, coarse_window_scores_kernel
 from ..ops.precision import full_f32
 from ..utils.timing import span
 from ..vectors import DenseBatch
 from .bucket_table import KEY_PAD, BucketTables, KeyLayout, build_tables, composite_keys, lookup_ranges
+from .chunk_graphs import ChainGraphs, chain_for
 from .partitioner import generate_partition_projections, partition_of_hash, stepwise_patterns
 
 NEG_INF_F32 = float("-inf")
@@ -351,6 +356,35 @@ def _probe_hashes(h: torch.Tensor, layout: KeyLayout, multiprobe: bool
     return probes, valid
 
 
+# (device, partition_bits, steps, P, L) → the probe constants of a chunk
+_PROBE_CONSTANTS: dict = {}
+
+
+def probe_constants(device: torch.device, partition_bits: int, steps: int, p: int, l: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(patterns int64[S], prio int64[R], table_of int64[R]) with R = L * S
+    * P: the step-wise partition patterns (P3), each probe's priority (step
+    distance first, then probe rank: self-probe, then flips in order) and
+    its table, table-major. Uploaded once per key and device, on a chunk's
+    first use (its two waits spanned `rdf.sync.patterns` and
+    `rdf.sync.priority`); every later chunk reads them without a wait."""
+    key = (device, partition_bits, steps, p, l)
+    got = _PROBE_CONSTANTS.get(key)
+    if got is None:
+        pats = stepwise_patterns(partition_bits, steps)
+        with span("rdf.sync.patterns"):
+            patterns = torch.as_tensor(pats, device=device)
+        dist = np.asarray([bin(int(x)).count("1") for x in pats], dtype=np.int64)
+        probe_rank = np.roll(np.arange(p, dtype=np.int64), -1)     # flips 1.., self 0
+        prio = np.tile((dist[:, None] * p + probe_rank[None, :]).reshape(-1), l)
+        with span("rdf.sync.priority"):
+            got = (patterns, torch.as_tensor(prio, device=device),
+                   torch.as_tensor(np.repeat(np.arange(l, dtype=np.int64), len(pats) * p),
+                                   device=device))
+        _PROBE_CONSTANTS[key] = got
+    return got
+
+
 def probe_key_set(h: torch.Tensor, home: torch.Tensor, layout: KeyLayout, steps: int,
                   multiprobe: bool, probes: Optional[torch.Tensor] = None,
                   probe_valid: Optional[torch.Tensor] = None):
@@ -358,13 +392,12 @@ def probe_key_set(h: torch.Tensor, home: torch.Tensor, layout: KeyLayout, steps:
     patterns (P3) x bit-flip probes (P5), table-major. → (probe_keys
     int64[B, R], valid bool[B, R]) with R = L * S * P."""
     b, l = h.shape
-    with span("rdf.sync.patterns"):
-        patterns = torch.as_tensor(stepwise_patterns(layout.partition_bits, steps),
-                                   device=h.device)                  # [S]
-    parts = home[..., None] ^ patterns                                # [B, L, S]
     if probes is None:
         probes, probe_valid = _probe_hashes(h, layout, multiprobe)   # [B, L, P]
-    s, p = patterns.shape[0], probes.shape[-1]
+    p = probes.shape[-1]
+    patterns = probe_constants(h.device, layout.partition_bits, steps, p, l)[0]   # [S]
+    parts = home[..., None] ^ patterns                                # [B, L, S]
+    s = patterns.shape[0]
     keys = composite_keys(probes[:, :, None, :], parts[..., None], layout)
     valid = probe_valid[:, :, None, :].expand(b, l, s, p)
     return keys.reshape(b, -1), valid.reshape(b, -1)
@@ -391,23 +424,16 @@ def gather_blocks(tables: BucketTables, h: torch.Tensor, home: torch.Tensor,
     probe_keys, valid = probe_key_set(h, home, layout, steps, multiprobe, probes, probe_valid)
     r = probe_keys.shape[1]
     s = len(stepwise_patterns(layout.partition_bits, steps))
-    p = r // (l * s)
+    _, prio, table_of = probe_constants(dev, layout.partition_bits, steps, r // (l * s), l)
     start, length = lookup_ranges(tables, probe_keys)
     length = torch.where(valid, length, 0)
     cap = tables.capacity
-    table_of = torch.arange(l, device=dev).repeat_interleave(s * p)          # [R]
 
     # dedup the (table, start) ranges many probes resolve to, then order the
     # survivors by priority: step distance first (home partition), then probe
     # rank (self-probe, then flips in order). When m_cap truncates, the
     # lowest-value buckets drop first. Sorts are stable, as the reference's
     # are on the CPU, so equal priorities keep (table, start) order.
-    with span("rdf.sync.priority"):
-        dist = torch.as_tensor(
-            [bin(int(x)).count("1") for x in stepwise_patterns(layout.partition_bits, steps)],
-            device=dev)
-    probe_rank = torch.roll(torch.arange(p, device=dev), -1)   # flips 1.., self 0
-    prio = (dist[:, None] * p + probe_rank[None, :]).reshape(-1).repeat(l)   # [R]
     rkey = torch.where(length > 0, table_of * (cap + 1) + start, 2**31 - 1)
     _, order = torch.sort((rkey << 32) | prio, dim=1, stable=True)
     rkey_s = torch.gather(rkey, 1, order)
@@ -616,38 +642,51 @@ def _rerank(state: ForestState, cand2: torch.Tensor, queries: torch.Tensor,
     return _to_user_ids(state, rows), sc
 
 
-def _query_dense_coarse(state: ForestState, queries, query_ids, layout: KeyLayout,
-                        steps: int, m_cap: int, k: int, multiprobe: bool,
-                        exclude_self: bool, refine: int, probes=None, probe_valid=None,
-                        h=None, window: int = -1, window_keep: int = 0, head_pool: int = 0):
-    """Query through the coarse tier: coarse scores of all candidates,
-    exact re-scores of the top `refine` only. In window mode, window_keep >
-    0 with a head tier (`coarse_head_pool`) prunes to the `window_keep` best
-    windows first (`_prune_windows`); window_keep >= m_cap // win keeps
-    every window and so is off. The window rule is the reference's: -1
-    picks 64-slot windows at m_cap >= 32768, 0 is block mode, > 0 an
-    explicit window size."""
+def _hash_stage(model: HashModel, layout: KeyLayout, multiprobe: bool, probe_mode: str,
+                probe_budget: int, queries: torch.Tensor):
+    """The `rdf.hash` stage: K1, with margins and the margin probes in
+    probe_mode "margin". → (h int64[B, L], probes, probe_valid), the probes
+    None for the reference probes, which `probe_key_set` derives from h."""
+    if probe_mode == "margin" and multiprobe:
+        h, margins = hash_dense_with_margins(model, queries)
+        return (h,) + _probe_hashes_margin(h, margins, layout, probe_budget)
+    return hash_dense(model, queries), None, None
+
+
+def _coarse_plan(state: ForestState, m_cap: int, window: int, window_keep: int,
+                 head_pool: int) -> Tuple[int, bool]:
+    """(win, prune) of a lane-tier query: the window size (0 is block mode)
+    and whether the head tier prunes windows. The window rule is the
+    reference's: -1 picks 64-slot windows at m_cap >= 32768, 0 is block
+    mode, > 0 an explicit window size; window_keep >= m_cap // win keeps
+    every window and so is off."""
     if window < 0:
         win = 64 if m_cap % 64 == 0 and m_cap >= 32768 else 0
     else:
         win = window if (window and m_cap % window == 0) else 0
-    if h is None:
-        h = hash_dense(state.model, queries)
-    with span("rdf.candidates"):
-        home = partition_of_hash(h, state.part_proj)
-        base_b, table_b, start_b, end_b, total, bs = gather_blocks(
-            state.tables, h, home, layout, steps, m_cap, multiprobe, probes, probe_valid,
-            window=win)
-        m_slab = m_cap
-        prune = (window_keep > 0 and win > 0 and state.coarse_head is not None
-                 and head_pool > 0 and win % head_pool == 0 and window_keep < m_cap // win)
-        if prune:
-            with full_f32():
-                q_low = (queries @ state.coarse_proj).to(torch.bfloat16)
-            base_b, table_b, start_b, end_b = _prune_windows(
-                state.coarse_head, head_pool, q_low, base_b, table_b, start_b, end_b, win,
-                window_keep)
-            m_slab = window_keep * win
+    prune = (window_keep > 0 and win > 0 and state.coarse_head is not None
+             and head_pool > 0 and win % head_pool == 0 and window_keep < m_cap // win)
+    return win, prune
+
+
+def _prune(state: ForestState, queries, blocks, win: int, window_keep: int, head_pool: int):
+    """`_prune_windows` on the flattened blocks (base_b, table_b, start_b,
+    end_b, total) → the same five, base_b then absolute window starts."""
+    base_b, table_b, start_b, end_b, total = blocks
+    with full_f32():
+        q_low = (queries @ state.coarse_proj).to(torch.bfloat16)
+    return _prune_windows(state.coarse_head, head_pool, q_low, base_b, table_b, start_b, end_b,
+                          win, window_keep) + (total,)
+
+
+def _coarse_rest(state: ForestState, queries, query_ids, blocks, bs: int, win: int,
+                 prune: bool, m_cap: int, window_keep: int, k: int, exclude_self: bool,
+                 refine: int):
+    """The lane tier's stages after the candidates: coarse scores of all
+    candidates (`rdf.score`), the top `refine` (`rdf.select`) and their
+    exact re-scores (`rdf.rerank`). → (ids, scores, total)."""
+    base_b, table_b, start_b, end_b, total = blocks
+    m_slab = window_keep * win if prune else m_cap
     with span("rdf.score"):
         scores, pos, table_slot = _coarse_block_scores(
             state.coarse_tier, state.coarse_proj, queries, base_b, table_b, end_b, bs,
@@ -663,6 +702,28 @@ def _query_dense_coarse(state: ForestState, queries, query_ids, layout: KeyLayou
     with span("rdf.rerank"):
         ids, sc = _rerank(state, cand2, queries, query_ids, exclude_self, k)
     return ids, sc, total
+
+
+def _query_dense_coarse(state: ForestState, queries, query_ids, layout: KeyLayout,
+                        steps: int, m_cap: int, k: int, multiprobe: bool,
+                        exclude_self: bool, refine: int, probes=None, probe_valid=None,
+                        h=None, window: int = -1, window_keep: int = 0, head_pool: int = 0):
+    """Query through the coarse tier: coarse scores of all candidates,
+    exact re-scores of the top `refine` only. In window mode, window_keep >
+    0 with a head tier (`coarse_head_pool`) prunes to the `window_keep` best
+    windows first (`_prune_windows`); `_coarse_plan` gives the window
+    rule."""
+    win, prune = _coarse_plan(state, m_cap, window, window_keep, head_pool)
+    if h is None:
+        h = hash_dense(state.model, queries)
+    with span("rdf.candidates"):
+        home = partition_of_hash(h, state.part_proj)
+        *blocks, bs = gather_blocks(state.tables, h, home, layout, steps, m_cap, multiprobe,
+                                    probes, probe_valid, window=win)
+        if prune:
+            blocks = _prune(state, queries, blocks, win, window_keep, head_pool)
+    return _coarse_rest(state, queries, query_ids, blocks, bs, win, prune, m_cap, window_keep,
+                        k, exclude_self, refine)
 
 
 def _first_dups(sorted_keys: torch.Tensor) -> torch.Tensor:
@@ -904,27 +965,23 @@ def _dedup_selected(cand2: torch.Tensor, cap: int, width: int) -> torch.Tensor:
     return torch.where(out == big, -1, out)
 
 
-def _query_dense(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
-                 layout: KeyLayout, steps: int = 0, m_cap: int = 4096, k: int = 10,
-                 multiprobe: bool = True, exclude_self: bool = True,
-                 probe_mode: str = "reference", probe_budget: int = 8,
-                 coarse_refine: int = 2048, coarse_window: int = -1,
-                 window_keep: int = 0, head_pool: int = 0, coarse_group: int = 64,
-                 rows_keep: int = 1, select_mult: int = 1, stage2: int = 0):
-    """Batched ANN query core → (ids i32[B, k] user ids with -1 padding,
-    scores f32[B, k], candidate counts int64[B]). probe_mode "reference"
-    flips low bits blindly as the reference does; "margin" flips the
-    `probe_budget` smallest-margin bits per table. A folded tier queries
-    through `_query_groupmax` (coarse_group, rows_keep, select_mult,
-    stage2), a lane tier through `_query_dense_coarse` (window_keep,
-    head_pool)."""
-    probes = probe_valid = None
+def _query_dense_eager(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
+                       layout: KeyLayout, steps: int = 0, m_cap: int = 4096, k: int = 10,
+                       multiprobe: bool = True, exclude_self: bool = True,
+                       probe_mode: str = "reference", probe_budget: int = 8,
+                       coarse_refine: int = 2048, coarse_window: int = -1,
+                       window_keep: int = 0, head_pool: int = 0, coarse_group: int = 64,
+                       rows_keep: int = 1, select_mult: int = 1, stage2: int = 0):
+    """Batched ANN query core, every stage eager → (ids i32[B, k] user ids
+    with -1 padding, scores f32[B, k], candidate counts int64[B]).
+    probe_mode "reference" flips low bits blindly as the reference does;
+    "margin" flips the `probe_budget` smallest-margin bits per table. A
+    folded tier queries through `_query_groupmax` (coarse_group, rows_keep,
+    select_mult, stage2), a lane tier through `_query_dense_coarse`
+    (window_keep, head_pool)."""
     with span("rdf.hash"):
-        if probe_mode == "margin" and multiprobe:
-            h, margins = hash_dense_with_margins(state.model, queries)
-            probes, probe_valid = _probe_hashes_margin(h, margins, layout, probe_budget)
-        else:
-            h = hash_dense(state.model, queries)
+        h, probes, probe_valid = _hash_stage(state.model, layout, multiprobe, probe_mode,
+                                             probe_budget, queries)
     if state.coarse_folded is not None:
         return _query_groupmax(
             state, queries, query_ids, layout, steps, m_cap, k, multiprobe,
@@ -950,6 +1007,75 @@ def _query_dense(state: ForestState, queries: torch.Tensor, query_ids: torch.Ten
     return _to_user_ids(state, rows), scores, total
 
 
+_QUERY_DEFAULTS = {n: p.default for n, p in inspect.signature(_query_dense_eager).parameters.items()
+                   if p.default is not inspect.Parameter.empty}
+# the options that change the hash and flatten graphs, in a chain's key
+_CHAIN_OPTIONS = ("steps", "m_cap", "multiprobe", "probe_mode", "probe_budget", "coarse_window")
+
+
+def _lane_chain(state: ForestState, queries: torch.Tensor, layout: KeyLayout,
+                o: dict, win: int) -> Optional[ChainGraphs]:
+    """The hash stage and the candidates' lookup and flatten of this chunk
+    as CUDA graphs (`index/chunk_graphs.py`), the partitions' product eager
+    between them; or None where the chunk runs them eagerly: off the card,
+    outside a lane tier in window mode (`win` 0), for a hash other than K1's
+    (the p-stable product calls cuBLAS, the other index transforms upload
+    constants), and on a key's first use. The key: the calling thread, the
+    device, the chunk's shape and dtype, the layout, and the options that
+    change the graphs."""
+    if not (win and queries.is_cuda and state.coarse_folded is None
+            and state.coarse_tier is not None and state.model.family == "angle"
+            and state.model.type_of_index == "original"):
+        return None
+    key = (threading.get_ident(), queries.device, queries.shape, queries.dtype, layout) + tuple(
+        o[n] for n in _CHAIN_OPTIONS)
+
+    def build():
+        def between(h, probes, probe_valid):
+            return (partition_of_hash(h, state.part_proj),)
+
+        def second(h, probes, probe_valid, home):
+            return gather_blocks(state.tables, h, home, layout, o["steps"], o["m_cap"],
+                                 o["multiprobe"], probes, probe_valid, window=win)[:5]
+
+        return ChainGraphs(queries, functools.partial(
+            _hash_stage, state.model, layout, o["multiprobe"], o["probe_mode"],
+            o["probe_budget"]), between, second)
+
+    return chain_for(state, key, build)
+
+
+def _query_dense(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
+                 layout: KeyLayout, **kw):
+    """Batched ANN query core: `_query_dense_eager`'s keyword arguments and
+    results. On the card, a lane-tier chunk in window mode whose key
+    (`_lane_chain`) this state has seen replays its hash stage, and its
+    candidates' lookup and flatten, as CUDA graphs inside the same stage
+    spans (the second in `rdf.graph.replay`); the kernels and their order
+    are the eager ones, so the answers are the same bit for bit."""
+    o = {**_QUERY_DEFAULTS, **kw}
+    win, prune = _coarse_plan(state, o["m_cap"], o["coarse_window"], o["window_keep"],
+                              o["head_pool"])
+    chain = _lane_chain(state, queries, layout, o, win)
+    if chain is None:
+        return _query_dense_eager(state, queries, query_ids, layout, **kw)
+    with span("rdf.hash"):
+        h = chain.run_first(queries)[0]
+        hash_kernel.LAUNCHES += 1                 # the replay launched K1 once
+    with span("rdf.candidates"):
+        home = partition_of_hash(h, state.part_proj)
+        with span("rdf.graph.replay"):
+            *blocks, total = chain.run_second(home)
+        # the static blocks are read by this chunk's later kernels, which
+        # run before the next replay in stream order; `total` outlives the
+        # chunk
+        blocks = (*blocks, total.clone())
+        if prune:
+            blocks = _prune(state, queries, blocks, win, o["window_keep"], o["head_pool"])
+    return _coarse_rest(state, queries, query_ids, blocks, win, win, prune, o["m_cap"],
+                        o["window_keep"], o["k"], o["exclude_self"], o["coarse_refine"])
+
+
 # the public name of the batched query core, as the JAX package exports its
 # jitted form
 query_dense = _query_dense
@@ -958,12 +1084,14 @@ query_dense = _query_dense
 def query_dense_many(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
                      layout: KeyLayout, chunk: int = 256, **kw):
     """Whole-query-set search, `chunk` queries at a time (bounds peak
-    memory). Takes `_query_dense`'s keyword arguments."""
+    memory). Takes `_query_dense`'s keyword arguments. A partial last chunk
+    runs eagerly: its size changes from call to call."""
     out = []
     for c0 in range(0, queries.shape[0], chunk):
+        q = queries[c0:c0 + chunk]
+        run = _query_dense if q.shape[0] == chunk else _query_dense_eager
         with span("rdf.chunk"):
-            out.append(_query_dense(state, queries[c0:c0 + chunk], query_ids[c0:c0 + chunk],
-                                    layout, **kw))
+            out.append(run(state, q, query_ids[c0:c0 + chunk], layout, **kw))
     return tuple(torch.cat(parts) for parts in zip(*out))
 
 

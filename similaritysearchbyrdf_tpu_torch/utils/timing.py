@@ -26,9 +26,15 @@ The spans of `RDFForest.query` (`index/forest.py`) and
   rdf.score        the coarse query and K2b
   rdf.select       the prefilter and top-m select, the selected rows
   rdf.rerank       the exact re-score and top-k
-  rdf.sync.<site>  each host wait, one a copy: `upload` (the queries and
-                   their ids to the device), `patterns` and `priority`
-                   (the forest's per-chunk host constants),
+  rdf.graph.replay inside `rdf.candidates`: the forest chunk's lookup and
+                   flatten replayed as a CUDA graph (`index/chunk_graphs.py`;
+                   its hash stage replays inside `rdf.hash`); dispatch, not
+                   a wait
+  rdf.sync.<site>  each host wait: `upload` (the queries and their ids to
+                   the device), `patterns` and `priority` (the forest's
+                   probe constants, uploaded on a cold call only: once per
+                   device and probe shape), `graph_capture` (a chunk key's
+                   capture, on its second use: it synchronises),
                    `window_budget` (IVF's cluster offsets to the host),
                    `answers` (ids and scores to the host)
 """

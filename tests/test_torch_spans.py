@@ -17,17 +17,19 @@ from torch.profiler import ProfilerActivity, profile
 
 from similaritysearchbyrdf_tpu_torch import DenseBatch, IVFFlatIndex, RDFConfig, RDFForest
 from similaritysearchbyrdf_tpu_torch.config import TableConfig
+from similaritysearchbyrdf_tpu_torch.index import forest as forest_mod
 from similaritysearchbyrdf_tpu_torch.utils import timing
 
 N, D, NQ, BATCH = 3000, 32, 80, 32
 CHUNKS = -(-NQ // BATCH)
 STAGES = {"forest": ["rdf.hash", "rdf.candidates", "rdf.score", "rdf.select", "rdf.rerank"],
           "ivf": ["rdf.candidates", "rdf.score", "rdf.select", "rdf.rerank"]}
-# each host wait a call makes: the upload, the forest's two host constants
-# a chunk (the IVF window budget's two offset copies a call), two answers
-SYNCS = {"forest": {"rdf.sync.upload": 1, "rdf.sync.patterns": CHUNKS,
-                    "rdf.sync.priority": CHUNKS, "rdf.sync.answers": 2},
+# each host wait a warm call makes: the upload (the IVF window budget's two
+# offset copies a call), two answers; a cold forest call adds one fill of
+# each probe constant (`forest.probe_constants`)
+SYNCS = {"forest": {"rdf.sync.upload": 1, "rdf.sync.answers": 2},
          "ivf": {"rdf.sync.upload": 1, "rdf.sync.window_budget": 2, "rdf.sync.answers": 2}}
+COLD = {"rdf.sync.patterns": 1, "rdf.sync.priority": 1}
 
 
 def chrome_spans(prof, tmp_path):
@@ -100,9 +102,18 @@ def test_span_is_a_user_annotation_inside_its_parent(tmp_path):
     assert set(tr.spans) == {"outer", "outer/inner"}
 
 
+def profiled_syncs(call, q, tmp_path):
+    """The `rdf.sync.<site>` span counts of one profiled call."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call(q)
+    names = [e["name"] for e in chrome_spans(prof, tmp_path)]
+    return {n: names.count(n) for n in names if n.startswith("rdf.sync.")}
+
+
 @pytest.mark.parametrize("engine", ["forest", "ivf"])
 def test_a_profiled_query_opens_its_spans(engine, engines, tmp_path):
     calls, q = engines
+    calls[engine](q)                        # warm: the forest's probe constants are cached
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         calls[engine](q)
     spans = [e for e in chrome_spans(prof, tmp_path) if e["name"].startswith("rdf.")]
@@ -119,6 +130,13 @@ def test_a_profiled_query_opens_its_spans(engine, engines, tmp_path):
     assert syncs == SYNCS[engine]
     for i, a in enumerate(spans):
         assert not any(b["name"] == a["name"] and inside(b, a) for b in spans[i + 1:]), a
+
+
+def test_a_cold_forest_call_fills_each_probe_constant_once(engines, tmp_path, monkeypatch):
+    calls, q = engines
+    monkeypatch.setattr(forest_mod, "_PROBE_CONSTANTS", {})
+    assert profiled_syncs(calls["forest"], q, tmp_path) == {**SYNCS["forest"], **COLD}
+    assert profiled_syncs(calls["forest"], q, tmp_path) == SYNCS["forest"]
 
 
 @pytest.mark.parametrize("engine", ["forest", "ivf"])

@@ -6,8 +6,9 @@ probes, the benchmark's dpf_glove100 settings) and of
 runtime call on the calling thread (`cudaStreamSynchronize`,
 `cudaDeviceSynchronize`, `cudaEventSynchronize`, a blocking `cudaMemcpy*`)
 lies inside an `rdf.sync.<site>` span, so counting those spans misses no
-wait. Prints the counts it found. Needs an NVIDIA GPU; run on the card
-without the suite's conftest, which imports jax:
+wait; so do those of a cold forest call's chunk-graph capture. Prints the
+counts it found. Needs an NVIDIA GPU; run on the card without the suite's
+conftest, which imports jax:
 
     python -m pytest --noconftest -q -s -m cuda tests/test_torch_spans_cuda.py
 """
@@ -80,10 +81,13 @@ def waits_outside_syncs(events):
     return waits, syncs, outside
 
 
-@pytest.mark.parametrize("engine", ["forest", "ivf"])
+@pytest.mark.parametrize("engine", ["forest", "ivf", "forest_capture"])
 def test_every_host_wait_is_in_a_sync_span(engine, dev, tmp_path):
-    call = (forest_call if engine == "forest" else ivf_call)(dev)
-    call()
+    """forest_capture profiles a cold forest's first call, whose second
+    chunk captures the chunk graphs (`rdf.sync.graph_capture`)."""
+    call = (ivf_call if engine == "ivf" else forest_call)(dev)
+    if engine != "forest_capture":
+        call()
     torch.cuda.synchronize(dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         call()
@@ -97,6 +101,9 @@ def test_every_host_wait_is_in_a_sync_span(engine, dev, tmp_path):
           f"{len(syncs)} rdf.sync spans; outside them: {len(outside)}")
     assert syncs and waits
     assert not outside, [(e["name"], innermost(events, e)) for e in outside[:10]]
+    captures = [e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                and e["name"] == "rdf.sync.graph_capture"]
+    assert len(captures) == (engine == "forest_capture")
 
 
 def innermost(events, wait):
