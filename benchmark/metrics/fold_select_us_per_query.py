@@ -1,0 +1,10 @@
+"""fold_select_us_per_query: device microseconds per query of the kernels
+launched inside the program's `rdf.select` spans on the folded forest path
+(`index/forest.py` `_query_groupmax`): the packed group select and the
+selected slots' row ids. None where the program does not open the span."""
+
+from benchmark.lib import stages
+
+
+def read(ctx):
+    return stages.us_per_query(ctx, ("rdf.select",))

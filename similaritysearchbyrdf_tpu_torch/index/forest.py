@@ -759,7 +759,6 @@ def _query_groupmax(state: ForestState, queries, query_ids, layout: KeyLayout, s
     bit for bit; they run in int64 here, where no value wraps."""
     if h is None:
         h = hash_dense(state.model, queries)
-    home = partition_of_hash(h, state.part_proj)
     folded = state.coarse_folded                  # i8[L, capf, lanes]
     l_n, capf, lanes = folded.shape
     cs = state.coarse_proj.shape[1]
@@ -789,114 +788,123 @@ def _query_groupmax(state: ForestState, queries, query_ids, layout: KeyLayout, s
     if score_bits + mshift > 32:
         raise ValueError(f"folded groupmax pack overflow: score bits {score_bits} + "
                          f"member bits {mshift} > 32")
-    base_b, table_b, start_b, end_b, total, _ = gather_blocks(
-        state.tables, h, home, layout, steps, m_cap, multiprobe, probes, probe_valid,
-        window=win, align=align)
     b = queries.shape[0]
     dev = queries.device
     mb_cap = m_cap // win
-    # clamp BEFORE positions are derived, as in window mode
-    blk = torch.clamp(base_b + torch.arange(mb_cap, device=dev) * win, 0, capslots - win)
-    live = (blk < end_b) & (blk + win > start_b)
-    qi8 = query_int8(queries, state.coarse_proj)
+    with span("rdf.candidates"):
+        home = partition_of_hash(h, state.part_proj)
+        base_b, table_b, start_b, end_b, total, _ = gather_blocks(
+            state.tables, h, home, layout, steps, m_cap, multiprobe, probes, probe_valid,
+            window=win, align=align)
+        # clamp BEFORE positions are derived, as in window mode
+        blk = torch.clamp(base_b + torch.arange(mb_cap, device=dev) * win, 0, capslots - win)
+        live = (blk < end_b) & (blk + win > start_b)
     wpr = win // fold
-    rs = torch.where(live, blk // fold, -1)
-    # rows_keep 2 at rpg 1: a group is one row, and its second slot comes
-    # from the kernel's second output
-    emit2 = rows_keep == 2 and rpg == 1
-    out = coarse_rowmax_kernel(folded, qi8, _i32(table_b), _i32(rs), wpr, rpg, mshift, emit2)
-    rowpk, rowpk2 = out if emit2 else (out, None)
-    # rows with no live slot (flatten round-up past `end`, the aligned head
-    # before `start`) are dead; rows straddling a boundary keep their max,
-    # a fold-granular superset of real corpus rows
-    slot0 = blk[..., None] + torch.arange(wpr, device=dev) * fold
-    row_live = live[..., None] & (slot0 < end_b[..., None]) & (slot0 + fold > start_b[..., None])
-    rowpk = torch.where(row_live, rowpk.view(b, mb_cap, wpr), I32_DEAD)
-    if rowpk2 is not None:
-        rowpk2 = torch.where(row_live, rowpk2.view(b, mb_cap, wpr), I32_DEAD)
     ngw = win // gsl
-    g4 = rowpk.reshape(b, mb_cap, ngw, rpg)
-    g1 = g4.amax(dim=-1)                                        # [B, MB, NGW]
+    with span("rdf.score"):
+        qi8 = query_int8(queries, state.coarse_proj)
+        rs = torch.where(live, blk // fold, -1)
+        # rows_keep 2 at rpg 1: a group is one row, and its second slot comes
+        # from the kernel's second output
+        emit2 = rows_keep == 2 and rpg == 1
+        out = coarse_rowmax_kernel(folded, qi8, _i32(table_b), _i32(rs), wpr, rpg, mshift, emit2)
+        rowpk, rowpk2 = out if emit2 else (out, None)
+        # rows with no live slot (flatten round-up past `end`, the aligned head
+        # before `start`) are dead; rows straddling a boundary keep their max,
+        # a fold-granular superset of real corpus rows
+        slot0 = blk[..., None] + torch.arange(wpr, device=dev) * fold
+        row_live = (live[..., None] & (slot0 < end_b[..., None])
+                    & (slot0 + fold > start_b[..., None]))
+        rowpk = torch.where(row_live, rowpk.view(b, mb_cap, wpr), I32_DEAD)
+        if rowpk2 is not None:
+            rowpk2 = torch.where(row_live, rowpk2.view(b, mb_cap, wpr), I32_DEAD)
+        g4 = rowpk.reshape(b, mb_cap, ngw, rpg)
+        g1 = g4.amax(dim=-1)                                        # [B, MB, NGW]
     cap = state.tables.capacity
     sorted_ids = state.tables.sorted_ids
     if rows_keep == 0:
         width = mb_cap * ngw
-        flat = g1.reshape(b, width).to(torch.int64)
         rtarget = max(1, min(refine // gsl, width))
         rgg = max(1, min(rtarget * select_mult, width))
-        bits_w = max(1, (width - 1).bit_length())
-        sh = max(0, score_bits + mshift - (32 - bits_w))
-        gidx = torch.arange(width, device=dev)
-        if sh <= mshift + 8:
-            # one-operand select: the group value quantized to its top
-            # 32 - bits_w bits, the group index in the low bits; the dead
-            # sentinel clamps to lo, below every live value
-            lo = -(1 << (31 - bits_w))
-            pack = (torch.clamp(flat >> sh, min=lo) << bits_w) | gidx
-            pack_s, _ = torch.sort(pack, dim=1, descending=True)
-            pack_s = pack_s[:, :rgg]
-            sel = pack_s & ((1 << bits_w) - 1)
-            live_sel = (pack_s >> bits_w) > lo
-        else:
-            vals, sel = torch.sort(flat, dim=1, descending=True, stable=True)
-            sel, live_sel = sel[:, :rgg], vals[:, :rgg] != I32_DEAD
-        mbi = sel // ngw
-        base = torch.gather(blk, 1, mbi) + (sel % ngw) * gsl        # [B, RGG]
-        t2 = torch.gather(table_b, 1, mbi)
-        sel_valid = live_sel.repeat_interleave(gsl, dim=1)
-        # every slot of a selected group; groups are gsl-aligned and never
-        # straddle the table's end
-        id_cap = sorted_ids.shape[1]
-        basec = base.clamp(0, (id_cap - gsl) // gsl * gsl)
-        cand2 = sorted_ids[t2.clamp(0, l_n - 1)[..., None],
-                           basec[..., None] + torch.arange(gsl, device=dev)]
-        cand2 = cand2.reshape(b, rgg * gsl)
-        cand2 = torch.where(sel_valid & (cand2 >= 0), cand2, -1)
-        if 0 < stage2 < rgg * gsl:
-            cand2 = _stage2(folded, qi8, base, t2, cand2, gsl, rpg, stage2)
-        elif rgg > rtarget:
-            cand2 = _dedup_selected(cand2, cap, rtarget * gsl)
-    else:
-        if rows_keep == 2:
-            if rowpk2 is not None:
-                g2 = rowpk2.reshape(b, mb_cap, ngw)
+        with span("rdf.select"):
+            flat = g1.reshape(b, width).to(torch.int64)
+            bits_w = max(1, (width - 1).bit_length())
+            sh = max(0, score_bits + mshift - (32 - bits_w))
+            gidx = torch.arange(width, device=dev)
+            if sh <= mshift + 8:
+                # one-operand select: the group value quantized to its top
+                # 32 - bits_w bits, the group index in the low bits; the dead
+                # sentinel clamps to lo, below every live value
+                lo = -(1 << (31 - bits_w))
+                pack = (torch.clamp(flat >> sh, min=lo) << bits_w) | gidx
+                pack_s, _ = torch.sort(pack, dim=1, descending=True)
+                pack_s = pack_s[:, :rgg]
+                sel = pack_s & ((1 << bits_w) - 1)
+                live_sel = (pack_s >> bits_w) > lo
             else:
-                # the group's second-best row (member bits make packed values
-                # unique, so equality finds the winner row)
-                g2 = torch.where(g4 == g1[..., None], I32_DEAD, g4).amax(dim=-1)
-            gsel = torch.cat([g1, g2], dim=2)                   # [B, MB, 2*NGW]
-        else:
-            gsel = g1
-        keep = gsel.shape[2] // ngw
-        width = mb_cap * ngw * keep
-        flat = gsel.reshape(b, width).to(torch.int64)
-        rg = min(refine, width)
-        bits_w = max(1, (width - 1).bit_length())
-        q_bits = 32 - bits_w - mshift
-        if 0 <= score_bits + mshift - q_bits <= 10 and q_bits >= 8:
-            # one-operand select carrying the member bits: quantized value,
-            # member, flat index; dead clamps strictly below every live value
-            sh = score_bits + mshift - q_bits
-            lo = -(1 << (q_bits - 1))
-            qv = torch.where(flat == I32_DEAD, lo, torch.clamp(flat >> sh, min=lo + 1))
-            pack = ((qv << (bits_w + mshift)) | ((flat & (gsl - 1)) << bits_w)
-                    | torch.arange(width, device=dev))
-            pack_s, _ = torch.sort(pack, dim=1, descending=True)
-            pack_s = pack_s[:, :rg]
-            sel = pack_s & ((1 << bits_w) - 1)
-            member = (pack_s >> bits_w) & (gsl - 1)
-            sel_valid = (pack_s >> (bits_w + mshift)) > lo
-        else:
-            vals, sel = torch.sort(flat, dim=1, descending=True, stable=True)
-            selpk, sel = vals[:, :rg], sel[:, :rg]
-            member = selpk & (gsl - 1)
-            sel_valid = selpk != I32_DEAD
-        mbi = sel // (ngw * keep)
-        pos = torch.gather(blk, 1, mbi) + (sel % ngw) * gsl + member
-        t2 = torch.gather(table_b, 1, mbi)
-        cand2 = sorted_ids[t2.clamp(0, l_n - 1), pos.clamp(0, cap - 1)]
-        cand2 = torch.where(sel_valid & (cand2 >= 0), cand2, -1)
-    ids, sc = _rerank(state, cand2, queries, query_ids, exclude_self, k)
+                vals, sel = torch.sort(flat, dim=1, descending=True, stable=True)
+                sel, live_sel = sel[:, :rgg], vals[:, :rgg] != I32_DEAD
+            mbi = sel // ngw
+            base = torch.gather(blk, 1, mbi) + (sel % ngw) * gsl        # [B, RGG]
+            t2 = torch.gather(table_b, 1, mbi)
+            sel_valid = live_sel.repeat_interleave(gsl, dim=1)
+            # every slot of a selected group; groups are gsl-aligned and never
+            # straddle the table's end
+            id_cap = sorted_ids.shape[1]
+            basec = base.clamp(0, (id_cap - gsl) // gsl * gsl)
+            cand2 = sorted_ids[t2.clamp(0, l_n - 1)[..., None],
+                               basec[..., None] + torch.arange(gsl, device=dev)]
+            cand2 = cand2.reshape(b, rgg * gsl)
+            cand2 = torch.where(sel_valid & (cand2 >= 0), cand2, -1)
+        if 0 < stage2 < rgg * gsl:
+            with span("rdf.stage2"):
+                cand2 = _stage2(folded, qi8, base, t2, cand2, gsl, rpg, stage2)
+        elif rgg > rtarget:
+            with span("rdf.stage2"):
+                cand2 = _dedup_selected(cand2, cap, rtarget * gsl)
+    else:
+        with span("rdf.select"):
+            if rows_keep == 2:
+                if rowpk2 is not None:
+                    g2 = rowpk2.reshape(b, mb_cap, ngw)
+                else:
+                    # the group's second-best row (member bits make packed values
+                    # unique, so equality finds the winner row)
+                    g2 = torch.where(g4 == g1[..., None], I32_DEAD, g4).amax(dim=-1)
+                gsel = torch.cat([g1, g2], dim=2)                   # [B, MB, 2*NGW]
+            else:
+                gsel = g1
+            keep = gsel.shape[2] // ngw
+            width = mb_cap * ngw * keep
+            flat = gsel.reshape(b, width).to(torch.int64)
+            rg = min(refine, width)
+            bits_w = max(1, (width - 1).bit_length())
+            q_bits = 32 - bits_w - mshift
+            if 0 <= score_bits + mshift - q_bits <= 10 and q_bits >= 8:
+                # one-operand select carrying the member bits: quantized value,
+                # member, flat index; dead clamps strictly below every live value
+                sh = score_bits + mshift - q_bits
+                lo = -(1 << (q_bits - 1))
+                qv = torch.where(flat == I32_DEAD, lo, torch.clamp(flat >> sh, min=lo + 1))
+                pack = ((qv << (bits_w + mshift)) | ((flat & (gsl - 1)) << bits_w)
+                        | torch.arange(width, device=dev))
+                pack_s, _ = torch.sort(pack, dim=1, descending=True)
+                pack_s = pack_s[:, :rg]
+                sel = pack_s & ((1 << bits_w) - 1)
+                member = (pack_s >> bits_w) & (gsl - 1)
+                sel_valid = (pack_s >> (bits_w + mshift)) > lo
+            else:
+                vals, sel = torch.sort(flat, dim=1, descending=True, stable=True)
+                selpk, sel = vals[:, :rg], sel[:, :rg]
+                member = selpk & (gsl - 1)
+                sel_valid = selpk != I32_DEAD
+            mbi = sel // (ngw * keep)
+            pos = torch.gather(blk, 1, mbi) + (sel % ngw) * gsl + member
+            t2 = torch.gather(table_b, 1, mbi)
+            cand2 = sorted_ids[t2.clamp(0, l_n - 1), pos.clamp(0, cap - 1)]
+            cand2 = torch.where(sel_valid & (cand2 >= 0), cand2, -1)
+    with span("rdf.rerank"):
+        ids, sc = _rerank(state, cand2, queries, query_ids, exclude_self, k)
     return ids, sc, total
 
 

@@ -23,8 +23,13 @@ The spans of `RDFForest.query` (`index/forest.py`) and
   rdf.candidates   partitions, bucket lookup, dedup, priority sorts and
                    flatten; IVF: centroid scores, cluster select, window
                    flatten and prune
-  rdf.score        the coarse query and K2b
-  rdf.select       the prefilter and top-m select, the selected rows
+  rdf.score        the coarse query and K2b; on the folded tier the int8
+                   query, K3, the row mask and the group max
+  rdf.select       the prefilter and top-m select, the selected rows; on
+                   the folded tier the packed group select and the
+                   selected slots' row ids
+  rdf.stage2       the folded tier's staged int8 re-score and id dedup
+                   (`_stage2`, or `_dedup_selected` where it runs instead)
   rdf.rerank       the exact re-score and top-k
   rdf.graph.replay inside `rdf.candidates`: the forest chunk's lookup and
                    flatten replayed as a CUDA graph (`index/chunk_graphs.py`;

@@ -147,3 +147,61 @@ def test_profiled_answers_equal_untraced(engine, engines):
         ids_t, scores_t = calls[engine](q)
     assert np.array_equal(ids, ids_t)
     assert np.array_equal(scores.view(np.uint32), scores_t.view(np.uint32))
+
+
+FOLDED = ["rdf.hash", "rdf.candidates", "rdf.score", "rdf.select", "rdf.stage2", "rdf.rerank"]
+
+
+@pytest.fixture(scope="module")
+def folded():
+    """A forest on its folded tier (K3's plain version, the packed group
+    select) and a query call taking `stage2`."""
+    rng = np.random.default_rng(6)
+    centers = rng.normal(size=(40, D))
+    x = centers[rng.integers(0, 40, N)] + 0.1 * rng.normal(size=(N, D))
+    x = (x / np.linalg.norm(x, axis=1, keepdims=True)).astype(np.float32)
+    conf = RDFConfig(vector_dim=D, table_num=4, permutation_num=2, family_size=40,
+                     partition_bits=3, query_batch_size=BATCH, max_candidates=4096, top_k=10,
+                     seed=92, coarse_dim=16, coarse_dtype="int8", coarse_layout="folded",
+                     coarse_window=128, coarse_group=8, coarse_rows_keep=0, coarse_refine=256,
+                     lsh_table=TableConfig(chain_length=32, bucket_overflow=64))
+    forest = RDFForest(conf, device="cpu").fit(DenseBatch(np.arange(N, dtype=np.int32), x))
+
+    def call(q, stage2):
+        return forest.query(q, k=10, steps=1, probe_mode="margin", probe_budget=8,
+                            stage2=stage2)
+
+    return call, x[rng.integers(0, N, NQ)] + np.float32(0.01)
+
+
+@pytest.mark.parametrize("stage2", [64, 0])
+def test_a_profiled_folded_query_opens_its_stage_spans(stage2, folded, tmp_path):
+    """Each chunk opens the folded stages once, in order and disjoint;
+    `rdf.stage2` only with the staged rerank; the call's waits are the
+    lane path's."""
+    call, q = folded
+    call(q, stage2)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        call(q, stage2)
+    spans = [e for e in chrome_spans(prof, tmp_path) if e["name"].startswith("rdf.")]
+    names = [e["name"] for e in spans]
+    chunks = [e for e in spans if e["name"] == "rdf.chunk"]
+    want = [n for n in FOLDED if stage2 or n != "rdf.stage2"]
+    assert len(chunks) == CHUNKS
+    for c in chunks:
+        stages = [e for e in spans if e["name"] in FOLDED and inside(e, c)]
+        assert [e["name"] for e in stages] == want
+        for a, b in zip(stages, stages[1:]):
+            assert float(a["ts"]) + float(a["dur"]) <= float(b["ts"]) + 1e-3
+    assert names.count("rdf.stage2") == (CHUNKS if stage2 else 0)
+    syncs = {n: names.count(n) for n in names if n.startswith("rdf.sync.")}
+    assert syncs == SYNCS["forest"]
+
+
+def test_profiled_folded_answers_equal_untraced(folded):
+    call, q = folded
+    ids, scores = call(q, 64)
+    with profile(activities=[ProfilerActivity.CPU]):
+        ids_t, scores_t = call(q, 64)
+    assert np.array_equal(ids, ids_t)
+    assert np.array_equal(scores.view(np.uint32), scores_t.view(np.uint32))

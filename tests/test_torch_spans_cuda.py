@@ -114,3 +114,46 @@ def innermost(events, wait):
              and e.get("cat") in ("cpu_op", "user_annotation")
              and float(e["ts"]) <= t <= float(e["ts"]) + float(e["dur"])]
     return [e["name"] for e in sorted(open_, key=lambda e: float(e["ts"]))]
+
+
+FOLDED = ["rdf.hash", "rdf.candidates", "rdf.score", "rdf.select", "rdf.stage2", "rdf.rerank"]
+
+
+def folded_call(dev):
+    """The dpf_deep96_folded benchmark's query options on 200,000 rows."""
+    batch, q = data(200_000, 96, 3)
+    conf = RDFConfig(vector_dim=96, table_num=10, permutation_num=3, family_size=100,
+                     generate_by_pulling=True, is_orthogonal=True, partition_bits=3,
+                     fit_batch_size=8192, query_batch_size=128, max_candidates=65536,
+                     top_k=10, seed=31258, coarse_dim=16, coarse_dtype="int8",
+                     coarse_layout="folded", coarse_window=512, coarse_group=8,
+                     coarse_rows_keep=0, coarse_refine=4096, coarse_stage2=1024,
+                     lsh_table=TableConfig(chain_length=32, bucket_overflow=2000))
+    forest = RDFForest(conf, device=dev).fit(batch)
+    return lambda: forest.query(q, k=10, steps=1, probe_mode="margin", probe_budget=16)
+
+
+def test_folded_query_spans_on_the_card(dev, tmp_path):
+    """A warm folded call through K3: each 128-query chunk opens the folded
+    stages once and in order, and every host wait lies in an `rdf.sync`
+    span."""
+    call = folded_call(dev)
+    call()
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    waits, syncs, outside = waits_outside_syncs(events)
+    assert syncs and not outside, [(e["name"], innermost(events, e)) for e in outside[:10]]
+    spans = sorted((e for e in events if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                    and e["name"].startswith("rdf.")), key=lambda e: float(e["ts"]))
+    chunks = [e for e in spans if e["name"] == "rdf.chunk"]
+    assert len(chunks) == 8
+    for c in chunks:
+        t0, t1 = float(c["ts"]), float(c["ts"]) + float(c["dur"])
+        stages = [e["name"] for e in spans if e["name"] in FOLDED and e["tid"] == c["tid"]
+                  and t0 <= float(e["ts"]) <= t1]
+        assert stages == FOLDED
