@@ -33,7 +33,10 @@ device is present:
      folded tier (`scripts/bench_deep8m_coarse.py`'s operating point):
      fit, K3 (folded rowmax) against its plain version at the query's
      shapes with its achieved rates (gathered and distinct bytes per ms),
-     1,024 queries, recall, qps, bytes, peak device memory;
+     the top-k select (`topk_select`) on a real chunk's group-select values
+     and stage2 keys against its plain version, with `torch.topk` beside
+     it, 1,024 queries (the top-k select must launch), recall, qps, bytes,
+     peak device memory;
   7. flat_20k (after bench_20k): `bench.py`'s flat leg, `flat_topk` with
      refine 128, and `FlatIndex()` in grouped mode (exact2: K4 unpacked and
      K2b) on the bench corpus: recall against the JAX package's on the
@@ -269,8 +272,10 @@ def reset_launches() -> None:
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
     from similaritysearchbyrdf_tpu_torch.ops.kernels import flat_groupmax as K4
     from similaritysearchbyrdf_tpu_torch.ops.kernels import hash_kernel as K1
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import topk_select as TK
 
     K1.LAUNCHES = K2.LAUNCHES = K2.WINDOW_LAUNCHES = K3.LAUNCHES = K4.LAUNCHES = 0
+    TK.LAUNCHES = 0
 
 
 def read_launches() -> dict:
@@ -278,10 +283,12 @@ def read_launches() -> dict:
     from similaritysearchbyrdf_tpu_torch.ops.kernels import coarse_gather as K2
     from similaritysearchbyrdf_tpu_torch.ops.kernels import flat_groupmax as K4
     from similaritysearchbyrdf_tpu_torch.ops.kernels import hash_kernel as K1
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import topk_select as TK
 
     return {"hash_dense_kernel": K1.LAUNCHES, "coarse_block_scores_kernel": K2.LAUNCHES,
             "coarse_window_scores_kernel": K2.WINDOW_LAUNCHES,
-            "coarse_rowmax_kernel": K3.LAUNCHES, "flat_groupmax_kernel": K4.LAUNCHES}
+            "coarse_rowmax_kernel": K3.LAUNCHES, "flat_groupmax_kernel": K4.LAUNCHES,
+            "topk_select": TK.LAUNCHES}
 
 
 def timed_s(fn, sync, reps: int) -> float:
@@ -1286,9 +1293,10 @@ def folded_conf():
 
 
 def folded_phase(dev, sync, median_ms):
-    """The Deep-8M operating point of the folded tier: fit, K3 against its
-    plain version at the query's real shapes, then 1,024 self-excluded
-    queries. → (K3's check and timings, launch counts of the query)."""
+    """The Deep-8M operating point of the folded tier: fit, K3 and the top-k
+    select against their plain versions at the query's real shapes, then
+    1,024 self-excluded queries. → (K3's and the top-k select's checks and
+    timings, launch counts of the query, the corpus, its ground truth)."""
     import time
 
     import torch
@@ -1370,7 +1378,11 @@ def folded_phase(dev, sync, median_ms):
         # achieved rates over the kernel's time, GB/s
         k3["gathered_gb_per_s" + sfx] = gathered / k3["ms" + sfx] / 1e6
         k3["distinct_gb_per_s" + sfx] = rows_read * lanes / k3["ms" + sfx] / 1e6
-    emit({"phase": "kernels_folded", "K3": k3})
+    tk = topk_check(st, q, forest.layout, dict(
+        steps=steps, probe_mode="margin", probe_budget=budget, m_cap=m_cap, k=10,
+        coarse_refine=refine, coarse_window=win, coarse_group=gsl, rows_keep=0), sync,
+        median_ms)
+    emit({"phase": "kernels_folded", "K3": k3, "TK": tk})
 
     qkw = dict(steps=steps, probe_mode="margin", probe_budget=budget)
     qd, qids = xd[:nq], ids[:nq]
@@ -1378,7 +1390,8 @@ def folded_phase(dev, sync, median_ms):
     got, sc = forest.query_device(qd, query_ids=qids, **qkw)
     sync()
     launches = read_launches()
-    check(launches["coarse_rowmax_kernel"] > 0 and launches["hash_dense_kernel"] > 0,
+    check(launches["coarse_rowmax_kernel"] > 0 and launches["hash_dense_kernel"] > 0
+          and launches["topk_select"] > 0,
           f"the folded path did not launch its kernels: {launches}")
     got = got.cpu().numpy()
     check(got.shape == (nq, 10) and bool(torch.isfinite(sc).all()),
@@ -1404,7 +1417,84 @@ def folded_phase(dev, sync, median_ms):
           "corpus_bytes": st.corpus.numel() * 4, "coarse_tier_bytes": st.coarse_tier.numel(),
           "table_bytes": st.tables.index_bytes(),
           "max_memory_allocated": torch.cuda.max_memory_allocated(dev)})
-    return k3, launches, xd, gt
+    return k3, tk, launches, xd, gt
+
+
+def topk_check(st, q, layout, qkw: dict, sync, median_ms) -> dict:
+    """The top-k select (`topk_select`) on one real chunk's operands: the
+    group select's values at this operating point, and stage2's keys of the
+    same chunk with the benchmark's folded cell's stage2 (4,096 kept), each
+    taken from the forest's own call. Each held bit for bit against its
+    plain version on the card (the int64 pack and `torch.sort`'s prefix),
+    timed, beside `torch.topk` (`library_ms`, device time) and the bound of
+    one read of the row and one write of the kept keys."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch.index import forest as F
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import topk_select as TK
+
+    seen = {}
+    real_packed, real_select = F.topk_packed_select, F.topk_select
+
+    def packed(values, k, sh, bits_w):
+        seen.setdefault("group_select", (values.clone(), k, sh, bits_w))
+        return real_packed(values, k, sh, bits_w)
+
+    def select(keys, k, descending):
+        seen.setdefault("stage2", (keys.clone(), k, descending))
+        return real_select(keys, k, descending)
+
+    qids = torch.full((q.shape[0],), -1, dtype=torch.int32, device=q.device)
+    F.topk_packed_select, F.topk_select = packed, select
+    try:
+        F._query_dense_eager(st, q, qids, layout, **qkw, stage2=4096)
+    finally:
+        F.topk_packed_select, F.topk_select = real_packed, real_select
+    sync()
+    check(set(seen) == {"group_select", "stage2"},
+          f"the folded chunk did not reach both top-k selects: {sorted(seen)}")
+    values, k, sh, bits_w = seen["group_select"]
+    keys, keep, descending = seen["stage2"]
+    pack = TK.pack_keys_plain(values, sh, bits_w)
+    calls = {
+        "group_select": (lambda: TK.topk_packed_select(values, k, sh, bits_w),
+                         lambda: TK.topk_select_plain(TK.pack_keys_plain(values, sh, bits_w),
+                                                      k, True),
+                         lambda: torch.topk(pack, k, dim=1, largest=True, sorted=True).values,
+                         values, k),
+        "stage2": (lambda: TK.topk_select(keys, keep, descending),
+                   lambda: TK.topk_select_plain(keys, keep, descending),
+                   lambda: torch.topk(keys, keep, dim=1, largest=descending,
+                                      sorted=True).values,
+                   keys, keep)}
+    out = {}
+    for name, (kern, plain, lib, rows, kept) in calls.items():
+        got, want, by_lib = kern(), plain(), lib()
+        sync()
+        bad = int((got != want).sum()) if got.shape == want.shape else got.numel()
+        check(bad == 0, f"TK {name} differs from its plain version: {bad} words")
+        check(torch.equal(by_lib, want), f"torch.topk differs from the sort's prefix at {name}")
+        out_bytes = rows.shape[0] * min(kept, rows.shape[1]) * rows.element_size()
+        t = kernel_times(kern)
+        out[name] = {"shape": {"B": rows.shape[0], "n": rows.shape[1], "k": kept,
+                               "dtype": str(rows.dtype).replace("torch.", ""),
+                               "form": TK._form(rows.device.index, rows.shape[1],
+                                                min(kept, rows.shape[1]),
+                                                rows.element_size())},
+                     "mismatched_words": bad, "max_abs_err": 0.0,
+                     "tolerance": "bit for bit (0 mismatched words)",
+                     **bound(nbytes(rows) + out_bytes, 0, "int8"),
+                     "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": median_ms(plain),
+                     "library_ms": timing_device_ms(lib)}
+    return out
+
+
+def timing_device_ms(fn) -> float:
+    """Device time of one call of `fn` (`timing.median_event_ms` with the
+    card held busy first), over 20 calls."""
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import timing
+
+    return timing.median_event_ms(fn, 20, busy=True)
 
 
 def device_profile(fn, sync, reps: int = 3, wall_reps: int = 5) -> dict:
@@ -2863,7 +2953,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 6: the folded tier on an 8M corpus ----------------------------
-    k3, launches_f, x8, gt8 = folded_phase(dev, sync, median_ms)
+    k3, tk, launches_f, x8, gt8 = folded_phase(dev, sync, median_ms)
     torch.cuda.empty_cache()
 
     # ---- phases 8 and 9: the flat engine on the same 8M corpus ---------------
@@ -2956,6 +3046,17 @@ def main() -> int:
          "max_abs_err": k3["max_abs_err"], "ms": k3["ms"],
          "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], **lib},
+        {"name": "topk_select", "route": "cuda",
+         "sharded_8m_launches": sh_launches.get("topk_select", 0),
+         "source": "similaritysearchbyrdf_tpu_torch/csrc/topk_select.cu",
+         "replaces": "torch.sort prefixes of the folded query's selects (no TPU kernel)",
+         "launches": launches_f["topk_select"],
+         **{k: tk["group_select"][k] for k in ("shape", "max_abs_err", "ms", "device_ms",
+                                                "plain_ms", "bound_ms", "bound_by",
+                                                "library_ms")},
+         "stage2": {k: tk["stage2"][k] for k in ("shape", "max_abs_err", "ms", "device_ms",
+                                                 "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms")}},
         {"name": "flat_groupmax_kernel", "route": "cuda",
          "sharded_8m_launches": sh_launches.get("flat_groupmax_kernel", 0),
          "source": "similaritysearchbyrdf_tpu_torch/csrc/flat_groupmax.cu",

@@ -1,10 +1,11 @@
 """CUDA graphs of a query chunk's leading stages.
 
-A chunk of the forest's lane-tier query runs the same two leading stages
-with the same shapes on every call: the hash (K1 and the probe bits) and
-the candidates (partitions, bucket lookup, dedup and priority sorts,
-flatten). Run eagerly they are about 150 small launches a chunk, and on the
-card the host issuing them, not the device running them, sets the pace.
+A chunk of the forest's windowed query (on a lane tier or a folded one)
+runs the same two leading stages with the same shapes on every call: the
+hash (K1 and the probe bits) and the candidates (partitions, bucket
+lookup, dedup and priority sorts, flatten). Run eagerly they are about 150
+small launches a chunk, and on the card the host issuing them, not the
+device running them, sets the pace.
 `ChainGraphs` captures the two stages once as two CUDA graphs on one
 memory pool and replays them: a copy of the chunk's queries into the
 graphs' static input, one graph launch a stage, and between them the one

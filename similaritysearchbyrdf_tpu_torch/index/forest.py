@@ -50,6 +50,7 @@ from ..ops.hashing import hash_dense, hash_dense_with_margins
 from ..ops.kernels import hash_kernel
 from ..ops.kernels.coarse_fold import I32_DEAD, coarse_rowmax_kernel
 from ..ops.kernels.coarse_gather import coarse_block_scores_kernel, coarse_window_scores_kernel
+from ..ops.kernels.topk_select import topk_packed_select, topk_select
 from ..ops.precision import full_f32
 from ..utils.timing import span
 from ..vectors import DenseBatch
@@ -742,11 +743,36 @@ def query_int8(queries: torch.Tensor, coarse_proj: torch.Tensor) -> torch.Tensor
     return torch.clamp(torch.round(q_low * qscale), -127, 127).to(torch.int8).contiguous()
 
 
+def _fold_window(state: ForestState, m_cap: int, window: int, group_slots: int) -> Tuple[int, int]:
+    """(win, align) of a folded-tier query: windows start on the group grid
+    and on 8-physical-row boundaries (`align`); `window` > 0 is the window
+    size, else the largest power of 2 <= min(4096, m_cap/8, table size),
+    since each probed range needs a window of its own."""
+    capf, lanes = state.coarse_folded.shape[1:]
+    fold = lanes // state.coarse_proj.shape[1]
+    gsl = group_slots
+    if (gsl // fold) * fold != gsl or gsl & (gsl - 1):
+        raise ValueError(f"coarse_group {gsl} must be a power of 2 and a multiple of "
+                         f"fold {fold}")
+    align = max(gsl, 8 * fold)
+    capslots = capf * fold
+    if window > 0:
+        win = window
+    else:
+        win = align
+        while win * 2 <= min(4096, max(align, m_cap // 8), capslots):
+            win *= 2
+    if win % align or m_cap % win or win > capslots:
+        raise ValueError(f"folded window {win} must be a multiple of {align}, divide "
+                         f"m_cap {m_cap} and fit the table ({capslots} slots)")
+    return win, align
+
+
 def _query_groupmax(state: ForestState, queries, query_ids, layout: KeyLayout, steps: int,
                     m_cap: int, k: int, multiprobe: bool, exclude_self: bool, refine: int,
                     probes=None, probe_valid=None, h=None, window: int = -1,
                     group_slots: int = 64, rows_keep: int = 1, select_mult: int = 1,
-                    stage2: int = 0):
+                    stage2: int = 0, chain: Optional[ChainGraphs] = None):
     """Query through the slot-folded tier: aligned windows of folded rows,
     each row reduced by K3 to its best packed `(score << mshift) | member`,
     rows to groups of `group_slots` slots by a max, and the select runs on
@@ -756,33 +782,21 @@ def _query_groupmax(state: ForestState, queries, query_ids, layout: KeyLayout, s
     `stage2` best unique ids); rows_keep=1|2 reranks only each group's best
     (and second) slot. All packed selects are those of the JAX package's
     `_query_groupmax`, with the same bit layouts, so the selections agree
-    bit for bit; they run in int64 here, where no value wraps."""
+    bit for bit: the one-operand selects keep their prefix through the
+    top-k kernel over packed keys (`ops/kernels/topk_select.py`), the
+    others sort in int64, where no value wraps. With `chain` (`_chunk_chain`)
+    the candidates' lookup and flatten replay as a CUDA graph."""
     if h is None:
         h = hash_dense(state.model, queries)
+    win, align = _fold_window(state, m_cap, window, group_slots)
     folded = state.coarse_folded                  # i8[L, capf, lanes]
     l_n, capf, lanes = folded.shape
     cs = state.coarse_proj.shape[1]
     fold = lanes // cs
     gsl = group_slots
     rpg = gsl // fold
-    if rpg * fold != gsl or gsl & (gsl - 1):
-        raise ValueError(f"coarse_group {gsl} must be a power of 2 and a multiple of "
-                         f"fold {fold}")
     mshift = gsl.bit_length() - 1
-    # window starts on the group grid and on 8-physical-row boundaries
-    align = max(gsl, 8 * fold)
     capslots = capf * fold
-    if window > 0:
-        win = window
-    else:
-        # the largest power of 2 <= min(4096, m_cap/8, table size): each
-        # probed range needs a window of its own
-        win = align
-        while win * 2 <= min(4096, max(align, m_cap // 8), capslots):
-            win *= 2
-    if win % align or m_cap % win or win > capslots:
-        raise ValueError(f"folded window {win} must be a multiple of {align}, divide "
-                         f"m_cap {m_cap} and fit the table ({capslots} slots)")
     # the packed (score << mshift) | member must fit int32 on every path
     score_bits = (cs * 127 * 127).bit_length() + 1       # signed int8 dot
     if score_bits + mshift > 32:
@@ -793,9 +807,14 @@ def _query_groupmax(state: ForestState, queries, query_ids, layout: KeyLayout, s
     mb_cap = m_cap // win
     with span("rdf.candidates"):
         home = partition_of_hash(h, state.part_proj)
-        base_b, table_b, start_b, end_b, total, _ = gather_blocks(
-            state.tables, h, home, layout, steps, m_cap, multiprobe, probes, probe_valid,
-            window=win, align=align)
+        if chain is None:
+            base_b, table_b, start_b, end_b, total, _ = gather_blocks(
+                state.tables, h, home, layout, steps, m_cap, multiprobe, probes, probe_valid,
+                window=win, align=align)
+        else:
+            with span("rdf.graph.replay"):
+                base_b, table_b, start_b, end_b, total = chain.run_second(home)
+            total = total.clone()                  # outlives the chunk
         # clamp BEFORE positions are derived, as in window mode
         blk = torch.clamp(base_b + torch.arange(mb_cap, device=dev) * win, 0, capslots - win)
         live = (blk < end_b) & (blk + win > start_b)
@@ -827,21 +846,20 @@ def _query_groupmax(state: ForestState, queries, query_ids, layout: KeyLayout, s
         rtarget = max(1, min(refine // gsl, width))
         rgg = max(1, min(rtarget * select_mult, width))
         with span("rdf.select"):
-            flat = g1.reshape(b, width).to(torch.int64)
             bits_w = max(1, (width - 1).bit_length())
             sh = max(0, score_bits + mshift - (32 - bits_w))
-            gidx = torch.arange(width, device=dev)
             if sh <= mshift + 8:
                 # one-operand select: the group value quantized to its top
-                # 32 - bits_w bits, the group index in the low bits; the dead
-                # sentinel clamps to lo, below every live value
+                # 32 - bits_w bits, the group index in the low bits (the
+                # kernel packs them; the score bound keeps the value under
+                # its clamp's top); the dead sentinel clamps to lo, below
+                # every live value
                 lo = -(1 << (31 - bits_w))
-                pack = (torch.clamp(flat >> sh, min=lo) << bits_w) | gidx
-                pack_s, _ = torch.sort(pack, dim=1, descending=True)
-                pack_s = pack_s[:, :rgg]
-                sel = pack_s & ((1 << bits_w) - 1)
+                pack_s = topk_packed_select(g1.reshape(b, width), rgg, sh, bits_w)
+                sel = (pack_s & ((1 << bits_w) - 1)).long()
                 live_sel = (pack_s >> bits_w) > lo
             else:
+                flat = g1.reshape(b, width).to(torch.int64)
                 vals, sel = torch.sort(flat, dim=1, descending=True, stable=True)
                 sel, live_sel = sel[:, :rgg], vals[:, :rgg] != I32_DEAD
             mbi = sel // ngw
@@ -887,10 +905,9 @@ def _query_groupmax(state: ForestState, queries, query_ids, layout: KeyLayout, s
                 lo = -(1 << (q_bits - 1))
                 qv = torch.where(flat == I32_DEAD, lo, torch.clamp(flat >> sh, min=lo + 1))
                 pack = ((qv << (bits_w + mshift)) | ((flat & (gsl - 1)) << bits_w)
-                        | torch.arange(width, device=dev))
-                pack_s, _ = torch.sort(pack, dim=1, descending=True)
-                pack_s = pack_s[:, :rg]
-                sel = pack_s & ((1 << bits_w) - 1)
+                        | torch.arange(width, device=dev))        # fits int32
+                pack_s = topk_select(pack.to(torch.int32), rg, descending=True)
+                sel = (pack_s & ((1 << bits_w) - 1)).long()
                 member = (pack_s >> bits_w) & (gsl - 1)
                 sel_valid = (pack_s >> (bits_w + mshift)) > lo
             else:
@@ -926,10 +943,13 @@ def _stage2(folded: torch.Tensor, qi8: torch.Tensor, base: torch.Tensor, t2: tor
     frows = folded[tf, rowf].view(b, -1, fold, cs)             # [B, R2, fold, cs]
     slot_sc = (frows.to(torch.int32) * qi8.to(torch.int32)[:, None, None, :]).sum(
         -1, dtype=torch.int32).reshape(b, rgg * gsl)           # (row, slot) = cand2 order
-    # sort 1: (id asc, -score asc), so each id's best copy leads; sort 2:
-    # unique ids by score. The sentinel 2^30 clears every real row index
-    # (< Npad) and every negated score: |score| <= cs*127^2, which is
-    # 4,129,024 at the widest tier width (cs 256)
+    # sort 1: (id asc, -score asc), so each id's best copy leads; then the
+    # `stage2` smallest (-score, id) of the unique ids: ids ascend after
+    # sort 1, so that is the stable sort's order by score. The sentinel
+    # 2^30 clears every real row index (< Npad) and every negated score:
+    # |score| <= cs*127^2, which is 4,129,024 at the widest tier width
+    # (cs 256), so -score + 2^30 lies in (0, 2^31), a dead entry's 2^31
+    # above it, and the key ((-score + 2^30) << 31) | id stays below 2^63
     sent = 1 << 30
     idk = torch.where(cand2 >= 0, cand2, sent).to(torch.int64)
     negsc = torch.where(cand2 >= 0, -slot_sc, sent).to(torch.int64)
@@ -937,9 +957,8 @@ def _stage2(folded: torch.Tensor, qi8: torch.Tensor, base: torch.Tensor, t2: tor
     id_s = key >> 32
     neg_s = (key & 0xFFFFFFFF) - 2**31
     neg_s = torch.where(_first_dups(id_s) | (id_s == sent), sent, neg_s)
-    neg2, order = torch.sort(neg_s, dim=1, stable=True)
-    id2 = torch.gather(id_s, 1, order)
-    return torch.where(neg2 != sent, id2, -1)[:, :stage2]
+    top = topk_select(((neg_s + sent) << 31) | id_s, stage2, descending=False)
+    return torch.where(top < (2 * sent) << 31, top & (2**31 - 1), -1)
 
 
 def _dedup_selected(cand2: torch.Tensor, cap: int, width: int) -> torch.Tensor:
@@ -1018,22 +1037,23 @@ def _query_dense_eager(state: ForestState, queries: torch.Tensor, query_ids: tor
 _QUERY_DEFAULTS = {n: p.default for n, p in inspect.signature(_query_dense_eager).parameters.items()
                    if p.default is not inspect.Parameter.empty}
 # the options that change the hash and flatten graphs, in a chain's key
-_CHAIN_OPTIONS = ("steps", "m_cap", "multiprobe", "probe_mode", "probe_budget", "coarse_window")
+_CHAIN_OPTIONS = ("steps", "m_cap", "multiprobe", "probe_mode", "probe_budget", "coarse_window",
+                  "coarse_group")
 
 
-def _lane_chain(state: ForestState, queries: torch.Tensor, layout: KeyLayout,
-                o: dict, win: int) -> Optional[ChainGraphs]:
+def _chunk_chain(state: ForestState, queries: torch.Tensor, layout: KeyLayout,
+                 o: dict, win: int, align: int = 8) -> Optional[ChainGraphs]:
     """The hash stage and the candidates' lookup and flatten of this chunk
     as CUDA graphs (`index/chunk_graphs.py`), the partitions' product eager
     between them; or None where the chunk runs them eagerly: off the card,
-    outside a lane tier in window mode (`win` 0), for a hash other than K1's
-    (the p-stable product calls cuBLAS, the other index transforms upload
-    constants), and on a key's first use. The key: the calling thread, the
-    device, the chunk's shape and dtype, the layout, and the options that
-    change the graphs."""
-    if not (win and queries.is_cuda and state.coarse_folded is None
-            and state.coarse_tier is not None and state.model.family == "angle"
-            and state.model.type_of_index == "original"):
+    outside window mode (`win` 0) on a lane or folded tier (windows
+    `align`-aligned), for a hash other than K1's (the p-stable product
+    calls cuBLAS, the other index transforms upload constants), and on a
+    key's first use. The key: the calling thread, the device, the chunk's
+    shape and dtype, the layout, and the options that change the graphs."""
+    if not (win and queries.is_cuda
+            and (state.coarse_tier is not None or state.coarse_folded is not None)
+            and state.model.family == "angle" and state.model.type_of_index == "original"):
         return None
     key = (threading.get_ident(), queries.device, queries.shape, queries.dtype, layout) + tuple(
         o[n] for n in _CHAIN_OPTIONS)
@@ -1044,7 +1064,8 @@ def _lane_chain(state: ForestState, queries: torch.Tensor, layout: KeyLayout,
 
         def second(h, probes, probe_valid, home):
             return gather_blocks(state.tables, h, home, layout, o["steps"], o["m_cap"],
-                                 o["multiprobe"], probes, probe_valid, window=win)[:5]
+                                 o["multiprobe"], probes, probe_valid, window=win,
+                                 align=align)[:5]
 
         return ChainGraphs(queries, functools.partial(
             _hash_stage, state.model, layout, o["multiprobe"], o["probe_mode"],
@@ -1056,20 +1077,33 @@ def _lane_chain(state: ForestState, queries: torch.Tensor, layout: KeyLayout,
 def _query_dense(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
                  layout: KeyLayout, **kw):
     """Batched ANN query core: `_query_dense_eager`'s keyword arguments and
-    results. On the card, a lane-tier chunk in window mode whose key
-    (`_lane_chain`) this state has seen replays its hash stage, and its
-    candidates' lookup and flatten, as CUDA graphs inside the same stage
-    spans (the second in `rdf.graph.replay`); the kernels and their order
-    are the eager ones, so the answers are the same bit for bit."""
+    results. On the card, a chunk of a lane tier in window mode or of a
+    folded tier whose key (`_chunk_chain`) this state has seen replays its
+    hash stage, and its candidates' lookup and flatten, as CUDA graphs
+    inside the same stage spans (the second in `rdf.graph.replay`); the
+    kernels and their order are the eager ones, so the answers are the same
+    bit for bit."""
     o = {**_QUERY_DEFAULTS, **kw}
-    win, prune = _coarse_plan(state, o["m_cap"], o["coarse_window"], o["window_keep"],
-                              o["head_pool"])
-    chain = _lane_chain(state, queries, layout, o, win)
+    folded = state.coarse_folded is not None
+    if folded:
+        win, align = _fold_window(state, o["m_cap"], o["coarse_window"], o["coarse_group"])
+        prune = False
+    else:
+        win, prune = _coarse_plan(state, o["m_cap"], o["coarse_window"], o["window_keep"],
+                                  o["head_pool"])
+        align = 8
+    chain = _chunk_chain(state, queries, layout, o, win, align)
     if chain is None:
         return _query_dense_eager(state, queries, query_ids, layout, **kw)
     with span("rdf.hash"):
         h = chain.run_first(queries)[0]
         hash_kernel.LAUNCHES += 1                 # the replay launched K1 once
+    if folded:
+        return _query_groupmax(
+            state, queries, query_ids, layout, o["steps"], o["m_cap"], o["k"], o["multiprobe"],
+            o["exclude_self"], refine=o["coarse_refine"], h=h, window=o["coarse_window"],
+            group_slots=o["coarse_group"], rows_keep=o["rows_keep"],
+            select_mult=o["select_mult"], stage2=o["stage2"], chain=chain)
     with span("rdf.candidates"):
         home = partition_of_hash(h, state.part_proj)
         with span("rdf.graph.replay"):

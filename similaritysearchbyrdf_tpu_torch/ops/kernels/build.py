@@ -112,6 +112,10 @@ def library() -> ctypes.CDLL:
             lib.rdf_coarse_rowmax.restype = i
             lib.rdf_flat_groupmax.argtypes = [p] * 4 + [i] * 7 + [p]
             lib.rdf_flat_groupmax.restype = i
+            lib.rdf_topk_select.argtypes = [p] * 3 + [i] * 9 + [p]
+            lib.rdf_topk_select.restype = i
+            lib.rdf_topk_select_form.argtypes = [i] * 3
+            lib.rdf_topk_select_form.restype = i
             _lib = lib
     return _lib
 

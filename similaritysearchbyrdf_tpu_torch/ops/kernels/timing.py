@@ -66,7 +66,14 @@ as the smoke's). `K2b_sharded_flat_cs96` times it at a sharded flat
 engine's exact2 re-score on a D-96 shard: 1,007,616 x 96 int8, B 1024 x 30
 all-live windows of 64 drawn as K2b_sparse_flat's (2.3x sharing).
 `K4_bf16_8m` times K4 on a bf16 sketch at Deep-8M (B 1024 x 8,003,584 x
-96, G 64, unpacked): `FlatIndex(sketch_dtype="bfloat16")`'s scan. The
+96, G 64, unpacked): `FlatIndex(sketch_dtype="bfloat16")`'s scan.
+`topk_group_select` and `topk_stage2` time the top-k select at the folded
+Deep cell's chunk (the packed group select, 1,792 of 128 x 32,768; stage2,
+4,096 of 128 x 14,336 int64 keys), with the full `torch.sort` each
+replaced under `product_ms` (device time: the pack and the sort for the
+first, the stable sort for the second) and `torch.topk` at the same shape
+under `library_ms` (device time; on the packed keys for the first, whose
+pack it leaves out). The
 K2 and K2b entries past K2b_sparse_flat print their gathered and distinct
 bytes under `*_share`.
 `--only K3` times only the entries whose names start with one of the given
@@ -276,6 +283,7 @@ def main() -> int:
     from . import coarse_gather as K2
     from . import flat_groupmax as K4
     from . import hash_kernel as K1
+    from . import topk_select as TK
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
@@ -294,7 +302,7 @@ def main() -> int:
     def wanted(*names):
         return not args.only or any(n.startswith(p) for n in names for p in args.only)
 
-    out, device, info, product = {}, {}, {}, {}
+    out, device, info, product, library = {}, {}, {}, {}, {}
 
     def timed(name, fn):
         t = kernel_times(fn, args.reps)
@@ -386,6 +394,43 @@ def main() -> int:
                     folded, qi8, table, rs, wpr, 8, 6, emit2))
         del folded
 
+    if wanted("topk_group_select", "topk_stage2"):
+        # the folded Deep cell's chunk (dpf_deep96_folded): the group select
+        # keeps 1,792 of 128 x 32,768 packed group values (cs 16, group 8:
+        # sh 5, bits_w 15; a third of the groups dead), stage2 the 4,096
+        # smallest of 128 x 14,336 ((-score + 2^30) << 31) | id keys (a
+        # quarter dead); `sort_ms` times the full sort each replaced, device
+        # time as `device_ms`
+        b, width, rgg, m, keep, sent = 128, 32_768, 1_792, 14_336, 4_096, 1 << 30
+        score = torch.randint(-16 * 127 * 127, 16 * 127 * 127 + 1, (b, width), generator=gen,
+                              device=dev, dtype=torch.int32)
+        g1 = score * 8 | torch.randint(0, 8, (b, width), generator=gen, device=dev,
+                                       dtype=torch.int32)
+        g1 = torch.where(torch.rand((b, width), generator=gen, device=dev) < 1 / 3,
+                         K3.I32_DEAD, g1).contiguous()
+        lo = -(1 << 16)
+        gidx = torch.arange(width, device=dev)
+        neg = torch.randint(-258_064, 258_065, (b, m), generator=gen, device=dev)
+        ids = torch.arange(m, device=dev) * 64 + torch.randint(0, 64, (b, m), generator=gen,
+                                                               device=dev)   # ascending
+        dead = torch.rand((b, m), generator=gen, device=dev) < 0.25
+        neg_s = torch.where(dead, sent, neg)
+        key2 = (((neg_s + sent) << 31) | ids).contiguous()
+        if wanted("topk_group_select"):
+            timed("topk_group_select", lambda: TK.topk_packed_select(g1, rgg, 5, 15))
+            product["topk_group_select"] = median_event_ms(lambda: torch.sort(
+                (torch.clamp(g1.to(torch.int64) >> 5, min=lo) << 15) | gidx, dim=1,
+                descending=True), args.reps, busy=True)
+            pack = TK.pack_keys_plain(g1, 5, 15)
+            library["topk_group_select"] = median_event_ms(lambda: torch.topk(
+                pack, rgg, dim=1, largest=True, sorted=True), args.reps, busy=True)
+        if wanted("topk_stage2"):
+            timed("topk_stage2", lambda: TK.topk_select(key2, keep, descending=False))
+            product["topk_stage2"] = median_event_ms(
+                lambda: torch.sort(neg_s, dim=1, stable=True), args.reps, busy=True)
+            library["topk_stage2"] = median_event_ms(lambda: torch.topk(
+                key2, keep, dim=1, largest=False, sorted=True), args.reps, busy=True)
+        del g1, key2, neg_s, ids
     if wanted("K2b_flat_20k", "K4_flat_20k_unpacked"):
         sk = i8(24_576, 128)
         sk[20_000:] = 0
@@ -593,6 +638,7 @@ def main() -> int:
         timed("floor_one_block", lambda: K2.coarse_block_scores_kernel(t1, q1, i1, i1, 8))
     print(json.dumps({"checkout": os.getcwd(), "reps": args.reps, "ms": out,
                       "device_ms": device, **({"product_ms": product} if product else {}),
+                      **({"library_ms": library} if library else {}),
                       **info}), flush=True)
     return 0
 

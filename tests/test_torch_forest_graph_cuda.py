@@ -3,7 +3,9 @@ settings on a small corpus: a replayed chunk's ids, scores and candidate
 counts equal the eager path's bit for bit (with window pruning too), each
 key captures once, a
 partial last chunk stays eager, a refit captures anew, and a traced call
-attributes the replayed kernels to `rdf.candidates`. Needs an NVIDIA GPU;
+attributes the replayed kernels to `rdf.candidates`; a folded tier at the
+dpf_deep96_folded benchmark's settings replays bit-equal to its eager path
+too, and its traced candidates hold the replays. Needs an NVIDIA GPU;
 run on the card without the suite's conftest, which imports jax:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_forest_graph_cuda.py
@@ -187,6 +189,64 @@ def test_a_traced_call_reads_the_replayed_kernels(dev, tmp_path):
     launches = [e for e in events if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
                 and e["name"].startswith("cudaGraphLaunch")]
     print(f"\ngraph launches {len(launches)}, device us under the replays {replay_us:.1f}, "
+          f"candidates us/query {cand_us:.3f}")
+    assert replay_us > 0 and cand_us is not None
+    assert cand_us * host_q.shape[0] > replay_us
+
+
+FOLDED_KW = dict(steps=1, probe_mode="margin", probe_budget=16, m_cap=262_144, k=10,
+                 coarse_refine=14_336, coarse_window=512, coarse_group=8, rows_keep=0,
+                 stage2=4_096)
+
+
+def folded_fitted(dev):
+    """A folded tier at the dpf_deep96_folded benchmark's settings (cs 16,
+    group 8, windows of 512, rows_keep 0, stage2 4,096 of 14,336, steps 1)."""
+    batch, q = corpus(200_000, 5)
+    conf = RDFConfig(vector_dim=100, table_num=10, permutation_num=3, family_size=100,
+                     generate_by_pulling=True, is_orthogonal=True, partition_bits=3,
+                     fit_batch_size=8192, query_batch_size=CHUNK, max_candidates=262_144,
+                     top_k=10, seed=31258, coarse_dim=16, coarse_dtype="int8",
+                     coarse_layout="folded", coarse_window=512, coarse_group=8,
+                     coarse_rows_keep=0, coarse_refine=14_336, coarse_stage2=4_096,
+                     lsh_table=TableConfig(chain_length=32, bucket_overflow=2000))
+    return RDFForest(conf, device=dev).fit(batch), torch.as_tensor(q, device=dev)
+
+
+def test_folded_chunks_replay_equal_the_eager_path(dev, counted, tmp_path):
+    from benchmark.lib import cell, trace
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import topk_select
+
+    forest, q = folded_fitted(dev)
+    st, qi = forest.state, no_ids(CHUNK, dev)
+    chunks = [q[c:c + CHUNK] for c in range(0, 4 * CHUNK, CHUNK)]
+    for i, c in enumerate(chunks + chunks[:1]):
+        before = topk_select.LAUNCHES
+        got = F.query_dense(st, c, qi, forest.layout, **FOLDED_KW)
+        assert topk_select.LAUNCHES == before + 2      # group select and stage2, eager
+        want = F._query_dense_eager(st, c, qi, forest.layout, **FOLDED_KW)
+        assert_same(got, want)
+        assert len(counted) == (0 if i == 0 else 1)
+    assert captured(st) == 1
+    # a traced call reads the replayed hash and candidates in their spans
+    query = {n: FOLDED_KW[n] for n in ("steps", "probe_mode", "probe_budget")}
+    host_q = q[:4 * CHUNK].cpu().numpy()
+    forest.query(host_q, k=10, **query)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function(trace.SLICE):
+            forest.query(host_q, k=10, **query)
+            torch.cuda.synchronize(dev)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    window = trace.slice_range(events)
+    ctx = types.SimpleNamespace(trace={"events": events, "window": window,
+                                       "queries": host_q.shape[0], "records": {}})
+    replay_us = trace.range_device_us(events, "rdf.graph.replay", window)
+    cand_us = cell.reader("fold_candidates_us_per_query").read(ctx)
+    print(f"\nfolded: device us under the replays {replay_us:.1f}, "
           f"candidates us/query {cand_us:.3f}")
     assert replay_us > 0 and cand_us is not None
     assert cand_us * host_q.shape[0] > replay_us

@@ -94,7 +94,8 @@ def test_kernel_sources_are_package_data():
     data = conf["tool"]["setuptools"]["package-data"]["similaritysearchbyrdf_tpu_torch"]
     assert "csrc/*.cu" in data and "csrc/*.cuh" in data
     assert sorted(p.name for p in (PORT / "csrc").glob("*.cu")) == [
-        "coarse_fold.cu", "coarse_gather.cu", "flat_groupmax.cu", "hash_kernel.cu"]
+        "coarse_fold.cu", "coarse_gather.cu", "flat_groupmax.cu", "hash_kernel.cu",
+        "topk_select.cu"]
 
 
 def test_native_sources_are_package_data():
