@@ -1447,7 +1447,8 @@ def topk_check(st, q, layout, qkw: dict, sync, median_ms) -> dict:
     qids = torch.full((q.shape[0],), -1, dtype=torch.int32, device=q.device)
     F.topk_packed_select, F.topk_select = packed, select
     try:
-        F._query_dense_eager(st, q, qids, layout, **qkw, stage2=4096)
+        o = F.QueryOptions(**qkw, stage2=4096)
+        F._query_chunk(st, q, qids, layout, o, F._coarse_plan(st, o), None)
     finally:
         F.topk_packed_select, F.topk_select = real_packed, real_select
     sync()
@@ -2408,10 +2409,8 @@ def sharded_phase(x8, gt8, dev, sync, median_ms) -> dict:
         (K1, "coarse_rowmax_kernel"), ((H, (K1,)), (F, ("coarse_rowmax_kernel",))),
         nq, gt_ids, ids, sync, wall_reps=2, profile_reps=1)
     out["folded"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
-    kw = forest.query_kw(**qkw)
-    k = kw.pop("k")
-    merge_check("folded", got, sc, SF.query_shards(st, q[:64], qids[:64], forest.layout, k,
-                                                   True, **kw), "above_neg_inf")
+    merge_check("folded", got, sc, SF.query_shards(st, q[:64], qids[:64], forest.layout,
+                                                   forest.query_kw(**qkw)), "above_neg_inf")
     single_rec = single["folded_8m"].get("recall_at_10")
     if single_rec is not None:
         out["folded"]["recall_gap_to_single_device"] = out["folded"]["recall_at_10"] - single_rec
@@ -2433,10 +2432,8 @@ def sharded_phase(x8, gt8, dev, sync, median_ms) -> dict:
         out, "block", lambda: forest.query_device(q, query_ids=qids, **QUERY_KW), (K1, K2),
         ((H, (K1,)), (F, (K2,))), nq, gt_ids, ids, sync)
     out["block"]["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
-    kw = forest.query_kw(**QUERY_KW)
-    k = kw.pop("k")
     merge_check("block", got, sc, SF.query_shards(forest.state, q[:64], qids[:64],
-                                                  forest.layout, k, True, **kw),
+                                                  forest.layout, forest.query_kw(**QUERY_KW)),
                 "above_neg_inf")
     kern["K1_block"] = k1_check(calls[K1][0], sync, median_ms, "shard 0's block query")
     (tier, q_low, table_i, blk_start, bs), kw2 = calls[K2][0]

@@ -35,9 +35,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import inspect
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -317,6 +316,61 @@ def fit_dense(conf: RDFConfig, batch: DenseBatch, model: Optional[HashModel] = N
         corpus_lp=corpus_lp, coarse_proj=coarse_proj, coarse_tier=coarse_tier,
         coarse_head=coarse_head, coarse_layout=conf.coarse_layout,
     )
+
+
+# ---------------------------------------------------------------------------
+# query: options
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryOptions:
+    """The options of one forest query, with the JAX package's defaults.
+    probe_mode "reference" flips low bits blindly as the reference does;
+    "margin" flips the `probe_budget` smallest-margin bits per table."""
+
+    steps: int = 0
+    m_cap: int = 4096
+    k: int = 10
+    multiprobe: bool = True
+    exclude_self: bool = True
+    probe_mode: str = "reference"
+    probe_budget: int = 8
+    coarse_refine: int = 2048
+    coarse_window: int = -1
+    window_keep: int = 0
+    head_pool: int = 0
+    coarse_group: int = 64
+    rows_keep: int = 1
+    select_mult: int = 1
+    stage2: int = 0
+
+    def chain_key(self) -> tuple:
+        """The options that change a chunk's hash and flatten graphs, in
+        `_chunk_chain`'s key."""
+        return (self.steps, self.m_cap, self.multiprobe, self.probe_mode, self.probe_budget,
+                self.coarse_window, self.coarse_group)
+
+
+def query_options(conf: RDFConfig, k: Optional[int] = None, m_cap: Optional[int] = None,
+                  coarse_refine: Optional[int] = None, coarse_window: Optional[int] = None,
+                  window_keep: Optional[int] = None, coarse_group: Optional[int] = None,
+                  rows_keep: Optional[int] = None, select_mult: Optional[int] = None,
+                  stage2: Optional[int] = None, **kw) -> QueryOptions:
+    """The options of a query on a forest fitted with `conf`: `kw` as given,
+    the others the config's where not given: k, m_cap, coarse_refine,
+    coarse_group and select_mult when None or 0; coarse_window, window_keep
+    (`coarse_keep`), rows_keep and stage2 only when None; head_pool always
+    (`coarse_head_pool`)."""
+    return QueryOptions(
+        k=k or conf.top_k, m_cap=m_cap or conf.max_candidates,
+        coarse_refine=coarse_refine or conf.coarse_refine,
+        coarse_window=conf.coarse_window if coarse_window is None else coarse_window,
+        window_keep=conf.coarse_keep if window_keep is None else window_keep,
+        head_pool=conf.coarse_head_pool, coarse_group=coarse_group or conf.coarse_group,
+        rows_keep=conf.coarse_rows_keep if rows_keep is None else rows_keep,
+        select_mult=select_mult or conf.coarse_select_mult,
+        stage2=conf.coarse_stage2 if stage2 is None else stage2, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -604,14 +658,18 @@ def _strided_tournament(scores: torch.Tensor, pos: torch.Tensor, table_slot: tor
     return pick(scores), pick(pos), pick(table_slot)
 
 
-def _select_m2(scores: torch.Tensor, pos: torch.Tensor, table_slot: torch.Tensor,
-               m2: int):
-    """Top-m2 slots by coarse score → (t2, p2, sel_valid). The reference
-    takes approx_max_k on narrow slices and a sort otherwise; on the CPU both
-    return the exact top-m2, and so does this stable sort."""
+def _select_rows(tables: BucketTables, scores: torch.Tensor, pos: torch.Tensor,
+                 table_slot: torch.Tensor, m2: int) -> torch.Tensor:
+    """The corpus rows of the top-m2 slots by coarse score, i32[B, m2]
+    with -1 for a dead slot. The reference takes approx_max_k on narrow
+    slices and a sort otherwise; on the CPU both return the exact top-m2,
+    and so does this stable sort."""
     vals, idx = rerank_ops.top_sorted(scores, m2)
-    return (torch.gather(table_slot, 1, idx), torch.gather(pos, 1, idx),
-            torch.isfinite(vals))
+    t2, p2 = torch.gather(table_slot, 1, idx), torch.gather(pos, 1, idx)
+    sel_valid = torch.isfinite(vals)
+    cand2 = tables.sorted_ids[t2.clamp(0, tables.num_tables - 1),
+                              p2.clamp(0, tables.capacity - 1)]
+    return torch.where(sel_valid & (cand2 >= 0), cand2, -1)
 
 
 def _exclude_self(cand: torch.Tensor, row_ids: torch.Tensor,
@@ -643,31 +701,49 @@ def _rerank(state: ForestState, cand2: torch.Tensor, queries: torch.Tensor,
     return _to_user_ids(state, rows), sc
 
 
-def _hash_stage(model: HashModel, layout: KeyLayout, multiprobe: bool, probe_mode: str,
-                probe_budget: int, queries: torch.Tensor):
+def _hash_stage(model: HashModel, layout: KeyLayout, opts: QueryOptions, queries: torch.Tensor):
     """The `rdf.hash` stage: K1, with margins and the margin probes in
     probe_mode "margin". → (h int64[B, L], probes, probe_valid), the probes
     None for the reference probes, which `probe_key_set` derives from h."""
-    if probe_mode == "margin" and multiprobe:
+    if opts.probe_mode == "margin" and opts.multiprobe:
         h, margins = hash_dense_with_margins(model, queries)
-        return (h,) + _probe_hashes_margin(h, margins, layout, probe_budget)
+        return (h,) + _probe_hashes_margin(h, margins, layout, opts.probe_budget)
     return hash_dense(model, queries), None, None
 
 
-def _coarse_plan(state: ForestState, m_cap: int, window: int, window_keep: int,
-                 head_pool: int) -> Tuple[int, bool]:
-    """(win, prune) of a lane-tier query: the window size (0 is block mode)
-    and whether the head tier prunes windows. The window rule is the
-    reference's: -1 picks 64-slot windows at m_cap >= 32768, 0 is block
-    mode, > 0 an explicit window size; window_keep >= m_cap // win keeps
-    every window and so is off."""
+def window_size(m_cap: int, window: int) -> int:
+    """The coarse tier's window size, 0 for block mode, by the reference's
+    rule: -1 picks 64-slot windows at m_cap >= 32768, 0 is block mode, > 0
+    an explicit window size (block mode unless it divides m_cap)."""
     if window < 0:
-        win = 64 if m_cap % 64 == 0 and m_cap >= 32768 else 0
-    else:
-        win = window if (window and m_cap % window == 0) else 0
-    prune = (window_keep > 0 and win > 0 and state.coarse_head is not None
-             and head_pool > 0 and win % head_pool == 0 and window_keep < m_cap // win)
-    return win, prune
+        return 64 if m_cap % 64 == 0 and m_cap >= 32768 else 0
+    return window if (window and m_cap % window == 0) else 0
+
+
+class ChunkPlan(NamedTuple):
+    """How a query's chunks run on a state's coarse tier (`_coarse_plan`)."""
+
+    tier: Optional[str]     # "folded", "lane", or None without a coarse tier
+    win: int                # window size, 0 in block mode
+    align: int              # the flatten's window alignment
+    prune: bool             # the head tier prunes windows (lane tier)
+
+
+def _coarse_plan(state: ForestState, opts: QueryOptions) -> ChunkPlan:
+    """The plan of a query on `state`: a folded tier's windows by
+    `_fold_window`; a lane tier's by `window_size`, pruned by the head tier
+    to the window_keep best where 0 < window_keep < m_cap // win; block mode
+    without a coarse tier."""
+    if state.coarse_folded is not None:
+        win, align = _fold_window(state, opts.m_cap, opts.coarse_window, opts.coarse_group)
+        return ChunkPlan("folded", win, align, False)
+    if state.coarse_tier is None:
+        return ChunkPlan(None, 0, 8, False)
+    win = window_size(opts.m_cap, opts.coarse_window)
+    hp, keep = opts.head_pool, opts.window_keep
+    prune = (keep > 0 and win > 0 and state.coarse_head is not None and hp > 0
+             and win % hp == 0 and keep < opts.m_cap // win)
+    return ChunkPlan("lane", win, 8, prune)
 
 
 def _prune(state: ForestState, queries, blocks, win: int, window_keep: int, head_pool: int):
@@ -680,51 +756,25 @@ def _prune(state: ForestState, queries, blocks, win: int, window_keep: int, head
                           win, window_keep) + (total,)
 
 
-def _coarse_rest(state: ForestState, queries, query_ids, blocks, bs: int, win: int,
-                 prune: bool, m_cap: int, window_keep: int, k: int, exclude_self: bool,
-                 refine: int):
+def _coarse_rest(state: ForestState, queries, query_ids, opts: QueryOptions, plan: ChunkPlan,
+                 blocks, bs: int):
     """The lane tier's stages after the candidates: coarse scores of all
-    candidates (`rdf.score`), the top `refine` (`rdf.select`) and their
-    exact re-scores (`rdf.rerank`). → (ids, scores, total)."""
-    base_b, table_b, start_b, end_b, total = blocks
-    m_slab = window_keep * win if prune else m_cap
+    candidate blocks of `bs` slots (`rdf.score`), the top `coarse_refine`
+    (`rdf.select`) and their exact re-scores (`rdf.rerank`). → (ids,
+    scores)."""
+    base_b, table_b, start_b, end_b, _ = blocks
+    m_slab = opts.window_keep * plan.win if plan.prune else opts.m_cap
     with span("rdf.score"):
         scores, pos, table_slot = _coarse_block_scores(
             state.coarse_tier, state.coarse_proj, queries, base_b, table_b, end_b, bs,
-            start_b=start_b, abs_starts=prune)
-    l = state.tables.num_tables
-    cap = state.tables.capacity
-    m2 = min(max(refine, (k + 1) * l), m_slab)
+            start_b=start_b, abs_starts=plan.prune)
+    m2 = min(max(opts.coarse_refine, (opts.k + 1) * state.tables.num_tables), m_slab)
     with span("rdf.select"):
-        scores, pos, table_slot = _strided_tournament(scores, pos, table_slot, win, m_slab, m2)
-        t2, p2, sel_valid = _select_m2(scores, pos, table_slot, m2)
-        cand2 = state.tables.sorted_ids[t2.clamp(0, l - 1), p2.clamp(0, cap - 1)]
-        cand2 = torch.where(sel_valid & (cand2 >= 0), cand2, -1)
+        scores, pos, table_slot = _strided_tournament(scores, pos, table_slot, plan.win, m_slab,
+                                                      m2)
+        cand2 = _select_rows(state.tables, scores, pos, table_slot, m2)
     with span("rdf.rerank"):
-        ids, sc = _rerank(state, cand2, queries, query_ids, exclude_self, k)
-    return ids, sc, total
-
-
-def _query_dense_coarse(state: ForestState, queries, query_ids, layout: KeyLayout,
-                        steps: int, m_cap: int, k: int, multiprobe: bool,
-                        exclude_self: bool, refine: int, probes=None, probe_valid=None,
-                        h=None, window: int = -1, window_keep: int = 0, head_pool: int = 0):
-    """Query through the coarse tier: coarse scores of all candidates,
-    exact re-scores of the top `refine` only. In window mode, window_keep >
-    0 with a head tier (`coarse_head_pool`) prunes to the `window_keep` best
-    windows first (`_prune_windows`); `_coarse_plan` gives the window
-    rule."""
-    win, prune = _coarse_plan(state, m_cap, window, window_keep, head_pool)
-    if h is None:
-        h = hash_dense(state.model, queries)
-    with span("rdf.candidates"):
-        home = partition_of_hash(h, state.part_proj)
-        *blocks, bs = gather_blocks(state.tables, h, home, layout, steps, m_cap, multiprobe,
-                                    probes, probe_valid, window=win)
-        if prune:
-            blocks = _prune(state, queries, blocks, win, window_keep, head_pool)
-    return _coarse_rest(state, queries, query_ids, blocks, bs, win, prune, m_cap, window_keep,
-                        k, exclude_self, refine)
+        return _rerank(state, cand2, queries, query_ids, opts.exclude_self, opts.k)
 
 
 def _first_dups(sorted_keys: torch.Tensor) -> torch.Tensor:
@@ -768,58 +818,49 @@ def _fold_window(state: ForestState, m_cap: int, window: int, group_slots: int) 
     return win, align
 
 
-def _query_groupmax(state: ForestState, queries, query_ids, layout: KeyLayout, steps: int,
-                    m_cap: int, k: int, multiprobe: bool, exclude_self: bool, refine: int,
-                    probes=None, probe_valid=None, h=None, window: int = -1,
-                    group_slots: int = 64, rows_keep: int = 1, select_mult: int = 1,
-                    stage2: int = 0, chain: Optional[ChainGraphs] = None):
-    """Query through the slot-folded tier: aligned windows of folded rows,
-    each row reduced by K3 to its best packed `(score << mshift) | member`,
-    rows to groups of `group_slots` slots by a max, and the select runs on
-    one int32 per group. rows_keep=0 reranks every slot of the best
-    refine/group_slots groups (optionally over-selecting by `select_mult`
-    and deduplicating ids, or re-scoring them in int8 and keeping the
-    `stage2` best unique ids); rows_keep=1|2 reranks only each group's best
-    (and second) slot. All packed selects are those of the JAX package's
-    `_query_groupmax`, with the same bit layouts, so the selections agree
-    bit for bit: the one-operand selects keep their prefix through the
-    top-k kernel over packed keys (`ops/kernels/topk_select.py`), the
-    others sort in int64, where no value wraps. With `chain` (`_chunk_chain`)
-    the candidates' lookup and flatten replay as a CUDA graph."""
-    if h is None:
-        h = hash_dense(state.model, queries)
-    win, align = _fold_window(state, m_cap, window, group_slots)
+def _fold_live(state: ForestState, blocks, win: int):
+    """The folded tier's flattened blocks (base_b, table_b, start_b, end_b,
+    total) → (blk, table_b, start_b, end_b, total, live): blk the absolute
+    window starts, clamped into the table BEFORE positions are derived (as
+    in window mode), and live whether a window holds a slot of its range."""
+    base_b, table_b, start_b, end_b, total = blocks
+    mb = torch.arange(base_b.shape[1], device=base_b.device)
+    blk = torch.clamp(base_b + mb * win, 0, state.coarse_tier.shape[1] - win)   # slots
+    return blk, table_b, start_b, end_b, total, (blk < end_b) & (blk + win > start_b)
+
+
+def _query_groupmax(state: ForestState, queries, query_ids, opts: QueryOptions,
+                    plan: ChunkPlan, blocks):
+    """The folded tier after the candidates (`_fold_live`'s blocks of
+    `plan.win`-slot windows): each folded row reduced by K3 to its best packed
+    `(score << mshift) | member`, rows to groups of `coarse_group` slots by
+    a max, and the select runs on one int32 per group. rows_keep=0 reranks
+    every slot of the best refine/group groups (optionally over-selecting by
+    `select_mult` and deduplicating ids, or re-scoring them in int8 and
+    keeping the `stage2` best unique ids); rows_keep=1|2 reranks only each
+    group's best (and second) slot. All packed selects are the JAX
+    package's, with the same bit layouts, so the selections agree bit for
+    bit: the one-operand selects keep their prefix through the top-k kernel
+    over packed keys (`ops/kernels/topk_select.py`), the others sort in
+    int64, where no value wraps. → (ids, scores)."""
+    refine, rows_keep, stage2 = opts.coarse_refine, opts.rows_keep, opts.stage2
     folded = state.coarse_folded                  # i8[L, capf, lanes]
-    l_n, capf, lanes = folded.shape
+    l_n, _, lanes = folded.shape
     cs = state.coarse_proj.shape[1]
     fold = lanes // cs
-    gsl = group_slots
+    gsl = opts.coarse_group
     rpg = gsl // fold
     mshift = gsl.bit_length() - 1
-    capslots = capf * fold
     # the packed (score << mshift) | member must fit int32 on every path
     score_bits = (cs * 127 * 127).bit_length() + 1       # signed int8 dot
     if score_bits + mshift > 32:
         raise ValueError(f"folded groupmax pack overflow: score bits {score_bits} + "
                          f"member bits {mshift} > 32")
-    b = queries.shape[0]
+    blk, table_b, start_b, end_b, _, live = blocks
+    b, mb_cap = blk.shape
     dev = queries.device
-    mb_cap = m_cap // win
-    with span("rdf.candidates"):
-        home = partition_of_hash(h, state.part_proj)
-        if chain is None:
-            base_b, table_b, start_b, end_b, total, _ = gather_blocks(
-                state.tables, h, home, layout, steps, m_cap, multiprobe, probes, probe_valid,
-                window=win, align=align)
-        else:
-            with span("rdf.graph.replay"):
-                base_b, table_b, start_b, end_b, total = chain.run_second(home)
-            total = total.clone()                  # outlives the chunk
-        # clamp BEFORE positions are derived, as in window mode
-        blk = torch.clamp(base_b + torch.arange(mb_cap, device=dev) * win, 0, capslots - win)
-        live = (blk < end_b) & (blk + win > start_b)
-    wpr = win // fold
-    ngw = win // gsl
+    wpr = plan.win // fold
+    ngw = plan.win // gsl
     with span("rdf.score"):
         qi8 = query_int8(queries, state.coarse_proj)
         rs = torch.where(live, blk // fold, -1)
@@ -844,7 +885,7 @@ def _query_groupmax(state: ForestState, queries, query_ids, layout: KeyLayout, s
     if rows_keep == 0:
         width = mb_cap * ngw
         rtarget = max(1, min(refine // gsl, width))
-        rgg = max(1, min(rtarget * select_mult, width))
+        rgg = max(1, min(rtarget * opts.select_mult, width))
         with span("rdf.select"):
             bits_w = max(1, (width - 1).bit_length())
             sh = max(0, score_bits + mshift - (32 - bits_w))
@@ -921,8 +962,7 @@ def _query_groupmax(state: ForestState, queries, query_ids, layout: KeyLayout, s
             cand2 = sorted_ids[t2.clamp(0, l_n - 1), pos.clamp(0, cap - 1)]
             cand2 = torch.where(sel_valid & (cand2 >= 0), cand2, -1)
     with span("rdf.rerank"):
-        ids, sc = _rerank(state, cand2, queries, query_ids, exclude_self, k)
-    return ids, sc, total
+        return _rerank(state, cand2, queries, query_ids, opts.exclude_self, opts.k)
 
 
 def _stage2(folded: torch.Tensor, qi8: torch.Tensor, base: torch.Tensor, t2: torch.Tensor,
@@ -992,149 +1032,130 @@ def _dedup_selected(cand2: torch.Tensor, cap: int, width: int) -> torch.Tensor:
     return torch.where(out == big, -1, out)
 
 
-def _query_dense_eager(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
-                       layout: KeyLayout, steps: int = 0, m_cap: int = 4096, k: int = 10,
-                       multiprobe: bool = True, exclude_self: bool = True,
-                       probe_mode: str = "reference", probe_budget: int = 8,
-                       coarse_refine: int = 2048, coarse_window: int = -1,
-                       window_keep: int = 0, head_pool: int = 0, coarse_group: int = 64,
-                       rows_keep: int = 1, select_mult: int = 1, stage2: int = 0):
-    """Batched ANN query core, every stage eager → (ids i32[B, k] user ids
-    with -1 padding, scores f32[B, k], candidate counts int64[B]).
-    probe_mode "reference" flips low bits blindly as the reference does;
-    "margin" flips the `probe_budget` smallest-margin bits per table. A
-    folded tier queries through `_query_groupmax` (coarse_group, rows_keep,
-    select_mult, stage2), a lane tier through `_query_dense_coarse`
-    (window_keep, head_pool)."""
-    with span("rdf.hash"):
-        h, probes, probe_valid = _hash_stage(state.model, layout, multiprobe, probe_mode,
-                                             probe_budget, queries)
-    if state.coarse_folded is not None:
-        return _query_groupmax(
-            state, queries, query_ids, layout, steps, m_cap, k, multiprobe,
-            exclude_self, refine=coarse_refine, probes=probes, probe_valid=probe_valid,
-            h=h, window=coarse_window, group_slots=coarse_group, rows_keep=rows_keep,
-            select_mult=select_mult, stage2=stage2)
-    if state.coarse_tier is not None:
-        return _query_dense_coarse(
-            state, queries, query_ids, layout, steps, m_cap, k, multiprobe,
-            exclude_self, refine=coarse_refine, probes=probes, probe_valid=probe_valid,
-            h=h, window=coarse_window, window_keep=window_keep, head_pool=head_pool)
-    home = partition_of_hash(h, state.part_proj)
-    cand, total = gather_candidates(state.tables, h, home, layout, steps, m_cap,
-                                    multiprobe, probes, probe_valid)
-    if exclude_self:
-        cand = _exclude_self(cand, state.row_ids, query_ids)
-    if state.corpus_lp is not None:
-        rows, scores = rerank_ops.rerank_dense_two_stage(state.corpus_lp, state.corpus, cand,
-                                                         queries, k, dup_bound=h.shape[1])
-    else:
-        rows, scores = rerank_ops.rerank_dense(state.corpus, cand, queries, k,
-                                               dup_bound=h.shape[1])
-    return _to_user_ids(state, rows), scores, total
-
-
-_QUERY_DEFAULTS = {n: p.default for n, p in inspect.signature(_query_dense_eager).parameters.items()
-                   if p.default is not inspect.Parameter.empty}
-# the options that change the hash and flatten graphs, in a chain's key
-_CHAIN_OPTIONS = ("steps", "m_cap", "multiprobe", "probe_mode", "probe_budget", "coarse_window",
-                  "coarse_group")
-
-
 def _chunk_chain(state: ForestState, queries: torch.Tensor, layout: KeyLayout,
-                 o: dict, win: int, align: int = 8) -> Optional[ChainGraphs]:
+                 opts: QueryOptions, plan: ChunkPlan) -> Optional[ChainGraphs]:
     """The hash stage and the candidates' lookup and flatten of this chunk
     as CUDA graphs (`index/chunk_graphs.py`), the partitions' product eager
     between them; or None where the chunk runs them eagerly: off the card,
-    outside window mode (`win` 0) on a lane or folded tier (windows
-    `align`-aligned), for a hash other than K1's (the p-stable product
-    calls cuBLAS, the other index transforms upload constants), and on a
-    key's first use. The key: the calling thread, the device, the chunk's
-    shape and dtype, the layout, and the options that change the graphs."""
-    if not (win and queries.is_cuda
-            and (state.coarse_tier is not None or state.coarse_folded is not None)
+    in block mode (`plan.win` 0, as always without a coarse tier), for a
+    hash other than K1's (the p-stable product calls cuBLAS, the other
+    index transforms upload constants), and on a key's first use. The key:
+    the calling thread, the device, the chunk's shape and dtype, the layout,
+    and the options that change the graphs (`QueryOptions.chain_key`)."""
+    if not (plan.win and queries.is_cuda
             and state.model.family == "angle" and state.model.type_of_index == "original"):
         return None
-    key = (threading.get_ident(), queries.device, queries.shape, queries.dtype, layout) + tuple(
-        o[n] for n in _CHAIN_OPTIONS)
+    key = (threading.get_ident(), queries.device, queries.shape, queries.dtype,
+           layout) + opts.chain_key()
 
     def build():
         def between(h, probes, probe_valid):
             return (partition_of_hash(h, state.part_proj),)
 
         def second(h, probes, probe_valid, home):
-            return gather_blocks(state.tables, h, home, layout, o["steps"], o["m_cap"],
-                                 o["multiprobe"], probes, probe_valid, window=win,
-                                 align=align)[:5]
+            return gather_blocks(state.tables, h, home, layout, opts.steps, opts.m_cap,
+                                 opts.multiprobe, probes, probe_valid, window=plan.win,
+                                 align=plan.align)[:5]
 
-        return ChainGraphs(queries, functools.partial(
-            _hash_stage, state.model, layout, o["multiprobe"], o["probe_mode"],
-            o["probe_budget"]), between, second)
+        return ChainGraphs(queries, functools.partial(_hash_stage, state.model, layout, opts),
+                           between, second)
 
     return chain_for(state, key, build)
 
 
-def _query_dense(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
-                 layout: KeyLayout, **kw):
-    """Batched ANN query core: `_query_dense_eager`'s keyword arguments and
-    results. On the card, a chunk of a lane tier in window mode or of a
-    folded tier whose key (`_chunk_chain`) this state has seen replays its
-    hash stage, and its candidates' lookup and flatten, as CUDA graphs
-    inside the same stage spans (the second in `rdf.graph.replay`); the
-    kernels and their order are the eager ones, so the answers are the same
-    bit for bit."""
-    o = {**_QUERY_DEFAULTS, **kw}
-    folded = state.coarse_folded is not None
-    if folded:
-        win, align = _fold_window(state, o["m_cap"], o["coarse_window"], o["coarse_group"])
-        prune = False
-    else:
-        win, prune = _coarse_plan(state, o["m_cap"], o["coarse_window"], o["window_keep"],
-                                  o["head_pool"])
-        align = 8
-    chain = _chunk_chain(state, queries, layout, o, win, align)
-    if chain is None:
-        return _query_dense_eager(state, queries, query_ids, layout, **kw)
+def _query_chunk(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
+                 layout: KeyLayout, opts: QueryOptions, plan: ChunkPlan,
+                 chain: Optional[ChainGraphs]):
+    """One chunk of the batched ANN query → (ids i32[B, k] user ids with -1
+    padding, scores f32[B, k], candidate counts int64[B]): the hash, the
+    candidates (with the lane tier's window pruning or the folded tier's
+    window liveness), then `_coarse_rest` on a lane tier, `_query_groupmax`
+    on a folded one, or an exact rerank of every candidate. With `chain`
+    (`_chunk_chain`) the hash and the lookup and flatten replay as CUDA
+    graphs inside the same spans; the kernels and their order are those of
+    `chain` None, every stage eager, so the answers are equal bit for bit."""
     with span("rdf.hash"):
-        h = chain.run_first(queries)[0]
-        hash_kernel.LAUNCHES += 1                 # the replay launched K1 once
-    if folded:
-        return _query_groupmax(
-            state, queries, query_ids, layout, o["steps"], o["m_cap"], o["k"], o["multiprobe"],
-            o["exclude_self"], refine=o["coarse_refine"], h=h, window=o["coarse_window"],
-            group_slots=o["coarse_group"], rows_keep=o["rows_keep"],
-            select_mult=o["select_mult"], stage2=o["stage2"], chain=chain)
+        if chain is None:
+            h, probes, probe_valid = _hash_stage(state.model, layout, opts, queries)
+        else:
+            h = chain.run_first(queries)[0]
+            hash_kernel.LAUNCHES += 1                 # the replay launched K1 once
+    if plan.tier is None:                     # block mode: never a chain
+        home = partition_of_hash(h, state.part_proj)
+        cand, total = gather_candidates(state.tables, h, home, layout, opts.steps, opts.m_cap,
+                                        opts.multiprobe, probes, probe_valid)
+        if opts.exclude_self:
+            cand = _exclude_self(cand, state.row_ids, query_ids)
+        if state.corpus_lp is not None:
+            rows, scores = rerank_ops.rerank_dense_two_stage(
+                state.corpus_lp, state.corpus, cand, queries, opts.k, dup_bound=h.shape[1])
+        else:
+            rows, scores = rerank_ops.rerank_dense(state.corpus, cand, queries, opts.k,
+                                                   dup_bound=h.shape[1])
+        return _to_user_ids(state, rows), scores, total
     with span("rdf.candidates"):
         home = partition_of_hash(h, state.part_proj)
-        with span("rdf.graph.replay"):
-            *blocks, total = chain.run_second(home)
-        # the static blocks are read by this chunk's later kernels, which
-        # run before the next replay in stream order; `total` outlives the
-        # chunk
-        blocks = (*blocks, total.clone())
-        if prune:
-            blocks = _prune(state, queries, blocks, win, o["window_keep"], o["head_pool"])
-    return _coarse_rest(state, queries, query_ids, blocks, win, win, prune, o["m_cap"],
-                        o["window_keep"], o["k"], o["exclude_self"], o["coarse_refine"])
+        if chain is None:
+            *blocks, bs = gather_blocks(state.tables, h, home, layout, opts.steps, opts.m_cap,
+                                        opts.multiprobe, probes, probe_valid, window=plan.win,
+                                        align=plan.align)
+        else:
+            with span("rdf.graph.replay"):
+                *blocks, total = chain.run_second(home)
+            # the static blocks are read by this chunk's later kernels, which
+            # run before the next replay in stream order; `total` outlives the
+            # chunk
+            blocks, bs = (*blocks, total.clone()), plan.win
+        if plan.tier == "folded":
+            blocks = _fold_live(state, blocks, plan.win)
+        elif plan.prune:
+            blocks = _prune(state, queries, blocks, plan.win, opts.window_keep, opts.head_pool)
+    if plan.tier == "folded":
+        ids, scores = _query_groupmax(state, queries, query_ids, opts, plan, blocks)
+    else:
+        ids, scores = _coarse_rest(state, queries, query_ids, opts, plan, blocks, bs)
+    return ids, scores, blocks[4]                 # every form of blocks holds total 5th
 
 
-# the public name of the batched query core, as the JAX package exports its
-# jitted form
-query_dense = _query_dense
+def _query_dense(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
+                 layout: KeyLayout, opts: QueryOptions):
+    """One chunk, replayed where `_chunk_chain` has graphs."""
+    plan = _coarse_plan(state, opts)
+    return _query_chunk(state, queries, query_ids, layout, opts, plan,
+                        _chunk_chain(state, queries, layout, opts, plan))
+
+
+def query_dense(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
+                layout: KeyLayout, **kw):
+    """The batched ANN query core, under the public name the JAX package
+    gives its jitted form: `QueryOptions`' fields as keywords → (ids i32[B,
+    k] user ids with -1 padding, scores f32[B, k], candidate counts
+    int64[B]). On the card, a chunk of a lane tier in window mode or of a
+    folded tier whose key this state has seen replays its hash stage and
+    its candidates' lookup and flatten as CUDA graphs (`_chunk_chain`)."""
+    return _query_dense(state, queries, query_ids, layout, QueryOptions(**kw))
+
+
+def _query_many(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
+                layout: KeyLayout, chunk: int, opts: QueryOptions):
+    """`query_dense_many` on an options record. A partial last chunk runs
+    eagerly: its size changes from call to call."""
+    plan = _coarse_plan(state, opts)
+    out = []
+    for c0 in range(0, queries.shape[0], chunk):
+        q = queries[c0:c0 + chunk]
+        with span("rdf.chunk"):
+            chain = _chunk_chain(state, q, layout, opts, plan) if q.shape[0] == chunk else None
+            out.append(_query_chunk(state, q, query_ids[c0:c0 + chunk], layout, opts, plan,
+                                    chain))
+    return tuple(torch.cat(parts) for parts in zip(*out))
 
 
 def query_dense_many(state: ForestState, queries: torch.Tensor, query_ids: torch.Tensor,
                      layout: KeyLayout, chunk: int = 256, **kw):
     """Whole-query-set search, `chunk` queries at a time (bounds peak
-    memory). Takes `_query_dense`'s keyword arguments. A partial last chunk
-    runs eagerly: its size changes from call to call."""
-    out = []
-    for c0 in range(0, queries.shape[0], chunk):
-        q = queries[c0:c0 + chunk]
-        run = _query_dense if q.shape[0] == chunk else _query_dense_eager
-        with span("rdf.chunk"):
-            out.append(run(state, q, query_ids[c0:c0 + chunk], layout, **kw))
-    return tuple(torch.cat(parts) for parts in zip(*out))
+    memory). Takes `query_dense`'s keyword arguments."""
+    return _query_many(state, queries, query_ids, layout, chunk, QueryOptions(**kw))
 
 
 # ---------------------------------------------------------------------------
@@ -1198,14 +1219,10 @@ class RDFForest:
                      select_mult: Optional[int] = None, stage2: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """`query` without the host transfer: tensors on the forest's device.
-        Queries are taken `conf.query_batch_size` at a time; coarse_refine,
-        m_cap, coarse_window, window_keep, coarse_group, rows_keep,
-        select_mult and stage2 default to the config's (`coarse_keep`,
-        `coarse_rows_keep`, `coarse_select_mult`, `coarse_stage2` for the
-        renamed ones)."""
+        Queries are taken `conf.query_batch_size` at a time; the options not
+        given are the config's (`query_options`)."""
         if self.state is None:
             raise RuntimeError("need to fit the data first")
-        k = k or self.conf.top_k
         with span("rdf.sync.upload"):
             qd = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         exclude = query_ids is not None
@@ -1214,28 +1231,15 @@ class RDFForest:
                 qids = torch.as_tensor(query_ids, dtype=torch.int32).to(self.device)
         else:
             qids = torch.full((qd.shape[0],), -1, dtype=torch.int32, device=self.device)
-        ids, scores, _ = query_dense_many(
-            self.state, qd, qids, self.layout, chunk=self.conf.query_batch_size,
-            steps=steps, m_cap=m_cap or self.conf.max_candidates, k=k,
-            multiprobe=multiprobe, exclude_self=exclude, probe_mode=probe_mode,
-            probe_budget=probe_budget,
-            coarse_refine=coarse_refine or self.conf.coarse_refine,
-            coarse_window=(coarse_window if coarse_window is not None
-                           else self.conf.coarse_window),
-            window_keep=window_keep if window_keep is not None else self.conf.coarse_keep,
-            head_pool=self.conf.coarse_head_pool,
-            coarse_group=coarse_group or self.conf.coarse_group,
-            rows_keep=rows_keep if rows_keep is not None else self.conf.coarse_rows_keep,
-            select_mult=select_mult or self.conf.coarse_select_mult,
-            stage2=stage2 if stage2 is not None else self.conf.coarse_stage2,
-        )
-        thr = self.conf.similarity_threshold
-        if thr > 0.0:
-            # exact-score post-filter (config.py `similarity_threshold`)
-            keep = scores >= thr
-            ids = torch.where(keep, ids, -1)
-            scores = torch.where(keep, scores, NEG_INF_F32)
-        return ids, scores
+        opts = query_options(
+            self.conf, steps=steps, k=k, multiprobe=multiprobe, exclude_self=exclude,
+            probe_mode=probe_mode, probe_budget=probe_budget, coarse_refine=coarse_refine,
+            m_cap=m_cap, coarse_window=coarse_window, window_keep=window_keep,
+            coarse_group=coarse_group, rows_keep=rows_keep, select_mult=select_mult,
+            stage2=stage2)
+        ids, scores, _ = _query_many(self.state, qd, qids, self.layout,
+                                     self.conf.query_batch_size, opts)
+        return above_threshold(ids, scores, self.conf.similarity_threshold)
 
     def live_ids(self) -> torch.Tensor:
         """The user ids of the fitted rows, i32[N] in row order: the rows
@@ -1261,6 +1265,17 @@ class RDFForest:
         if self.state is None:
             raise RuntimeError("need to fit the data first")
         return sub_index_counts(self.state.tables, self.layout)
+
+
+def above_threshold(ids: torch.Tensor, scores: torch.Tensor, thr: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The exact-score post-filter (config.py `similarity_threshold`, the
+    live form of `RandomDrawTreeMap.java:856-868`): answers scoring below
+    `thr` become -1 with score -inf; `thr` <= 0 keeps every answer."""
+    if thr <= 0.0:
+        return ids, scores
+    keep = scores >= thr
+    return torch.where(keep, ids, -1), torch.where(keep, scores, NEG_INF_F32)
 
 
 def live_rows(tables: BucketTables) -> torch.Tensor:

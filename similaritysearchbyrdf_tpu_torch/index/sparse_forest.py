@@ -34,9 +34,9 @@ from ..ops.hashing import densify, hash_dense, hash_sparse, hash_sparse_densify
 from ..ops.precision import full_f32
 from ..vectors import SparseBatch
 from .bucket_table import KEY_PAD, BucketTables, KeyLayout, build_tables, composite_keys
-from .forest import (NEG_INF_F32, _coarse_block_scores, _exclude_self, _pad_to, _select_m2,
-                     coarse_seg_width, gather_blocks, gather_candidates, state_to,
-                     sub_index_counts)
+from .forest import (_coarse_block_scores, _exclude_self, _pad_to, _select_rows,
+                     above_threshold, coarse_seg_width, gather_blocks, gather_candidates,
+                     live_rows, state_to, sub_index_counts, window_size)
 from .partitioner import generate_partition_projections, partition_of_hash
 
 # Up to this width a batch hashes densified; above it, by gathers.
@@ -194,10 +194,10 @@ def _query_sparse(state: SparseForestState, q_indices: torch.Tensor, q_values: t
     """Batched sparse query core → (ids i32[B, k] user ids with -1 padding,
     scores f32[B, k], candidate counts int64[B]). No probes by default: the
     reference's sparse path has none. With a coarse tier, the window rule is
-    the dense one (-1: 64-slot windows at m_cap >= 32768), and the top
-    m2 = min(max(coarse_refine, (k+1)·L), m_cap) slots by coarse score are
-    reranked (the JAX package takes approx_max_k where m2·8 fits the slab,
-    exact on the CPU; here a stable exact top-m2 in both cases)."""
+    the dense one (`window_size`), and the top m2 = min(max(coarse_refine,
+    (k+1)·L), m_cap) slots by coarse score are reranked (the JAX package
+    takes approx_max_k where m2·8 fits the slab, exact on the CPU; here a
+    stable exact top-m2 in both cases, `_select_rows`)."""
     # densified once, for K1 (up to the densify limit) and the coarse projection
     dense_q = (densify(q_indices, q_values, dim)
                if dim <= _DENSIFY_DIM_LIMIT or state.coarse_tier is not None else None)
@@ -205,21 +205,14 @@ def _query_sparse(state: SparseForestState, q_indices: torch.Tensor, q_values: t
          else hash_sparse(state.model, q_indices, q_values))
     home = partition_of_hash(h, state.part_proj)
     if state.coarse_tier is not None:
-        if coarse_window < 0:
-            win = 64 if m_cap % 64 == 0 and m_cap >= 32768 else 0
-        else:
-            win = coarse_window if (coarse_window and m_cap % coarse_window == 0) else 0
         base_b, table_b, start_b, end_b, total, bs = gather_blocks(
-            state.tables, h, home, layout, steps, m_cap, multiprobe, window=win)
+            state.tables, h, home, layout, steps, m_cap, multiprobe,
+            window=window_size(m_cap, coarse_window))
         scores, pos, table_slot = _coarse_block_scores(
             state.coarse_tier, state.coarse_proj, dense_q,
             base_b, table_b, end_b, bs, start_b=start_b)
-        l = state.tables.num_tables
-        cap = state.tables.capacity
-        m2 = min(max(coarse_refine, (k + 1) * l), m_cap)
-        t2, p2, sel_valid = _select_m2(scores, pos, table_slot, m2)
-        cand = state.tables.sorted_ids[t2.clamp(0, l - 1), p2.clamp(0, cap - 1)]
-        cand = torch.where(sel_valid & (cand >= 0), cand, -1)
+        m2 = min(max(coarse_refine, (k + 1) * state.tables.num_tables), m_cap)
+        cand = _select_rows(state.tables, scores, pos, table_slot, m2)
     else:
         cand, total = gather_candidates(state.tables, h, home, layout, steps, m_cap, multiprobe)
     if exclude_self:
@@ -292,22 +285,14 @@ class SparseRDFForest:
             steps=steps, m_cap=self.conf.max_candidates, k=k, exclude_self=exclude,
             coarse_refine=coarse_refine or self.conf.coarse_refine,
             coarse_window=self.conf.coarse_window)
-        thr = self.conf.similarity_threshold
-        if thr > 0.0:
-            # exact-score post-filter (config.py `similarity_threshold`, the
-            # live form of `RandomDrawTreeMap.java:856-868`)
-            keep = scores >= thr
-            ids = torch.where(keep, ids, -1)
-            scores = torch.where(keep, scores, NEG_INF_F32)
-        return ids, scores
+        return above_threshold(ids, scores, self.conf.similarity_threshold)
 
     def live_ids(self) -> torch.Tensor:
         """The user ids of the fitted rows, i32[N]: the rows the tables
         hold, whatever their ids' sign (-1 pads only rows past N)."""
         if self.state is None:
             raise RuntimeError("need to fit the data first")
-        rows = self.state.tables.sorted_ids[0]
-        return self.state.row_ids[rows[rows >= 0].sort().values.to(torch.int64)]
+        return self.state.row_ids[live_rows(self.state.tables)]
 
     def size(self) -> int:
         return 0 if self.state is None else int(self.live_ids().shape[0])

@@ -43,8 +43,8 @@ import torch
 
 from ..config import RDFConfig
 from ..index.bucket_table import KeyLayout, build_tables
-from ..index.forest import (ForestState, _build_coarse_tier, _keys_for_corpus, _pad_to,
-                            _query_dense, head_tier_traced, live_rows)
+from ..index.forest import (ForestState, QueryOptions, _build_coarse_tier, _keys_for_corpus,
+                            _pad_to, _query_dense, head_tier_traced, live_rows, query_options)
 from ..index.partitioner import generate_partition_projections
 from ..index.sparse_forest import (_DENSIFY_DIM_LIMIT, _GATHER_CHUNK_BYTES, SparseForestState,
                                    _keys_for_sparse_corpus, _query_sparse)
@@ -245,20 +245,18 @@ def fit_sharded_distributed(conf: RDFConfig, local_batch: DenseBatch,
 
 
 def query_shards(state: ShardedForestState, queries: torch.Tensor,
-                 query_ids: Optional[torch.Tensor], layout: KeyLayout, k: int,
-                 exclude_self: bool = True, **kw) -> List[Tuple[torch.Tensor, ...]]:
+                 query_ids: Optional[torch.Tensor], layout: KeyLayout,
+                 opts: QueryOptions) -> List[Tuple[torch.Tensor, ...]]:
     """Each shard's own (ids [B, k], scores [B, k], total [B]) of the
-    single-device `_query_dense` (its keyword arguments in `kw`), on the
-    shard's device. Exclusion needs `query_ids`."""
-    exclude = exclude_self and query_ids is not None
+    single-device `_query_dense`, on the shard's device. Exclusion
+    (`opts.exclude_self`) needs `query_ids`."""
     qcache, icache = {}, {}
     out = []
     for st in state.shards:
         dev = st.device
         qi = (_on(query_ids, dev, icache) if query_ids is not None
               else torch.full((queries.shape[0],), -1, dtype=torch.int32, device=dev))
-        out.append(_query_dense(st, _on(queries, dev, qcache), qi, layout, k=k,
-                                exclude_self=exclude, **kw))
+        out.append(_query_dense(st, _on(queries, dev, qcache), qi, layout, opts))
     return out
 
 
@@ -272,24 +270,28 @@ def make_query_fn(mesh: ForestMesh, layout: KeyLayout, steps: int = 0, m_cap: in
     None, chunk=None) → (ids i32[B, k], scores f32[B, k], total int64[B])
     on the first shard's device, the same in every process. `chunk` runs
     the queries that many at a time (bounds each shard's memory)."""
-    kw = dict(steps=steps, m_cap=m_cap, multiprobe=multiprobe, probe_mode=probe_mode,
-              probe_budget=probe_budget, coarse_refine=coarse_refine,
-              coarse_window=coarse_window, window_keep=window_keep, head_pool=head_pool,
-              coarse_group=coarse_group, rows_keep=rows_keep, select_mult=select_mult,
-              stage2=stage2)
+    opts = QueryOptions(steps=steps, m_cap=m_cap, k=k, multiprobe=multiprobe,
+                        exclude_self=exclude_self, probe_mode=probe_mode,
+                        probe_budget=probe_budget, coarse_refine=coarse_refine,
+                        coarse_window=coarse_window, window_keep=window_keep,
+                        head_pool=head_pool, coarse_group=coarse_group, rows_keep=rows_keep,
+                        select_mult=select_mult, stage2=stage2)
+    # a call without query ids excludes nothing
+    no_ids = dataclasses.replace(opts, exclude_self=False)
 
-    def step(state, queries, query_ids):
-        outs = query_shards(state, queries, query_ids, layout, k, exclude_self, **kw)
-        ids, scores = merge_topk(mesh, [o[0] for o in outs], [o[1] for o in outs], k,
+    def step(state, queries, query_ids, o):
+        outs = query_shards(state, queries, query_ids, layout, o)
+        ids, scores = merge_topk(mesh, [r[0] for r in outs], [r[1] for r in outs], k,
                                  mask="above_neg_inf")
-        return ids, scores, merge_totals(mesh, [o[2] for o in outs])
+        return ids, scores, merge_totals(mesh, [r[2] for r in outs])
 
     def many(state, queries, query_ids=None, chunk: Optional[int] = None):
+        o = no_ids if query_ids is None else opts
         q = queries.shape[0]
         if chunk is None or chunk >= q:
-            return step(state, queries, query_ids)
+            return step(state, queries, query_ids, o)
         outs = [step(state, queries[c0:c0 + chunk],
-                     None if query_ids is None else query_ids[c0:c0 + chunk])
+                     None if query_ids is None else query_ids[c0:c0 + chunk], o)
                 for c0 in range(0, q, chunk)]
         return tuple(torch.cat(parts) for parts in zip(*outs))
 
@@ -326,18 +328,13 @@ class ShardedRDFForest:
 
     def query_kw(self, steps: int = 0, k: Optional[int] = None, multiprobe: bool = True,
                  probe_mode: str = "reference", probe_budget: int = 8,
-                 window_keep: Optional[int] = None, rows_keep: Optional[int] = None) -> Dict:
-        """`make_query_fn`'s keywords for a query with these settings, the
-        rest from the config (`coarse_keep` and `coarse_rows_keep` for the
-        renamed ones)."""
-        c = self.conf
-        return dict(steps=steps, m_cap=c.max_candidates, k=k or c.top_k, multiprobe=multiprobe,
-                    probe_mode=probe_mode, probe_budget=probe_budget,
-                    coarse_refine=c.coarse_refine, coarse_window=c.coarse_window,
-                    window_keep=window_keep if window_keep is not None else c.coarse_keep,
-                    head_pool=c.coarse_head_pool, coarse_group=c.coarse_group,
-                    rows_keep=rows_keep if rows_keep is not None else c.coarse_rows_keep,
-                    select_mult=c.coarse_select_mult, stage2=c.coarse_stage2)
+                 window_keep: Optional[int] = None, rows_keep: Optional[int] = None
+                 ) -> QueryOptions:
+        """The options of a query with these settings, the rest from the
+        config (`query_options`)."""
+        return query_options(self.conf, steps=steps, k=k, multiprobe=multiprobe,
+                             probe_mode=probe_mode, probe_budget=probe_budget,
+                             window_keep=window_keep, rows_keep=rows_keep)
 
     def query_device(self, queries, steps: int = 0, query_ids=None, k: Optional[int] = None,
                      multiprobe: bool = True, probe_mode: str = "reference",
@@ -349,17 +346,17 @@ class ShardedRDFForest:
         `query_ids` is given."""
         if self.state is None:
             raise RuntimeError("need to fit the data first")
-        kw = self.query_kw(steps, k, multiprobe, probe_mode, probe_budget, window_keep,
-                           rows_keep)
-        key = tuple(sorted(kw.items()))
-        if key not in self._query_fns:
-            self._query_fns[key] = make_query_fn(self.mesh, self.layout, **kw)
+        opts = self.query_kw(steps, k, multiprobe, probe_mode, probe_budget, window_keep,
+                             rows_keep)
+        if opts not in self._query_fns:
+            self._query_fns[opts] = make_query_fn(self.mesh, self.layout,
+                                                  **dataclasses.asdict(opts))
         dev = self.mesh.comm_device
         qd = torch.as_tensor(queries, dtype=torch.float32).to(dev)
         qids = (None if query_ids is None
                 else torch.as_tensor(query_ids).to(dev, torch.int32))
-        ids, scores, _ = self._query_fns[key](self.state, qd, qids,
-                                              chunk=self.conf.query_batch_size)
+        ids, scores, _ = self._query_fns[opts](self.state, qd, qids,
+                                               chunk=self.conf.query_batch_size)
         return ids, scores
 
     def live_ids(self) -> torch.Tensor:

@@ -18,7 +18,7 @@ host-clock seconds are also added to the '/'-joined `summary()` and
 The spans of `RDFForest.query` (`index/forest.py`) and
 `IVFFlatIndex.query` (`ops/ivf.py`), each call under one `rdf.query`:
 
-  rdf.chunk        one query batch (`_query_dense`; one `ivf_topk` call)
+  rdf.chunk        one query batch (`query_dense_many`; one `ivf_topk` call)
   rdf.hash         K1 and the probe bits (forest only)
   rdf.candidates   partitions, bucket lookup, dedup, priority sorts and
                    flatten; IVF: centroid scores, cluster select, window

@@ -1,8 +1,8 @@
 """The forest's chunk graphs on the card, at the dpf_glove100 benchmark's index
 settings on a small corpus: a replayed chunk's ids, scores and candidate
-counts equal the eager path's bit for bit (with window pruning too), each
-key captures once, a
-partial last chunk stays eager, a refit captures anew, and a traced call
+counts equal the eager form's (`_query_chunk` with no chain) bit for bit
+(with window pruning too), each key captures once, a partial last chunk
+stays eager, a refit captures anew, and a traced call
 attributes the replayed kernels to `rdf.candidates`; a folded tier at the
 dpf_deep96_folded benchmark's settings replays bit-equal to its eager path
 too, and its traced candidates hold the replays. Needs an NVIDIA GPU;
@@ -81,6 +81,12 @@ def no_ids(n, dev):
     return torch.full((n,), -1, dtype=torch.int32, device=dev)
 
 
+def eager(st, q, qi, layout, **kw):
+    """The chunk query with every stage eager: `_query_chunk` with no chain."""
+    o = F.QueryOptions(**kw)
+    return F._query_chunk(st, q, qi, layout, o, F._coarse_plan(st, o), None)
+
+
 def assert_same(got, want):
     for a, b in zip(got, want):
         assert a.dtype == b.dtype and a.shape == b.shape
@@ -95,7 +101,7 @@ def test_replayed_chunks_equal_the_eager_path(dev, counted):
     chunks = [q[c:c + CHUNK] for c in range(0, 5 * CHUNK, CHUNK)]
     for i, c in enumerate(chunks + chunks[:1]):
         got = F.query_dense(st, c, qi, forest.layout, **KW)
-        want = F._query_dense_eager(st, c, qi, forest.layout, **KW)
+        want = eager(st, c, qi, forest.layout, **KW)
         assert_same(got, want)
         assert len(counted) == (0 if i == 0 else 1)
     assert captured(st) == 1
@@ -122,8 +128,7 @@ def test_pruned_windows_replay_equal_the_eager_path(dev, counted):
     kw = dict(KW, window_keep=256, head_pool=16)
     for c in range(0, 4 * CHUNK, CHUNK):
         got = F.query_dense(forest.state, q[c:c + CHUNK], no_ids(CHUNK, dev), forest.layout, **kw)
-        want = F._query_dense_eager(forest.state, q[c:c + CHUNK], no_ids(CHUNK, dev),
-                                    forest.layout, **kw)
+        want = eager(forest.state, q[c:c + CHUNK], no_ids(CHUNK, dev), forest.layout, **kw)
         assert_same(got, want)
     assert len(counted) == 1
 
@@ -132,8 +137,8 @@ def test_each_key_captures_once_and_a_partial_chunk_stays_eager(dev, counted):
     forest, q = fitted(dev)
     st = forest.state
     q = q[:2 * CHUNK + 37]
-    want = [F._query_dense_eager(st, q[c:c + CHUNK], no_ids(q[c:c + CHUNK].shape[0], dev),
-                                 forest.layout, exclude_self=False, **KW)
+    want = [eager(st, q[c:c + CHUNK], no_ids(q[c:c + CHUNK].shape[0], dev), forest.layout,
+                  exclude_self=False, **KW)
             for c in range(0, q.shape[0], CHUNK)]
     for _ in range(3):
         ids, scores = forest.query_device(q, k=10, **QUERY)
@@ -155,8 +160,8 @@ def test_a_refit_captures_anew(dev, counted):
     forest.fit(batch)
     gc.collect()
     assert old not in chunk_graphs._OWNERS and captured(forest.state) == 0
-    want = F._query_dense_eager(forest.state, q[:CHUNK], no_ids(CHUNK, dev), forest.layout,
-                                exclude_self=False, **KW)
+    want = eager(forest.state, q[:CHUNK], no_ids(CHUNK, dev), forest.layout,
+                 exclude_self=False, **KW)
     for i in range(3):
         got = forest.query_device(q[:CHUNK], k=10, **QUERY)
         assert_same(got, want[:2])
@@ -224,7 +229,7 @@ def test_folded_chunks_replay_equal_the_eager_path(dev, counted, tmp_path):
         before = topk_select.LAUNCHES
         got = F.query_dense(st, c, qi, forest.layout, **FOLDED_KW)
         assert topk_select.LAUNCHES == before + 2      # group select and stage2, eager
-        want = F._query_dense_eager(st, c, qi, forest.layout, **FOLDED_KW)
+        want = eager(st, c, qi, forest.layout, **FOLDED_KW)
         assert_same(got, want)
         assert len(counted) == (0 if i == 0 else 1)
     assert captured(st) == 1

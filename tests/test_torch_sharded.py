@@ -172,7 +172,8 @@ def test_empty_shards_and_merge_redone_on_host():
     ti, ts = t.query(x[:8], steps=0)
     _same(ji, js, ti, ts, True)
     layout = KeyLayout.from_config(t.conf, t.conf.lsh_table)
-    outs = TSF.query_shards(t.state, torch.as_tensor(x[:8]), None, layout, 10, m_cap=8192)
+    outs = TSF.query_shards(t.state, torch.as_tensor(x[:8]), None, layout,
+                            TSF.QueryOptions(k=10, m_cap=8192, exclude_self=False))
     assert all((o[0] == -1).all() for o in outs[3:])
     flat_i = np.concatenate([o[0].numpy() for o in outs], axis=1)
     flat_s = np.concatenate([o[1].numpy() for o in outs], axis=1)

@@ -124,6 +124,12 @@ def test_refuses_a_tensor_in_another_form(dev):
         T.topk_select(keys.float(), 3, True)
 
 
+def eager(st, q, qi, layout, **kw):
+    """The chunk query with every stage eager: `_query_chunk` with no chain."""
+    o = F.QueryOptions(**kw)
+    return F._query_chunk(st, q, qi, layout, o, F._coarse_plan(st, o), None)
+
+
 def folded_forest(dev):
     rng = np.random.default_rng(96)
     n = 200_000
@@ -161,7 +167,7 @@ def test_folded_forest_equals_the_sort_path(dev, monkeypatch):
 
     monkeypatch.setattr(F, "_stage2", stage2)
     before = T.LAUNCHES
-    got = [F._query_dense_eager(st, c, qi[:c.shape[0]], layout, **KW) for c in chunks]
+    got = [eager(st, c, qi[:c.shape[0]], layout, **KW) for c in chunks]
     torch.cuda.synchronize()
     assert T.LAUNCHES == before + 2 * len(chunks)
     got_stage2, seen[:] = list(seen), []
@@ -169,7 +175,7 @@ def test_folded_forest_equals_the_sort_path(dev, monkeypatch):
     monkeypatch.setattr(F, "topk_select", T.topk_select_plain)
     monkeypatch.setattr(F, "topk_packed_select", lambda v, k, sh, bits_w: T.topk_select_plain(
         T.pack_keys_plain(v, sh, bits_w), k, True))
-    want = [F._query_dense_eager(st, c, qi[:c.shape[0]], layout, **KW) for c in chunks]
+    want = [eager(st, c, qi[:c.shape[0]], layout, **KW) for c in chunks]
     assert T.LAUNCHES == before + 2 * len(chunks)
     assert len(got_stage2) == len(seen) == len(chunks)
     for (c_got, s_got), (c_want, s_want) in zip(got_stage2, seen):
