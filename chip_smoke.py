@@ -109,7 +109,11 @@ device is present:
      128, nprobe 1 / win 64, nprobe 8 / win 64 pruned to 64 windows by a
      64-row head tier): build and k-means seconds, recall, qps, bytes, peak
      memory, a device profile, and K2b against its plain version on the
-     operands each point gave it;
+     operands each point gave it; at the headline point the top-k select's
+     f32 form (`top_sorted` on the card) on the query's own centroid and
+     window scores, bit for bit against the stable sort's prefix and timed
+     beside it and `torch.topk`; the launch counts of the top-k select by
+     kind and form (`topk_forms`);
  15. sparse_1m (last): `scripts/bench_sparse_1m.py`'s corpus and config,
      1,000,000 x 4096 rows of 64 non-zeros: exact ground truth of 1,024
      self-excluded queries (`exact_topk_sparse`, equal to an f32 product
@@ -275,7 +279,7 @@ def reset_launches() -> None:
     from similaritysearchbyrdf_tpu_torch.ops.kernels import topk_select as TK
 
     K1.LAUNCHES = K2.LAUNCHES = K2.WINDOW_LAUNCHES = K3.LAUNCHES = K4.LAUNCHES = 0
-    TK.LAUNCHES = 0
+    TK.FORM_LAUNCHES.clear()
 
 
 def read_launches() -> dict:
@@ -288,7 +292,15 @@ def read_launches() -> dict:
     return {"hash_dense_kernel": K1.LAUNCHES, "coarse_block_scores_kernel": K2.LAUNCHES,
             "coarse_window_scores_kernel": K2.WINDOW_LAUNCHES,
             "coarse_rowmax_kernel": K3.LAUNCHES, "flat_groupmax_kernel": K4.LAUNCHES,
-            "topk_select": TK.LAUNCHES}
+            "topk_select": TK.launches(TK.KEY_KINDS), "topk_select_f32": TK.launches(("f32",))}
+
+
+def read_forms() -> dict:
+    """The top-k select's launches since the reset by kind and form
+    (`"<kind>.<form>"`, `topk_select.FORM_LAUNCHES`)."""
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import topk_select as TK
+
+    return dict(TK.FORM_LAUNCHES)
 
 
 def timed_s(fn, sync, reps: int) -> float:
@@ -1250,13 +1262,17 @@ def ivf_phase(xd, gt, sync, median_ms) -> dict:
         idx.ensure_heads()
         wb = IVF.ivf_window_budget(st.starts, st.ends, idx.nprobe, idx.win)
         idx.query_device(qd, k=10, query_ids=qids)
-        with recording(IVF, "coarse_window_scores_kernel") as calls:
+        with recording(IVF, "coarse_window_scores_kernel", "top_sorted") as calls:
             reset_launches()
             got, sc = idx.query_device(qd, k=10, query_ids=qids)
             sync()
-            launches = read_launches()
+            launches, forms = read_launches(), read_forms()
         check(launches["coarse_window_scores_kernel"] > 0,
               f"ivf_8m {name} did not launch K2b: {launches}")
+        check(launches["topk_select_f32"] > 0,
+              f"ivf_8m {name} did not launch the top-k select's f32 form: {launches}")
+        if name == "headline":
+            out["TK_f32"] = topk_f32_check(calls["top_sorted"], sync, median_ms)
         got = got.cpu().numpy()
         check(got.shape == (nq, 10) and bool(torch.isfinite(sc).all()),
               f"ivf_8m {name}: wrong shape or non-finite scores")
@@ -1270,7 +1286,7 @@ def ivf_phase(xd, gt, sync, median_ms) -> dict:
         out["points"][name] = {
             **p, "wb": wb, "recall_at_10": rec, "tpu_v5e_recall_at_10": tpu_recall,
             "qps": nq / q_s, "query_s": q_s,
-            "launches": {k: v for k, v in launches.items() if v},
+            "launches": {k: v for k, v in launches.items() if v}, "topk_forms": forms,
             "profile": device_profile(lambda: idx.query_device(qd, k=10, query_ids=qids), sync),
             "K2b": window_check(args, sync, median_ms, f"ivf_8m {name}")}
         del calls, args
@@ -1389,7 +1405,7 @@ def folded_phase(dev, sync, median_ms):
     reset_launches()
     got, sc = forest.query_device(qd, query_ids=qids, **qkw)
     sync()
-    launches = read_launches()
+    launches, forms = read_launches(), read_forms()
     check(launches["coarse_rowmax_kernel"] > 0 and launches["hash_dense_kernel"] > 0
           and launches["topk_select"] > 0,
           f"the folded path did not launch its kernels: {launches}")
@@ -1410,7 +1426,7 @@ def folded_phase(dev, sync, median_ms):
                      "rows_keep": 0, "window": win, "m_cap": m_cap, "refine": refine,
                      "steps": steps, "probe_budget": budget, "query_batch_size": qb},
           "recall_at_10": rec, "tpu_v5e_recall_at_10": TPU_DEEP8M_RECALL,
-          "recall_gap": rec - TPU_DEEP8M_RECALL, "launches": launches,
+          "recall_gap": rec - TPU_DEEP8M_RECALL, "launches": launches, "topk_forms": forms,
           "qps": nq / q_s, "query_s": q_s, "build_vectors_per_sec": n / fit_s,
           "build_s": fit_s, "index_bytes_per_vector": forest.index_bytes_per_vector(),
           "coarse_tier_bytes_per_vector": st.coarse_tier.numel() / n,
@@ -1485,6 +1501,57 @@ def topk_check(st, q, layout, qkw: dict, sync, median_ms) -> dict:
                      "mismatched_words": bad, "max_abs_err": 0.0,
                      "tolerance": "bit for bit (0 mismatched words)",
                      **bound(nbytes(rows) + out_bytes, 0, "int8"),
+                     "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": median_ms(plain),
+                     "library_ms": timing_device_ms(lib)}
+    return out
+
+
+TK_F32_KEYS = ("shape", "max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
+
+
+def topk_f32_check(selects, sync, median_ms) -> dict:
+    """The top-k select's f32 form (`ops/rerank.top_sorted` on the card) on
+    an IVF query's own operands, as the index's call passed them: its
+    centroid scores (nprobe of K a query) and its window scores (refine of
+    wb x win a query). Each held bit for bit against the card's stable
+    descending sort's prefix (the values' bits and the indices), timed
+    beside it (`plain_ms`), beside `torch.topk` (`library_ms`, device time;
+    it may order ties otherwise) and the bound of one read of the row and
+    one write of the kept values and indices."""
+    import torch
+
+    from similaritysearchbyrdf_tpu_torch.ops.kernels import topk_select as TK
+
+    check(len(selects) >= 2, f"the IVF query made {len(selects)} selects, not 2")
+    out = {}
+    for name, (args, kw) in zip(("centroids", "windows"), selects[:2]):
+        check(not kw and len(args) == 2, f"unexpected top_sorted call on the IVF path: {kw}")
+        scores, m = args
+        b, n = scores.shape
+        kout = min(m, n)
+
+        def kern():
+            return TK.topk_select_f32(scores, m)
+
+        def plain():
+            return TK.topk_select_f32_plain(scores, m)
+
+        def lib():
+            return torch.topk(scores, m, dim=1, largest=True, sorted=True)
+
+        (got_s, got_i), (want_s, want_i) = kern(), plain()
+        sync()
+        bad = (int((got_s.view(torch.int32) != want_s.view(torch.int32)).sum())
+               + int((got_i != want_i).sum())) if got_s.shape == want_s.shape else got_s.numel()
+        check(bad == 0, f"TK f32 at the IVF {name} select differs from the stable sort's "
+                        f"prefix: {bad} words")
+        t = kernel_times(kern)
+        out[name] = {"shape": {"B": b, "n": n, "k": m, "dtype": "float32",
+                               "form": TK._f32_form(scores.device.index, n, kout)},
+                     "mismatched_words": bad, "max_abs_err": 0.0,
+                     "tolerance": "bit for bit (0 mismatched words)",
+                     **bound(nbytes(scores) + b * kout * (4 + 8), 0, "int8"),
                      "ms": t["ms"], "device_ms": t["device_ms"], "plain_ms": median_ms(plain),
                      "library_ms": timing_device_ms(lib)}
     return out
@@ -2978,6 +3045,7 @@ def main() -> int:
                                         "bound_ms", "bound_by", "max_abs_err") if k in rec}}
 
     sk_calls = sparse["calls"]
+    tkf = ivf["TK_f32"]
     lib = {"library_ms": None}     # no single PyTorch call computes any of these functions
     # each kernel's launches on sharded_8m's four query paths
     sh_launches = {}
@@ -3054,6 +3122,13 @@ def main() -> int:
          "stage2": {k: tk["stage2"][k] for k in ("shape", "max_abs_err", "ms", "device_ms",
                                                  "plain_ms", "bound_ms", "bound_by",
                                                  "library_ms")}},
+        {"name": "topk_select_f32", "route": "cuda",
+         "sharded_8m_launches": sh_launches.get("topk_select_f32", 0),
+         "source": "similaritysearchbyrdf_tpu_torch/csrc/topk_select.cu",
+         "replaces": "stable torch.sort prefixes of ops/rerank.top_sorted (no TPU kernel)",
+         "launches": ivf["points"]["headline"]["launches"].get("topk_select_f32", 0),
+         **{k: tkf["centroids"][k] for k in TK_F32_KEYS},
+         "windows": {k: tkf["windows"][k] for k in TK_F32_KEYS}},
         {"name": "flat_groupmax_kernel", "route": "cuda",
          "sharded_8m_launches": sh_launches.get("flat_groupmax_kernel", 0),
          "source": "similaritysearchbyrdf_tpu_torch/csrc/flat_groupmax.cu",

@@ -116,6 +116,10 @@ def library() -> ctypes.CDLL:
             lib.rdf_topk_select.restype = i
             lib.rdf_topk_select_form.argtypes = [i] * 3
             lib.rdf_topk_select_form.restype = i
+            lib.rdf_topk_select_f32.argtypes = [p] * 4 + [i] * 4 + [p]
+            lib.rdf_topk_select_f32.restype = i
+            lib.rdf_topk_select_f32_form.argtypes = [i] * 2
+            lib.rdf_topk_select_f32_form.restype = i
             _lib = lib
     return _lib
 

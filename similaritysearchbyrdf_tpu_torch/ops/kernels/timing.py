@@ -73,7 +73,12 @@ Deep cell's chunk (the packed group select, 1,792 of 128 x 32,768; stage2,
 replaced under `product_ms` (device time: the pack and the sort for the
 first, the stable sort for the second) and `torch.topk` at the same shape
 under `library_ms` (device time; on the packed keys for the first, whose
-pack it leaves out). The
+pack it leaves out). `topk_f32_ivf_centroids`, `topk_f32_ivf_windows` and
+`topk_f32_select_rows` time the top-k select's f32 form (`top_sorted` on
+the card) at the IVF cell's centroid select (32 of 1,024 x 39,023) and
+window select (128 of 1,024 x `IVF_WB` windows of 256) and at the forest's
+`_select_rows` (1,024 of 128 x 16,384), beside the stable `torch.sort` it
+replaced (`product_ms`) and `torch.topk` (`library_ms`). The
 K2 and K2b entries past K2b_sparse_flat print their gathered and distinct
 bytes under `*_share`.
 `--only K3` times only the entries whose names start with one of the given
@@ -99,6 +104,7 @@ import numpy as np
 import torch
 
 BUSY_CYCLES = 2_000_000   # about 1 ms of device spin at the H100's 1.98 GHz
+IVF_WB = 128   # windows a query at the IVF cell's fit (`ivf_window_budget`)
 
 
 def median_event_ms(fn, reps: int, warm: int = 3, busy: bool = False) -> float:
@@ -431,6 +437,29 @@ def main() -> int:
             library["topk_stage2"] = median_event_ms(lambda: torch.topk(
                 key2, keep, dim=1, largest=False, sorted=True), args.reps, busy=True)
         del g1, key2, neg_s, ids
+    if wanted("topk_f32_ivf_centroids", "topk_f32_ivf_windows", "topk_f32_select_rows"):
+        # the f32 form (`top_sorted` on the card) at the benchmark's selects:
+        # IVF's centroid select (32 of 1,024 x 39,023 bf16-product scores),
+        # its window select (128 of 1,024 x IVF_WB 256-slot windows of
+        # int8-sketch scores, a third -inf) and the forest's `_select_rows`
+        # (1,024 of a 128 x 16,384 chunk); `product_ms` times the stable
+        # `torch.sort` each replaced, `library_ms` `torch.topk` (device time)
+        cen = (torch.randn((1_024, 39_023), generator=gen, device=dev) * 0.1).to(
+            torch.bfloat16).to(torch.float32)
+        win = ints(-20_000, 20_001, (1_024, IVF_WB * 256)).to(torch.float32) * 3.0517578e-05
+        win = torch.where(torch.rand(win.shape, generator=gen, device=dev) < 1 / 3,
+                          float("-inf"), win).contiguous()
+        rows = torch.randn((128, 16_384), generator=gen, device=dev)
+        for name, x, k in (("topk_f32_ivf_centroids", cen, 32),
+                           ("topk_f32_ivf_windows", win, 128),
+                           ("topk_f32_select_rows", rows, 1_024)):
+            if wanted(name):
+                timed(name, lambda: TK.topk_select_f32(x, k))
+                product[name] = median_event_ms(lambda: torch.sort(
+                    x, dim=1, descending=True, stable=True), args.reps, busy=True)
+                library[name] = median_event_ms(lambda: torch.topk(
+                    x, k, dim=1, largest=True, sorted=True), args.reps, busy=True)
+        del cen, win, rows
     if wanted("K2b_flat_20k", "K4_flat_20k_unpacked"):
         sk = i8(24_576, 128)
         sk[20_000:] = 0

@@ -27,6 +27,7 @@ from typing import Tuple
 
 import torch
 
+from .kernels.topk_select import topk_select_f32
 from .precision import matmul_f32
 
 NEG_INF = float("-inf")
@@ -60,9 +61,11 @@ def score_candidates(corpus: torch.Tensor, cand: torch.Tensor, queries: torch.Te
 
 def top_sorted(scores: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(top-m scores descending, their indices) with ties in index order —
-    what the reference's top_k and its sorts on the CPU give."""
-    s, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    return s[:, :m], idx[:, :m]
+    what the reference's top_k and its sorts on the CPU give. On the card
+    one launch of the top-k kernel's f32 form returns that prefix bit for
+    bit (`ops/kernels/topk_select.topk_select_f32`); on the CPU, the stable
+    sort's."""
+    return topk_select_f32(scores, m)
 
 
 def dedup_topk(cand: torch.Tensor, scores: torch.Tensor, k: int

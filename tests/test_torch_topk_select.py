@@ -7,8 +7,15 @@ keys stage2 gives its dropped duplicates) come out as the sort has them. A
 numpy model of the kernel's radix select (`csrc/topk_select.cu`: the digit
 passes, the early stop, the compaction rule) picks the same multiset. The
 forest's two rewritten selects equal the full sorts they replaced, and the
-wrappers refuse what the kernel does not take. The kernel itself runs in
-`tests/test_torch_topk_select_cuda.py`.
+wrappers refuse what the kernel does not take. A model of the f32 form's
+key (`f32_keys`: the order image of the value above the complemented
+column) selected by `topk_select_plain` and decoded equals the stable
+descending sort's prefix, values bit for bit and indices, on ties, signed
+zeros, -inf rows, NaN, one column, no rows and k past the width; NaNs
+with the sign bit or another payload fall where the card's sort puts them,
+by their bits; the radix model with the f32 form's skipped column digits
+picks the same keys.
+The kernel itself runs in `tests/test_torch_topk_select_cuda.py`.
 """
 
 import numpy as np
@@ -64,11 +71,15 @@ def test_dead_sentinel_rows():
     assert int((got[1] != dead).sum()) == 5
 
 
-def radix_select_model(u, kout, bits):
+def radix_select_model(u, kout, bits, col_top=None):
     """The kernel's select on one row of order keys (numpy uint64 holding
-    `bits`-bit values): the multiset of the kout smallest."""
+    `bits`-bit values): the multiset of the kout smallest. With `col_top`
+    (the f32 form) the passes over the low 32 bits at and above it are
+    skipped, as the kernel skips column digits no column of the row has."""
     prefix, pmask, krem = 0, 0, kout
     for shift in range(bits - 8, -1, -8):
+        if col_top is not None and col_top <= shift < 32:
+            continue
         m = (u & np.uint64(pmask)) == np.uint64(prefix)
         d = ((u[m] >> np.uint64(shift)) & np.uint64(255)).astype(np.int64)
         hist = np.bincount(d, minlength=256)
@@ -173,8 +184,184 @@ def test_refusals():
         T.topk_packed_select(keys.t(), 2, 0, 4)
 
 
+def test_launches_sum_the_counted_kinds(monkeypatch):
+    """`launches` sums `FORM_LAUNCHES` over the kinds asked for, every kind
+    by default."""
+    import collections
+
+    monkeypatch.setattr(T, "FORM_LAUNCHES", collections.Counter(
+        {"int32.shared": 2, "packed.row_device": 3, "int64.device": 5, "f32.shared": 7,
+         "f32.device": 11}))
+    assert T.launches() == 28
+    assert T.launches(T.KEY_KINDS) == 10
+    assert T.launches(("f32",)) == 18
+    assert T.launches(("int64", "f32")) == 23
+    assert sorted(T.KINDS) == ["f32", "int32", "int64", "packed"]
+
+
 def test_plain_runs_never_count():
-    before = T.LAUNCHES
+    before = T.launches()
     T.topk_select(torch.arange(8, dtype=torch.int64).reshape(2, 4), 2, False)
     T.topk_packed_select(torch.arange(8, dtype=torch.int32).reshape(2, 4), 2, 0, 2)
-    assert T.LAUNCHES == before
+    assert T.launches() == before
+
+
+NAN, INF = float("nan"), float("inf")
+COL_MASK = (1 << 32) - 1
+
+
+def f32_keys(scores):
+    """scores f32[B, n] → the f32 form's unique keys int64[B, n],
+    `(ord(v) << 32) | (2^32 - 1 - c)` less 2^63 (so signed order is the
+    unsigned key's): ord maps the f32 bits in order, -0.0 as +0.0, a NaN
+    above +inf without the sign bit and below -inf with it. Their
+    descending order is the card's stable descending sort's."""
+    u = scores.contiguous().view(torch.int32).to(torch.int64) & COL_MASK
+    u = torch.where(scores == 0, 0, u)                        # -0.0 as +0.0
+    ord_ = torch.where(u >= 1 << 31, COL_MASK - u, u + (1 << 31))
+    col = torch.arange(scores.shape[1], device=scores.device)
+    return ((ord_ - (1 << 31)) << 32) | (COL_MASK - col)
+
+
+def decode_f32_keys(keys, scores):
+    """Keys of `f32_keys(scores)` (or a selection of them, per row) →
+    (their values f32, with the input's bits; their columns int64)."""
+    col = COL_MASK - (keys & COL_MASK)
+    return torch.gather(scores, 1, col), col
+
+
+def f32_rows(case, b, n, seed):
+    """f32[b, n] rows of one kind: scores of a select at the edges the
+    stable sort's order rules cover."""
+    rng = np.random.default_rng(seed)
+    if case == "random":
+        x = rng.standard_normal((b, n)).astype(np.float32)
+    elif case == "ties":          # few distinct values: every select cuts a tie
+        x = rng.integers(-3, 4, (b, n)).astype(np.float32) / 4
+    elif case == "signed_zeros":  # -0.0 and +0.0 tie, beside small values
+        x = np.where(rng.random((b, n)) < 0.5, -0.0, 0.0).astype(np.float32)
+        x[:, ::7] = rng.choice([-1e-38, 1e-38, -1.0, 1.0], x[:, ::7].shape)
+    elif case == "neg_inf":       # rows of -inf, all or nearly all
+        x = np.full((b, n), -INF, dtype=np.float32)
+        x[1:, ::11] = rng.standard_normal(x[1:, ::11].shape)
+    elif case == "nan":           # the default NaN, and +-inf
+        x = rng.standard_normal((b, n)).astype(np.float32)
+        x[:, ::5] = NAN
+        x[:, 2::9] = -INF
+        x[:, 3::13] = INF
+    else:
+        raise ValueError(case)
+    return torch.from_numpy(x)
+
+
+def sorted_prefix_f32(x, k):
+    s, idx = torch.sort(x, dim=1, descending=True, stable=True)
+    return s[:, :k], idx[:, :k]
+
+
+F32_CASES = ["random", "ties", "signed_zeros", "neg_inf", "nan"]
+
+
+@pytest.mark.parametrize("b,n,k", [(4, 257, 32), (3, 1_000, 128), (2, 1, 1), (2, 1, 5),
+                                   (3, 40, 40), (3, 40, 64), (0, 17, 4), (5, 3, 0)])
+@pytest.mark.parametrize("case", F32_CASES)
+def test_f32_key_equals_stable_sort(case, b, n, k):
+    """The f32 form's key: selected by `topk_select_plain`, decoded to
+    (value, index), the stable descending sort's prefix, values bit for
+    bit; with k >= n the whole sort, with B == 0 nothing."""
+    x = f32_rows(case, b, n, seed=n * 31 + k)
+    keys = f32_keys(x)
+    assert keys.dtype == torch.int64 and keys.shape == x.shape
+    assert int(torch.unique(keys, dim=1).shape[1] if b else n) == n      # unique in a row
+    vals, idx = decode_f32_keys(T.topk_select_plain(keys, k, True), x)
+    want_s, want_i = sorted_prefix_f32(x, k)
+    assert idx.shape == want_i.shape == (b, min(k, n))
+    assert torch.equal(idx, want_i)
+    assert torch.equal(vals.view(torch.int32), want_s.view(torch.int32))
+
+
+NAN_BITS = [0x3F800000,              # 0: 1.0
+            -4194304,                # 1: a NaN with the sign bit, 0xFFC00000
+            0x7FC00000,              # 2: the default NaN
+            -8388608,                # 3: -inf
+            0x7F800001,              # 4: a NaN with the least payload
+            -0x80000000,             # 5: -0.0
+            0x7F800000,              # 6: +inf
+            0,                       # 7: +0.0
+            -4194303,                # 8: a NaN with the sign bit, 0xFFC00001
+            0x7FC00000]              # 9: the default NaN again
+
+
+def test_f32_key_orders_nan_as_the_card():
+    """NaN as the card's stable sort orders it at every width (the CPU's
+    puts every NaN first, tied): without the sign bit above +inf, the
+    larger payload first; with it below -inf, the larger payload last;
+    -0.0 ties +0.0."""
+    x = torch.tensor([NAN_BITS], dtype=torch.int32).view(torch.float32)
+    vals, idx = decode_f32_keys(T.topk_select_plain(f32_keys(x), 10, True), x)
+    assert idx[0].tolist() == [2, 9, 4, 6, 0, 5, 7, 3, 1, 8]
+    assert torch.equal(vals.view(torch.int32), torch.gather(x, 1, idx).view(torch.int32))
+
+
+@pytest.mark.parametrize("case", F32_CASES)
+def test_f32_form_cpu_is_the_stable_sort(case):
+    """`topk_select_f32` on a CPU tensor: the stable sort's prefix, int64
+    indices, a non-contiguous input taken, no launch counted."""
+    x = f32_rows(case, 6, 300, seed=5)
+    forms = dict(T.FORM_LAUNCHES)
+    for m in (1, 10, 300, 1_000):
+        s, i = T.topk_select_f32(x, m)
+        want_s, want_i = sorted_prefix_f32(x, m)
+        assert s.dtype == torch.float32 and i.dtype == torch.int64
+        assert torch.equal(i, want_i) and torch.equal(s.view(torch.int32),
+                                                      want_s.view(torch.int32))
+    s, i = T.topk_select_f32(x.t(), 4)
+    assert torch.equal(i, sorted_prefix_f32(x.t().contiguous(), 4)[1])
+    assert dict(T.FORM_LAUNCHES) == forms
+
+
+@pytest.mark.parametrize("kout", [1, 10, 128, 1_024, 3_000])
+@pytest.mark.parametrize("case", F32_CASES)
+def test_radix_select_model_f32(case, kout):
+    """The kernel's select over the f32 form's order keys ((~ord << 32) |
+    column, ascending), skipping the column digits past the row's width,
+    picks the stable sort's first kout keys."""
+    n = 3_000
+    x = f32_rows(case, 1, n, seed=kout)
+    signed = f32_keys(x)[0].numpy()
+    key = signed.view(np.uint64) ^ np.uint64(1 << 63)                 # the unsigned key
+    u = ~key                                                            # smallest wanted
+    col = (u & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    assert np.array_equal(np.sort(col), np.arange(n))
+    col_top = 8 * -(-(n - 1).bit_length() // 8)
+    got = radix_select_model(u, kout, 64, col_top)
+    assert np.array_equal(got, np.sort(u)[:kout])
+    want_i = sorted_prefix_f32(x, kout)[1][0].numpy()
+    assert np.array_equal((got & np.uint64(0xFFFFFFFF)).astype(np.int64), want_i)
+
+
+def test_f32_refusals():
+    x = torch.zeros((3, 4))
+    with pytest.raises(TypeError):
+        T.topk_select_f32(x.double(), 2)
+    with pytest.raises(TypeError):
+        T.topk_select_f32(x.to(torch.bfloat16), 2)
+    with pytest.raises(ValueError, match="2-D"):
+        T.topk_select_f32(x.reshape(-1), 2)
+    with pytest.raises(ValueError, match="k must"):
+        T.topk_select_f32(x, -1)
+    with pytest.raises(ValueError, match="device"):
+        T.topk_select_f32(torch.empty((3, 4), device="meta"), 2)
+
+
+def test_top_sorted_takes_the_sort_on_the_cpu():
+    """`ops/rerank.top_sorted` on CPU tensors is the stable sort's prefix
+    (the plain version the JAX package's tests hold)."""
+    from similaritysearchbyrdf_tpu_torch.ops.rerank import top_sorted
+
+    x = f32_rows("ties", 4, 500, seed=9)
+    before = T.launches()
+    s, i = top_sorted(x, 50)
+    want_s, want_i = sorted_prefix_f32(x, 50)
+    assert torch.equal(i, want_i) and torch.equal(s, want_s)
+    assert T.launches() == before
