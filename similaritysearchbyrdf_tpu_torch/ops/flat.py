@@ -26,6 +26,13 @@ plans and batch caps, `nsub`, the qmajor/qlane kernel split and the
 `FLAT_*` environment knobs, whose defaults are the constants and keywords
 below.
 
+`FlatIndex.query` opens the tracing spans of `utils/timing.py`: one
+`rdf.query` a call, `rdf.sync.upload` and `rdf.sync.answers` round its
+host waits, one `rdf.chunk` a query batch, and in it `rdf.score` (the int8
+query, K4, the dead-group mask), `rdf.select` (the argpack or exact2
+select) and `rdf.rerank` (the exact re-score, opened here and not inside
+`_exact_refine`, which `ops/ivf.py` calls inside its own `rdf.rerank`).
+
 The sparse flat engine (`SparseFlatIndex`, `flat_topk_sparse`) scans an
 int8 sketch of the densified sparse corpus (`build_flat_sketch_sparse`)
 with the same grouped preselection and re-scores the candidates exactly by
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from ..models.families import Device, resolve_device
+from ..utils.timing import span
 from ..vectors import DenseBatch, SparseBatch
 from .kernels.coarse_gather import coarse_window_scores_kernel
 from .kernels.flat_groupmax import flat_groupmax_kernel
@@ -193,20 +201,25 @@ def flat_topk(sketch: torch.Tensor, corpus: torch.Tensor, row_ids: torch.Tensor,
     n = row_ids.shape[0]
     b = queries.shape[0]
     dev = sketch.device
-    q_f = _quantize_queries(queries, sketch).to(torch.float32)
+    q_f = None
     best_s = torch.full((b, refine), NEG_INF, dtype=torch.float32, device=dev)
     best_i = torch.full((b, refine), -1, dtype=torch.int32, device=dev)
     for c0 in range(0, n, block):
-        rows = sketch[c0:min(c0 + block, n)]
-        scores = q_f @ rows.to(torch.float32).T                     # [B, rows]
-        s_blk, ti = top_sorted(scores, min(refine, rows.shape[0]))
-        cat_s = torch.cat([best_s, s_blk], dim=1)
-        cat_i = torch.cat([best_i, (ti + c0).to(torch.int32)], dim=1)
-        best_s, sel = top_sorted(cat_s, refine)
-        best_i = torch.gather(cat_i, 1, sel)
-    return _exact_refine(corpus, row_ids, queries, best_i,
-                         (best_i >= 0) & torch.isfinite(best_s), query_ids, k, exclude_self,
-                         n_live)
+        with span("rdf.score"):
+            if q_f is None:
+                q_f = _quantize_queries(queries, sketch).to(torch.float32)
+            rows = sketch[c0:min(c0 + block, n)]
+            scores = q_f @ rows.to(torch.float32).T                 # [B, rows]
+        with span("rdf.select"):
+            s_blk, ti = top_sorted(scores, min(refine, rows.shape[0]))
+            cat_s = torch.cat([best_s, s_blk], dim=1)
+            cat_i = torch.cat([best_i, (ti + c0).to(torch.int32)], dim=1)
+            best_s, sel = top_sorted(cat_s, refine)
+            best_i = torch.gather(cat_i, 1, sel)
+    with span("rdf.rerank"):
+        return _exact_refine(corpus, row_ids, queries, best_i,
+                             (best_i >= 0) & torch.isfinite(best_s), query_ids, k,
+                             exclude_self, n_live)
 
 
 def packed_groupmax_qmajor(sk: torch.Tensor, q_i8: torch.Tensor, group: int = _GROUP
@@ -292,12 +305,15 @@ def _argpack_candidates(sketch: torch.Tensor, queries: torch.Tensor, refine: int
     nrows, _ = sketch.shape
     n = nrows if n_live is None else n_live
     sk = _pad_rows(sketch, _round_up(nrows, _NPAD_MULTIPLE))
-    q_lp = _quantize_queries(queries, sk)
-    res = flat_groupmax_kernel(sk, q_lp, group, pack_arg=True, emit_sg=emit_sg)
-    packed, sgmax_pre = res if emit_sg else (res, None)
-    packed[:, -(-n // group):] = _I32_DEAD        # live groups are a prefix
-    return select_packed_rows(packed, group=group, refine=refine, n=n, select_sg=select_sg,
-                              l2=l2, sgmax_pre=sgmax_pre, emit_sg=emit_sg)
+    with span("rdf.score"):
+        q_lp = _quantize_queries(queries, sk)
+        res = flat_groupmax_kernel(sk, q_lp, group, pack_arg=True, emit_sg=emit_sg)
+        packed, sgmax_pre = res if emit_sg else (res, None)
+        packed[:, -(-n // group):] = _I32_DEAD    # live groups are a prefix
+    with span("rdf.select"):
+        return select_packed_rows(packed, group=group, refine=refine, n=n,
+                                  select_sg=select_sg, l2=l2, sgmax_pre=sgmax_pre,
+                                  emit_sg=emit_sg)
 
 
 def _grouped_candidates(sketch: torch.Tensor, queries: torch.Tensor, refine: int,
@@ -318,44 +334,46 @@ def _grouped_candidates(sketch: torch.Tensor, queries: torch.Tensor, refine: int
     dev = sketch.device
     npad = _round_up(nrows, _NPAD_MULTIPLE)
     sk = _pad_rows(sketch, npad)
-    gmax = flat_groupmax_kernel(sk, _quantize_queries(queries, sk), group)     # [B, NG] f32
+    with span("rdf.score"):
+        gmax = flat_groupmax_kernel(sk, _quantize_queries(queries, sk), group)  # [B, NG] f32
+        gmax[:, -(-n // group):] = NEG_INF    # all-padding groups; live ones are a prefix
     ng = npad // group
-    gmax[:, -(-n // group):] = NEG_INF            # all-padding groups; live ones are a prefix
-    rg = min(r_groups, ng)
-    sg = select_sg if select_sg is not None else _default_select_sg(select_mode)
-    if select_mode == "exact2" and ng % sg == 0 and ng // sg >= 4 * rg:
-        # any top-rg group's supergroup maximum is >= the rg-th best group
-        # maximum, and at most rg supergroups can be: the top-rg supergroups
-        # hold every top-rg group
-        nsg = ng // sg
-        g3 = gmax.view(b, nsg, sg)
-        sgi = top_sorted(g3.amax(dim=2), rg)[1]                     # [B, RG]
-        cg = torch.gather(g3, 1, sgi[:, :, None].expand(b, rg, sg)).reshape(b, rg * sg)
-        child = (sgi[:, :, None] * sg + torch.arange(sg, device=dev)).reshape(b, rg * sg)
-        gidx = torch.gather(child, 1, top_sorted(cg, rg)[1])
-    else:   # "topk" and "approx": both exact here
-        gidx = top_sorted(gmax, rg)[1]
+    with span("rdf.select"):
+        rg = min(r_groups, ng)
+        sg = select_sg if select_sg is not None else _default_select_sg(select_mode)
+        if select_mode == "exact2" and ng % sg == 0 and ng // sg >= 4 * rg:
+            # any top-rg group's supergroup maximum is >= the rg-th best
+            # group maximum, and at most rg supergroups can be: the top-rg
+            # supergroups hold every top-rg group
+            nsg = ng // sg
+            g3 = gmax.view(b, nsg, sg)
+            sgi = top_sorted(g3.amax(dim=2), rg)[1]                 # [B, RG]
+            cg = torch.gather(g3, 1, sgi[:, :, None].expand(b, rg, sg)).reshape(b, rg * sg)
+            child = (sgi[:, :, None] * sg + torch.arange(sg, device=dev)).reshape(b, rg * sg)
+            gidx = torch.gather(child, 1, top_sorted(cg, rg)[1])
+        else:   # "topk" and "approx": both exact here
+            gidx = top_sorted(gmax, rg)[1]
 
-    # row-wise re-score of every selected group's rows in 64-row windows;
-    # K2b takes the sketch as a one-table tier, every window live, and
-    # writes -inf for rows past n itself
-    win = min(group, 64)
-    wpg = group // win
-    blk_start = ((gidx * group)[:, :, None]
-                 + (torch.arange(wpg, device=dev) * win)[None, None, :]).reshape(b, rg * wpg)
-    blk_start = blk_start.to(torch.int32).contiguous()
-    zeros = torch.zeros_like(blk_start)
-    q_low = _pad_cols(queries.to(torch.bfloat16), d).contiguous()
-    w_scores = coarse_window_scores_kernel(
-        sk[None], q_low, zeros, blk_start, zeros, torch.full_like(blk_start, n),
-        torch.ones_like(blk_start, dtype=torch.bool), win)          # [B, RG*wpg, win]
-    m = rg * group
-    pos = (blk_start[:, :, None] + torch.arange(win, device=dev)).reshape(b, m)
-    w_scores = w_scores.reshape(b, m)
-    sel_s, sel = top_sorted(w_scores, min(refine, m))
-    cand = torch.gather(pos, 1, sel).to(torch.int32)
-    sel_s = torch.where(cand < n, sel_s, NEG_INF)
-    return cand, sel_s
+        # row-wise re-score of every selected group's rows in 64-row
+        # windows; K2b takes the sketch as a one-table tier, every window
+        # live, and writes -inf for rows past n itself
+        win = min(group, 64)
+        wpg = group // win
+        blk_start = ((gidx * group)[:, :, None] + (torch.arange(wpg, device=dev) * win)
+                     [None, None, :]).reshape(b, rg * wpg)
+        blk_start = blk_start.to(torch.int32).contiguous()
+        zeros = torch.zeros_like(blk_start)
+        q_low = _pad_cols(queries.to(torch.bfloat16), d).contiguous()
+        w_scores = coarse_window_scores_kernel(
+            sk[None], q_low, zeros, blk_start, zeros, torch.full_like(blk_start, n),
+            torch.ones_like(blk_start, dtype=torch.bool), win)      # [B, RG*wpg, win]
+        m = rg * group
+        pos = (blk_start[:, :, None] + torch.arange(win, device=dev)).reshape(b, m)
+        w_scores = w_scores.reshape(b, m)
+        sel_s, sel = top_sorted(w_scores, min(refine, m))
+        cand = torch.gather(pos, 1, sel).to(torch.int32)
+        sel_s = torch.where(cand < n, sel_s, NEG_INF)
+        return cand, sel_s
 
 
 def flat_topk_grouped(sketch: torch.Tensor, corpus: torch.Tensor, row_ids: torch.Tensor,
@@ -380,8 +398,9 @@ def flat_topk_grouped(sketch: torch.Tensor, corpus: torch.Tensor, row_ids: torch
     else:
         cand, sel_s = _grouped_candidates(sketch, queries, refine, r_groups, group, mode,
                                           select_sg, n_live=n)
-    return _exact_refine(corpus, row_ids, queries, cand, torch.isfinite(sel_s), query_ids, k,
-                         exclude_self, n_live)
+    with span("rdf.rerank"):
+        return _exact_refine(corpus, row_ids, queries, cand, torch.isfinite(sel_s), query_ids,
+                             k, exclude_self, n_live)
 
 
 class FlatIndex:
@@ -435,8 +454,13 @@ class FlatIndex:
             print("need to fit the data first")
             return (np.full((len(queries), k), -1, np.int32),
                     np.full((len(queries), k), -np.inf, np.float32))
-        ids, scores = self.query_device(queries, k, query_ids, exclude_self)
-        return ids.cpu().numpy(), scores.cpu().numpy()
+        with span("rdf.query"):
+            ids, scores = self.query_device(queries, k, query_ids, exclude_self)
+            with span("rdf.sync.answers"):
+                ids = ids.cpu().numpy()
+            with span("rdf.sync.answers"):
+                scores = scores.cpu().numpy()
+        return ids, scores
 
     def query_device(self, queries, k: int = 10, query_ids=None, exclude_self: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -445,10 +469,13 @@ class FlatIndex:
         to that batch."""
         if self.corpus is None:
             raise RuntimeError("need to fit the data first")
-        q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
+        with span("rdf.sync.upload"):
+            q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
         nq = q.shape[0]
-        qids = (None if query_ids is None
-                else torch.as_tensor(query_ids, dtype=torch.int32).to(self.device))
+        qids = None
+        if query_ids is not None:
+            with span("rdf.sync.upload"):
+                qids = torch.as_tensor(query_ids, dtype=torch.int32).to(self.device)
         bsz = effective_query_batch(nq, self.query_batch)
         # no-drop guideline for the group preselection: at least 3k groups
         rg = max(self.r_groups, 3 * k)
@@ -457,14 +484,15 @@ class FlatIndex:
             s1 = min(s0 + bsz, nq)
             qc = _pad_rows(q[s0:s1], bsz)
             qi = None if qids is None else torch.nn.functional.pad(qids[s0:s1], (0, bsz - (s1 - s0)))
-            if self.mode == "grouped":
-                ids, scores = flat_topk_grouped(self.sketch, self.corpus, self.row_ids, qc, qi,
-                                                k, refine=self.refine, r_groups=rg,
-                                                exclude_self=exclude_self)
-            else:
-                ids, scores = flat_topk(self.sketch, self.corpus, self.row_ids, qc, qi, k,
-                                        refine=self.refine, block=self.block,
-                                        exclude_self=exclude_self)
+            with span("rdf.chunk"):
+                if self.mode == "grouped":
+                    ids, scores = flat_topk_grouped(self.sketch, self.corpus, self.row_ids, qc,
+                                                    qi, k, refine=self.refine, r_groups=rg,
+                                                    exclude_self=exclude_self)
+                else:
+                    ids, scores = flat_topk(self.sketch, self.corpus, self.row_ids, qc, qi, k,
+                                            refine=self.refine, block=self.block,
+                                            exclude_self=exclude_self)
             out_i.append(ids[:s1 - s0])
             out_s.append(scores[:s1 - s0])
         return torch.cat(out_i), torch.cat(out_s)
@@ -530,17 +558,18 @@ def flat_topk_sparse(sketch: torch.Tensor, corpus_indices: torch.Tensor,
     else:
         cand, sel_s = _grouped_candidates(sketch, qd, refine, r_groups, group, mode, n_live=n)
     pre = torch.isfinite(sel_s)
-    exact = sparse_merge_scores(corpus_indices, corpus_values, torch.where(pre, cand, -1),
-                                q_indices, q_values)
-    uid = row_ids[cand.clamp(0, n - 1).to(torch.int64)]
-    valid = pre & torch.isfinite(exact)
-    if n_live is not None:
-        valid &= cand < n_live
-    if exclude_self and query_ids is not None:
-        valid &= uid != query_ids[:, None]
-    top_s, ti = top_sorted(torch.where(valid, exact, NEG_INF), k)
-    top_u = torch.gather(uid, 1, ti)
-    return torch.where(torch.isfinite(top_s), top_u, -1), top_s
+    with span("rdf.rerank"):
+        exact = sparse_merge_scores(corpus_indices, corpus_values, torch.where(pre, cand, -1),
+                                    q_indices, q_values)
+        uid = row_ids[cand.clamp(0, n - 1).to(torch.int64)]
+        valid = pre & torch.isfinite(exact)
+        if n_live is not None:
+            valid &= cand < n_live
+        if exclude_self and query_ids is not None:
+            valid &= uid != query_ids[:, None]
+        top_s, ti = top_sorted(torch.where(valid, exact, NEG_INF), k)
+        top_u = torch.gather(uid, 1, ti)
+        return torch.where(torch.isfinite(top_s), top_u, -1), top_s
 
 
 class SparseFlatIndex:

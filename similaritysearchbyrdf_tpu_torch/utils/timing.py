@@ -15,22 +15,29 @@ the same clock, nested under the spans open on the calling thread; its
 host-clock seconds are also added to the '/'-joined `summary()` and
 `report()`. A span never waits for the device.
 
-The spans of `RDFForest.query` (`index/forest.py`) and
-`IVFFlatIndex.query` (`ops/ivf.py`), each call under one `rdf.query`:
+The spans of `RDFForest.query` (`index/forest.py`), `IVFFlatIndex.query`
+(`ops/ivf.py`) and `FlatIndex.query` (`ops/flat.py`), each call under one
+`rdf.query`:
 
-  rdf.chunk        one query batch (`query_dense_many`; one `ivf_topk` call)
+  rdf.chunk        one query batch (`query_dense_many`; one `ivf_topk`,
+                   `flat_topk_grouped` or `flat_topk` call)
   rdf.hash         K1 and the probe bits (forest only)
   rdf.candidates   partitions, bucket lookup, dedup, priority sorts and
                    flatten; IVF: centroid scores, cluster select, window
                    flatten and prune
   rdf.score        the coarse query and K2b; on the folded tier the int8
-                   query, K3, the row mask and the group max
+                   query, K3, the row mask and the group max; flat: the
+                   int8 query, K4 and the dead-group mask (the scan: a
+                   block's product)
   rdf.select       the prefilter and top-m select, the selected rows; on
                    the folded tier the packed group select and the
-                   selected slots' row ids
+                   selected slots' row ids; flat: the argpack select
+                   (`select_packed_rows`), or exact2's group select, K2b
+                   re-score and row select (the scan: a block's merge)
   rdf.stage2       the folded tier's staged int8 re-score and id dedup
                    (`_stage2`, or `_dedup_selected` where it runs instead)
-  rdf.rerank       the exact re-score and top-k
+  rdf.rerank       the exact re-score and top-k (flat and IVF: opened by
+                   the caller of `_exact_refine`, once)
   rdf.graph.replay inside `rdf.candidates`: the forest chunk's lookup and
                    flatten replayed as a CUDA graph (`index/chunk_graphs.py`;
                    its hash stage replays inside `rdf.hash`); dispatch, not
