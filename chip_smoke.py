@@ -46,7 +46,8 @@ device is present:
      its bytes, rate and bound share as in phase 4);
   8. kernels_flat: K4 (flat group-max) against its plain version at the
      Deep-8M flat query's shapes (int8 packed, unpacked, packed with the
-     supergroup tier: the wgmma form), and its K-looped wgmma form at 200k
+     supergroup tier at 16 and at 32, the width the path asks for: the
+     wgmma form), and its K-looped wgmma form at 200k
      x 800 (random int8), each with the form it took and the share of its
      bound it reached;
   9. flat_8m: `FlatIndex()` at its defaults (int8, argpack) on folded_8m's
@@ -1744,8 +1745,8 @@ def flat_20k_phase(x, gt, dev, sync, median_ms) -> dict:
 def flat_8m_phase(xd, gt, dev, sync, median_ms):
     """K4 against its plain version at the Deep-8M flat query's shapes, then
     `FlatIndex()` at its defaults (int8, refine 128, batch 1024, argpack with
-    supergroups of 32 and a sorted level 2) on folded_8m's corpus: 1,024
-    self-excluded queries.
+    supergroups of 32, level 1 from K4's emitted tier and a sorted level 2)
+    on folded_8m's corpus: 1,024 self-excluded queries.
     → (K4's check and timings, launch counts of the query)."""
     import torch
 
@@ -1767,8 +1768,12 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
     npad, dk = sk.shape
     k4 = {"shape": {"B": nq, "Npad": npad, "D": dk, "group": 64},
           "tolerance": "bit for bit (0 mismatched words)"}
+    # the tier at 32 is the one the path asks for at these shapes (the
+    # select's own supergroup width, `_argpack_candidates`); the query below
+    # checks that it does
     for name, kw in (("int8_packed", dict(pack_arg=True)), ("int8", {}),
-                     ("int8_packed_emit16", dict(pack_arg=True, emit_sg=16))):
+                     ("int8_packed_emit16", dict(pack_arg=True, emit_sg=16)),
+                     ("int8_packed_emit32", dict(pack_arg=True, emit_sg=32))):
         got = K4.flat_groupmax_kernel(sk, q8, 64, **kw)
         want = K4.flat_groupmax_plain(sk, q8, 64, **kw)
         pairs = list(zip(got, want)) if "emit_sg" in kw else [(got, want)]
@@ -1809,10 +1814,13 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
     # ---- flat_8m: the engine at its defaults --------------------------------
     qd = xd[:nq]
     reset_launches()
-    got, sc = flat.query_device(qd, k=10, query_ids=ids[:nq])
-    sync()
+    with recording(FL, "flat_groupmax_kernel") as calls:
+        got, sc = flat.query_device(qd, k=10, query_ids=ids[:nq])
+        sync()
     launches = read_launches()
     check(launches["flat_groupmax_kernel"] > 0, f"flat_8m did not launch K4: {launches}")
+    emit_sg = [kw.get("emit_sg") for _, kw in calls["flat_groupmax_kernel"]]
+    check(emit_sg == [32], f"flat_8m asked K4 for the tiers {emit_sg}, not one of 32")
     got = got.cpu().numpy()
     check(got.shape == (nq, 10) and bool(torch.isfinite(sc).all()),
           "flat_8m output has the wrong shape or non-finite scores")
@@ -1820,11 +1828,25 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
     check(rec >= FLAT8M_RECALL_MIN, f"flat_8m recall@10 {rec} is below {FLAT8M_RECALL_MIN}")
     q_s = timed_s(lambda: flat.query_device(qd, k=10, query_ids=ids[:nq]), sync, 3)
     # host-clock stages of the argpack path around K4 (median of 7, each
-    # ending in a sync; K4's own time is kernels_flat's "ms")
+    # ending in a sync; K4's own time is kernels_flat's "ms"), on K4's keys
+    # and emitted tier at 32 as the path takes them; the select folding the
+    # tier equals the one reducing the slab, bit for bit
     n_live = flat.row_ids.shape[0]
     qi = torch.arange(nq, dtype=torch.int32, device=dev)
-    packed = K4.flat_groupmax_kernel(sk, q8, 64, pack_arg=True)
-    cand, sel = FL.select_packed_rows(packed, 64, 128, n_live)
+    packed, sgmax_pre = K4.flat_groupmax_kernel(sk, q8, 64, pack_arg=True, emit_sg=32)
+    packed[:, -(-n_live // 64):] = FL._I32_DEAD
+
+    def select():
+        return FL.select_packed_rows(packed, 64, 128, n_live, sgmax_pre=sgmax_pre, emit_sg=32)
+
+    cand, sel = select()
+    cand0, sel0 = FL.select_packed_rows(packed, 64, 128, n_live)
+    sync()
+    tier_bad = int((cand != cand0).sum()) + int((sel.view(torch.int32)
+                                                 != sel0.view(torch.int32)).sum())
+    check(tier_bad == 0, f"flat_8m's select on K4's tier differs from the slab reduce's "
+                         f"in {tier_bad} words")
+    del cand0, sel0
 
     def stage_ms(fn):
         return timed_s(fn, sync, 7) * 1e3
@@ -1832,14 +1854,16 @@ def flat_8m_phase(xd, gt, dev, sync, median_ms):
     stages = {
         "quantize_queries": stage_ms(lambda: FL._quantize_queries(qd, sk)),
         "mask_dead_groups": stage_ms(lambda: packed[:, -(-n_live // 64):].fill_(FL._I32_DEAD)),
-        "two_level_select": stage_ms(lambda: FL.select_packed_rows(packed, 64, 128, n_live)),
+        "two_level_select": stage_ms(select),
         "exact_refine": stage_ms(lambda: FL._exact_refine(flat.corpus, flat.row_ids, qd, cand,
                                                           torch.isfinite(sel), qi, 10, True))}
-    del packed
+    del packed, sgmax_pre
     emit({"phase": "flat_8m", "n": n, "dim": d, "queries": nq,
           "config": {"sketch_dtype": "int8", "refine": 128, "query_batch": 1024,
                      "select_mode": FL._resolve_select_mode("auto", sk.dtype, n, dk),
-                     "select_sg": 32, "argpack_l2": "sort", "group": 64},
+                     "select_sg": 32, "emit_sg": emit_sg[0], "argpack_l2": "sort",
+                     "group": 64},
+          "select_tier_mismatched_words": tier_bad,
           "recall_at_10": rec, "tpu_v5e_recall_at_10": TPU_FLAT8M_RECALL,
           "recall_gap": rec - TPU_FLAT8M_RECALL,
           "launches": {k: v for k, v in launches.items() if v},

@@ -30,8 +30,10 @@ below.
 `rdf.query` a call, `rdf.sync.upload` and `rdf.sync.answers` round its
 host waits, one `rdf.chunk` a query batch, and in it `rdf.score` (the int8
 query, K4, the dead-group mask), `rdf.select` (the argpack or exact2
-select) and `rdf.rerank` (the exact re-score, opened here and not inside
-`_exact_refine`, which `ops/ivf.py` calls inside its own `rdf.rerank`).
+select; in it `rdf.sgtier` where the argpack select folds K4's emitted
+supergroup tier) and `rdf.rerank` (the exact re-score, opened here and not
+inside `_exact_refine`, which `ops/ivf.py` calls inside its own
+`rdf.rerank`).
 
 The sparse flat engine (`SparseFlatIndex`, `flat_topk_sparse`) scans an
 int8 sketch of the densified sparse corpus (`build_flat_sketch_sparse`)
@@ -231,19 +233,27 @@ def packed_groupmax_qmajor(sk: torch.Tensor, q_i8: torch.Tensor, group: int = _G
     return flat_groupmax_kernel(sk, q_i8, group, pack_arg=True)
 
 
+def _two_level(ng: int, sg: int, rg: int) -> bool:
+    """Whether the argpack select takes its two levels over NG groups: they
+    split into supergroups of `sg`, at least 2 rg of them (every top group's
+    supergroup maximum then beats the rg-th best group, and at most rg
+    supergroups can)."""
+    return ng % sg == 0 and ng // sg >= 2 * rg
+
+
 def _fold_emitted_sgmax(sgmax_pre, p3, n, group, sg, emit_sg):
     """Fold the kernel-emitted `emit_sg` supergroup tier to `sg`-wide
     supergroup maxima instead of re-reading the [B, NG] packed slab. The
     emitted tier is unmasked, but live groups are a prefix: supergroups
     wholly inside it are exact, and only the boundary and dead tail are
-    recomputed from the masked packed slab `p3` [B, NSG, sg]."""
+    recomputed from the masked packed slab `p3` [B, NSG, sg], written into
+    the folded tier in place (at `sg == emit_sg`, into `sgmax_pre` itself)."""
     b, nsg, _ = p3.shape
     spre = sgmax_pre if sg == emit_sg else sgmax_pre.view(b, nsg, sg // emit_sg).amax(dim=2)
     full_sg = (-(-n // group)) // sg
-    if full_sg >= nsg:
-        return spre
-    tail = p3[:, full_sg:, :].amax(dim=2)
-    return torch.cat([spre[:, :full_sg], tail], dim=1)
+    if full_sg < nsg:
+        spre[:, full_sg:] = p3[:, full_sg:, :].amax(dim=2)
+    return spre
 
 
 def select_packed_rows(packed: torch.Tensor, group: int, refine: int, n: int,
@@ -256,17 +266,20 @@ def select_packed_rows(packed: torch.Tensor, group: int, refine: int, n: int,
     the refine-th best group, and at most `refine` supergroups can): the
     top supergroups by key, then their children, by one stable sort of the
     packed keys (l2="sort") or of the unshifted scores (l2="approx", the
-    reference's approx_max_k, exact here). Otherwise one select over all
-    groups by score."""
+    reference's approx_max_k, exact here). Level 1 folds K4's emitted tier
+    `sgmax_pre` of `emit_sg`-wide maxima (`_fold_emitted_sgmax`, in an
+    `rdf.sgtier` span) where it is given and divides `sg`, else reduces the
+    slab. Otherwise one select over all groups by score."""
     b, ng = packed.shape
     shift = group.bit_length() - 1
     rg = min(refine, ng)
     sg = select_sg if select_sg is not None else _default_select_sg("argpack")
-    if ng % sg == 0 and ng // sg >= 2 * rg:
+    if _two_level(ng, sg, rg):
         nsg = ng // sg
         p3 = packed.view(b, nsg, sg)
         if sgmax_pre is not None and sg % emit_sg == 0:
-            sgmax = _fold_emitted_sgmax(sgmax_pre, p3, n, group, sg, emit_sg)
+            with span("rdf.sgtier"):
+                sgmax = _fold_emitted_sgmax(sgmax_pre, p3, n, group, sg, emit_sg)
         else:
             sgmax = p3.amax(dim=2)                                  # [B, NSG]
         sgi = torch.sort(sgmax, dim=1, descending=True, stable=True)[1][:, :rg]
@@ -292,19 +305,27 @@ def select_packed_rows(packed: torch.Tensor, group: int, refine: int, n: int,
 
 def _argpack_candidates(sketch: torch.Tensor, queries: torch.Tensor, refine: int, group: int,
                         select_sg: Optional[int] = None, n_live: Optional[int] = None,
-                        l2: str = _ARGPACK_L2, emit_sg: int = 0
+                        l2: str = _ARGPACK_L2, emit_sg: Optional[int] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Argmax-packed grouped preselection: K4 emits each group's packed key
     `score << log2 group | member`, so the top-`refine` groups by key name
     their best rows directly (no window re-score). Any global sketch-top-
     `refine` row that is its group's argmax is captured; only non-argmax
     rows of multiply-hit groups are traded for the next groups' argmaxes.
+    K4 also emits the maxima of every `emit_sg` adjacent keys, the select's
+    level 1: with `emit_sg` None, at the select's own width where its
+    two-level branch will read them (a width K4 takes: a power of two), and
+    none elsewhere; 0 asks for none, a width for that width.
     → (cand i32[B, refine] row positions, sel_s f32[B, refine])."""
     if sketch.dtype != torch.int8:
         raise ValueError("argpack needs the int8 sketch")
     nrows, _ = sketch.shape
     n = nrows if n_live is None else n_live
     sk = _pad_rows(sketch, _round_up(nrows, _NPAD_MULTIPLE))
+    if emit_sg is None:
+        ng = sk.shape[0] // group
+        sg = select_sg if select_sg is not None else _default_select_sg("argpack")
+        emit_sg = sg if _two_level(ng, sg, min(refine, ng)) and not sg & (sg - 1) else 0
     with span("rdf.score"):
         q_lp = _quantize_queries(queries, sk)
         res = flat_groupmax_kernel(sk, q_lp, group, pack_arg=True, emit_sg=emit_sg)
@@ -381,15 +402,17 @@ def flat_topk_grouped(sketch: torch.Tensor, corpus: torch.Tensor, row_ids: torch
                       refine: int = 128, r_groups: int = 32, group: int = _GROUP,
                       exclude_self: bool = True, select_mode: str = "auto",
                       select_sg: Optional[int] = None, argpack_l2: str = _ARGPACK_L2,
-                      gmax_emit_sg: int = 0, n_live: Optional[int] = None
+                      gmax_emit_sg: Optional[int] = None, n_live: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Grouped flat scan → (ids i32[B, k], scores f32[B, k]): K4 group
     maxima (never the [B, N] scores), then the exact2 or argpack candidate
     stage (`_resolve_select_mode`), then the exact f32 re-score of the top
     `refine` rows. Group-max preselection with r_groups >= 3k cannot drop a
     true top-k row; recall is bound by the sketch, as in `flat_topk`.
-    `gmax_emit_sg` makes K4 emit the argpack select's level-1 tier; rows
-    from `n_live` on are scanned but never results, as in `flat_topk`."""
+    `gmax_emit_sg` is the width of the argpack select's level-1 tier that
+    K4 emits (`_argpack_candidates`: None, the select's own where it reads
+    one; 0, none); the answers are the same bit for bit at every width.
+    Rows from `n_live` on are scanned but never results, as in `flat_topk`."""
     n = row_ids.shape[0]
     mode = _resolve_select_mode(select_mode, sketch.dtype, n, sketch.shape[1])
     if mode == "argpack":

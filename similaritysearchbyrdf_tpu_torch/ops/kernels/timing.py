@@ -21,8 +21,11 @@ live windows of 512 rows, each query's windows consecutive from one random
 row of one table, as the folded query lays them out; with and without the
 second output), and K4 int8 at flat_20k's (unpacked, B 1024 x 24,576 x 128)
 and flat_8m's (B 1024 x 8,003,584 x 96: packed, unpacked, and packed with
-the supergroup tier of 16 groups). `K2_bench_fit` times K2 on the operands
-of `chip_smoke.py`'s kernels phase instead: the bench corpus
+the supergroup tier of 16 groups), and at a `FlatIndex` call on Deep-10M
+(B 1024 x 9,994,240 x 96, packed: `K4_deep10m_packed` without a tier,
+`K4_deep10m_emit32` with the argpack select's tier of 32 groups).
+`K2_bench_fit` times K2 on the operands of `chip_smoke.py`'s kernels
+phase instead: the bench corpus
 (`bench.make_data(seed=42)`), the bench config's fit and the blocks of its
 first 1,024 queries, made by the checkout's own forest; `K2b_window_1m_fit`
 times K2b on the operands of its kernels_window: the same 1M corpus,
@@ -485,6 +488,17 @@ def main() -> int:
         for name, kw in k4_8m.items():
             if wanted(name):
                 timed(name, lambda: K4.flat_groupmax_kernel(sk, q8, 64, **kw))
+    k4_10m = {"K4_deep10m_packed": dict(pack_arg=True),
+              "K4_deep10m_emit32": dict(pack_arg=True, emit_sg=32)}
+    if wanted(*k4_10m):
+        # a FlatIndex call at Deep-10M: B 1024 x 9,994,240 x 96, G 64, packed,
+        # without and with the argpack select's tier of 32 groups
+        sk, q8 = i8(9_994_240, 96), i8(1024, 96)
+        for name, kw in k4_10m.items():
+            if wanted(name):
+                timed(name, lambda: K4.flat_groupmax_kernel(sk, q8, 64, **kw))
+        del sk
+        torch.cuda.empty_cache()
     if wanted("flat_8m_query"):
         from ...ops.flat import FlatIndex
         from ...vectors import DenseBatch

@@ -34,6 +34,10 @@ The spans of `RDFForest.query` (`index/forest.py`), `IVFFlatIndex.query`
                    selected slots' row ids; flat: the argpack select
                    (`select_packed_rows`), or exact2's group select, K2b
                    re-score and row select (the scan: a block's merge)
+  rdf.sgtier       inside the flat `rdf.select`: the argpack select's
+                   level 1 read from K4's emitted supergroup tier (the
+                   boundary and dead supergroups recomputed), where it is
+                   taken in place of a reduce over the key slab
   rdf.stage2       the folded tier's staged int8 re-score and id dedup
                    (`_stage2`, or `_dedup_selected` where it runs instead)
   rdf.rerank       the exact re-score and top-k (flat and IVF: opened by

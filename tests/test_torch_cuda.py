@@ -648,6 +648,50 @@ def test_argpack_on_card_matches_cpu(dev, emit):
     assert (out["cuda"] == out["cpu"]).all(axis=1).mean() >= 0.99
 
 
+@pytest.mark.parametrize("d", [96, 128, 224])
+@pytest.mark.parametrize("b", [45, 1024])
+def test_groupmax_kernel_emit32_at_the_select_width(dev, d, b):
+    """The supergroup tier at the argpack select's own width, 32 groups of
+    64 rows (2,048 rows a supergroup, four 512-row blocks), bit for bit on
+    both forms, over five supergroups."""
+    _check_groupmax_int8(dev, 64 * 32 * 5, 64, d, b, esg_max=32)
+
+
+def test_flat_index_select_tier_is_bit_equal(dev, monkeypatch):
+    """`FlatIndex` past 2^20 rows takes the argpack route, and its two-level
+    select reads K4's emitted tier of 32 groups: ids and scores bit-equal to
+    the same index queried with the tier off. 1,049,590 rows end inside a
+    group and inside a supergroup, with three dead supergroups after it; the
+    rows lean one way and half the queries are negated rows, so their keys
+    are all negative and the recomputed tail decides their level 1."""
+    from similaritysearchbyrdf_tpu_torch.ops import flat as FL
+
+    n, d = 1_049_590, 96
+    gen = torch.Generator(device=dev).manual_seed(11)
+    centres = torch.randn((256, d), generator=gen, device=dev)
+    x = centres[torch.randint(0, 256, (n,), generator=gen, device=dev)]
+    x += 0.3 * torch.randn((n, d), generator=gen, device=dev)
+    x[:, 0] += 2.0 * x.norm(dim=1)
+    x /= x.norm(dim=1, keepdim=True)
+    flat = FlatIndex(device=dev).fit(DenseBatch(np.arange(n, dtype=np.int32), x))
+    assert FL._resolve_select_mode("auto", flat.sketch.dtype, n, d) == "argpack"
+    sign = torch.where(torch.arange(1024, device=dev) % 2 == 1, -1.0, 1.0)[:, None]
+    q = x[torch.randint(0, n, (1024,), generator=gen, device=dev)] * sign
+    asked = []
+
+    def recording(*args, **kw):
+        asked.append(kw.get("emit_sg", 0))
+        return K4.flat_groupmax_kernel(*args, **kw)
+
+    monkeypatch.setattr(FL, "flat_groupmax_kernel", recording)
+    ids, sc = flat.query_device(q, k=10)
+    ids0, sc0 = flat_topk_grouped(flat.sketch, flat.corpus, flat.row_ids, q, None, 10,
+                                  refine=flat.refine, gmax_emit_sg=0)
+    assert asked == [32, 0]
+    assert torch.equal(ids, ids0) and torch.equal(sc.view(torch.int32), sc0.view(torch.int32))
+    assert (ids[1::2] >= 0).all() and torch.isfinite(sc).all()
+
+
 def test_exact_tiers_ignore_global_tf32(dev):
     """With TF32 switched on for the whole process, the bench config's
     forest, the ground truth and flat_20k's two legs give the ids they give

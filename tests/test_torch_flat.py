@@ -246,6 +246,52 @@ def test_fold_emitted_sgmax_matches_unemitted(n):
         assert all(torch.equal(u, v) for u, v in zip(a, e))
 
 
+@pytest.mark.parametrize("n,select_sg,refine,want_emit", [
+    (100_032, None, 16, 32),    # the live groups end inside a supergroup
+    (102_400, None, 16, 32),    # ... on a supergroup boundary, dead supergroups after it
+    (131_072, None, 16, 32),    # every supergroup live: full_sg == nsg
+    (100_001, None, 16, 32),    # the last live group partly live
+    (98_303, None, 16, 32),     # ... and full_sg == nsg
+    (20_000, None, 16, 0),      # NG 384: 12 supergroups < 2 rg, the one-level select
+    (100_032, 256, 3, 0),       # NG 1,664 % 256 != 0, the one-level select
+    (100_032, 52, 16, 0),       # two levels of 52 groups, a width K4 cannot emit
+])
+def test_argpack_emits_the_select_tier_by_shape(n, select_sg, refine, want_emit, monkeypatch):
+    """`_argpack_candidates` asks K4 for the supergroup tier at the select's
+    own width exactly where the two-level select reads it, and for none
+    elsewhere; the candidates and answers equal those with no tier bit for
+    bit. The rows lean one way, and half the queries are negated rows, so
+    their every key is negative: the dead groups' unmasked keys in the
+    emitted tier would beat them where the tail were not recomputed."""
+    d, b = 32, 8
+    x = _corpus(n, d, seed=6, clusters=256, noise=0.2)
+    x[:, 0] += 2.0
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    rng = np.random.default_rng(n)
+    rows = np.r_[n - 1, n - 70, rng.integers(0, n, b - 2)]
+    q = x[rows] * np.where(np.arange(b) % 2, -1.0, 1.0)[:, None].astype(np.float32)
+    sk, _ = tflat.build_flat_sketch(torch.as_tensor(x))
+    asked = []
+
+    def recording(*args, **kw):
+        asked.append(kw.get("emit_sg", 0))
+        return K4.flat_groupmax_kernel(*args, **kw)
+
+    monkeypatch.setattr(tflat, "flat_groupmax_kernel", recording)
+    qt = torch.as_tensor(q)
+    got = tflat._argpack_candidates(sk, qt, refine, 64, select_sg=select_sg)
+    want = tflat._argpack_candidates(sk, qt, refine, 64, select_sg=select_sg, emit_sg=0)
+    assert asked == [want_emit, 0]
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    k = min(10, refine)
+    args = (sk, torch.as_tensor(x), torch.arange(n, dtype=torch.int32), qt, None, k)
+    kw = dict(refine=refine, select_mode="argpack", select_sg=select_sg)
+    ids, sc = tflat.flat_topk_grouped(*args, **kw)
+    ids0, sc0 = tflat.flat_topk_grouped(*args, gmax_emit_sg=0, **kw)
+    assert asked[2:] == [want_emit, 0]
+    assert torch.equal(ids, ids0) and torch.equal(sc.view(torch.int32), sc0.view(torch.int32))
+
+
 @pytest.mark.parametrize("mode,dtype,nrows,d", [
     ("auto", torch.int8, 1 << 20, 96), ("auto", torch.int8, (1 << 20) - 1, 96),
     ("auto", torch.bfloat16, 1 << 21, 96), ("argpack", torch.int8, 100, 4096),

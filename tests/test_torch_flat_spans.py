@@ -4,7 +4,9 @@ One profiled `FlatIndex.query` opens one `rdf.query`, one `rdf.chunk` per
 query batch and in each `rdf.score`, `rdf.select` and `rdf.rerank` once,
 in that order, on each route (exact2, argpack, the scan), and its host
 waits in `rdf.sync.upload` and `rdf.sync.answers`; its ids and scores
-equal an untraced call's bit for bit. An `IVFFlatIndex.query`, which calls
+equal an untraced call's bit for bit. Where the argpack select takes its
+two levels, each chunk's `rdf.select` holds one `rdf.sgtier` (K4's emitted
+supergroup tier read in place of a reduce). An `IVFFlatIndex.query`, which calls
 the flat engine's exact refine inside its own `rdf.rerank`, still opens
 exactly one `rdf.rerank` per chunk."""
 
@@ -70,6 +72,37 @@ def test_profiled_flat_answers_equal_untraced(flat_call):
     ids, scores = flat_call()
     with profile(activities=[ProfilerActivity.CPU]):
         ids_t, scores_t = flat_call()
+    assert np.array_equal(ids, ids_t)
+    assert np.array_equal(scores.view(np.uint32), scores_t.view(np.uint32))
+
+
+@pytest.fixture
+def sgtier_index(monkeypatch):
+    """An argpack index whose select takes two levels: 70,000 rows are NG
+    1,152 groups, 36 supergroups of 32 >= 2 x refine 16."""
+    rng = np.random.default_rng(9)
+    n = 70_000
+    x = rng.normal(size=(n, D)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    monkeypatch.setattr(flat_mod, "_ARGPACK_MIN_ROWS", 1)
+    index = FlatIndex(refine=16, query_batch=BATCH, device="cpu").fit(
+        DenseBatch(np.arange(n, dtype=np.int32), x))
+    return index, x[rng.integers(0, n, NQ)] + np.float32(0.01)
+
+
+def test_a_profiled_argpack_query_opens_sgtier_in_select(sgtier_index, tmp_path):
+    index, q = sgtier_index
+    ids, scores = index.query(q, k=10)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ids_t, scores_t = index.query(q, k=10)
+    spans = chrome_spans(prof, tmp_path)
+    chunks = [e for e in spans if e["name"] == "rdf.chunk"]
+    selects = [e for e in spans if e["name"] == "rdf.select"]
+    tiers = [e for e in spans if e["name"] == "rdf.sgtier"]
+    assert len(chunks) == len(selects) == len(tiers) == CHUNKS
+    for c in chunks:
+        sel = [s for s in selects if inside(s, c)]
+        assert len(sel) == 1 and sum(inside(t, sel[0]) for t in tiers) == 1
     assert np.array_equal(ids, ids_t)
     assert np.array_equal(scores.view(np.uint32), scores_t.view(np.uint32))
 
